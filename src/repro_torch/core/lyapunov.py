@@ -1,0 +1,55 @@
+"""Derivative-based drift-plus-penalty machinery (paper eqs. 16-20).
+
+Port of `repro/core/lyapunov.py`. The stepwise indicator
+1{sum_t z_m(t) >= Q} is approximated by the shifted sigmoid
+sigma(z) = 1 / (1 + exp(-alpha (z - Q) / Q)); the per-slot scheduling
+weight is its derivative at zeta_m(t) (bits already delivered). Virtual
+queues track cumulative energy-budget violation.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class VedsParams:
+    alpha: float = 2.0       # sigmoid approximation sharpness
+    V: float = 0.2           # drift-plus-penalty trade-off weight
+    Q: float = 1e7           # model size [bits]
+    slot: float = 0.1        # kappa [s]
+    ipm_iters: int = 25      # Newton iterations for P4 (cold start)
+    ipm_mu: float = 1e-3     # final barrier weight
+    ipm_warm_iters: int = 0  # warm-started P4 budget (not ported yet)
+    ipm_far_iters: int = 0   # adaptive two-tier warm budget (not ported yet)
+    ipm_far_grad_tol: float = 0.0  # near/far tier threshold (not ported yet)
+
+
+def sigmoid_shifted(z: torch.Tensor, prm: VedsParams) -> torch.Tensor:
+    return torch.sigmoid(prm.alpha * (z - prm.Q) / prm.Q)
+
+
+def sigmoid_weight(zeta: torch.Tensor, prm: VedsParams) -> torch.Tensor:
+    """d sigma / d zeta at the delivered-bits state (eq. below (17))."""
+    s = sigmoid_shifted(zeta, prm)
+    return prm.alpha * s * (1.0 - s) / prm.Q
+
+
+def update_queue_sov(q: torch.Tensor, e_cm: torch.Tensor,
+                     e_cons: torch.Tensor, e_cp: torch.Tensor,
+                     T) -> torch.Tensor:
+    """Eq. (19)."""
+    return torch.clamp_min(q + e_cm - (e_cons - e_cp) / T, 0.0)
+
+
+def update_queue_opv(q: torch.Tensor, e_cm: torch.Tensor,
+                     e_cons: torch.Tensor, T) -> torch.Tensor:
+    """Eq. (20)."""
+    return torch.clamp_min(q + e_cm - e_cons / T, 0.0)
+
+
+def update_zeta(zeta: torch.Tensor, z: torch.Tensor,
+                prm: VedsParams) -> torch.Tensor:
+    """Eq. (17): delivered bits, saturated at Q."""
+    return torch.clamp_max(zeta + z, prm.Q)

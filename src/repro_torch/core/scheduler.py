@@ -1,0 +1,117 @@
+"""Scheduler carry and the batched round-output container.
+
+Port of `repro/core/scheduler.py`. Rounds may carry a leading batch axis
+`B` (independent RSU cells, or independent rounds of one cell); a
+scheduler accepts both the single-cell layout (`g_sr: [T, S]`) and the
+batched layout (`g_sr: [B, T, S]`) and returns outputs of matching
+batchedness. The virtual energy queues (eqs. 19-20) come in through an
+optional `SchedulerCarry` and go out in `RoundOutputs.carry`; `carry=None`
+starts them at zero.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
+
+import torch
+
+
+def map_tensors(fn, obj):
+    """Apply `fn` to every tensor field of a dataclass (None stays None)."""
+    return dataclasses.replace(obj, **{
+        f.name: _map_value(fn, getattr(obj, f.name))
+        for f in dataclasses.fields(obj)})
+
+
+def _map_value(fn, v):
+    if v is None:
+        return None
+    if dataclasses.is_dataclass(v):
+        return map_tensors(fn, v)
+    return fn(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerCarry:
+    """Virtual energy queues threaded round-to-round (eqs. 19-20).
+
+      qs  [S] / [B, S]   per-SOV queue [J]
+      qu  [U] / [B, U]   per-OPV queue [J]
+      p4  warm-start table of the reference; the port has only the cold
+          path, so it stays None.
+    """
+    qs: torch.Tensor
+    qu: torch.Tensor
+    p4: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def zeros(rnd) -> "SchedulerCarry":
+        """Fresh queues matching `rnd`'s fleet shape."""
+        return SchedulerCarry(qs=torch.zeros_like(rnd.e_sov),
+                              qu=torch.zeros_like(rnd.e_opv))
+
+
+def init_queues(rnd, carry: Optional[SchedulerCarry]):
+    """Round-start queues (qs0, qu0) broadcast to `rnd`'s fleet shape: the
+    one place the carry-is-None => zero-queues convention lives."""
+    carry = carry if carry is not None else SchedulerCarry.zeros(rnd)
+    return (torch.broadcast_to(carry.qs, rnd.e_sov.shape),
+            torch.broadcast_to(carry.qu, rnd.e_opv.shape))
+
+
+def masked_e_cp(rnd) -> torch.Tensor:
+    """Computation energy chargeable to each SOV slot: zero for padded /
+    never-eligible slots (`valid_sov == False`)."""
+    if rnd.valid_sov is None:
+        return rnd.e_cp
+    return torch.where(rnd.valid_sov, rnd.e_cp, 0.0)
+
+
+def unbatch(out: "RoundOutputs", batched: bool) -> "RoundOutputs":
+    """Strip the canonical B=1 axis when the caller's round was unbatched."""
+    return out if batched else map_tensors(lambda x: x[0], out)
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundOutputs:
+    """Per-round scheduling outcome. Unbatched / batched field shapes:
+
+      success     [S]  / [B, S]   which SOVs uploaded the full model
+      n_success   []   / [B]      successful aggregations in the cell
+      zeta        [S]  / [B, S]   delivered bits at round end
+      energy_sov  [S]  / [B, S]   total SOV energy (compute + transmit) [J]
+      energy_opv  [U]  / [B, U]   total OPV relay energy [J]
+      n_cot_slots []   / [B]      slots spent on cooperative transmission
+      n_dt_slots  []   / [B]      slots spent on direct transmission
+      carry       SchedulerCarry  virtual queues at round end (or None)
+    """
+    success: torch.Tensor
+    n_success: torch.Tensor
+    zeta: torch.Tensor
+    energy_sov: torch.Tensor
+    energy_opv: torch.Tensor
+    n_cot_slots: torch.Tensor
+    n_dt_slots: torch.Tensor
+    carry: Optional[SchedulerCarry] = None
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+    def keys(self) -> Iterator[str]:
+        """Tensor diagnostic fields (`carry` excluded)."""
+        return iter(f.name for f in dataclasses.fields(self)
+                    if f.name != "carry")
+
+    @property
+    def batched(self) -> bool:
+        return self.success.ndim == 2
+
+    @property
+    def batch_size(self) -> int:
+        return self.success.shape[0] if self.batched else 1
+
+    def cell(self, b: int) -> "RoundOutputs":
+        """Slice one cell out of a batched output."""
+        if not self.batched:
+            return self
+        return map_tensors(lambda x: x[b], self)
