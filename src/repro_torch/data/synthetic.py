@@ -1,12 +1,17 @@
-"""Deterministic synthetic CIFAR-like data (offline substitute).
+"""Deterministic synthetic data (offline substitutes).
 
-Port of `cifar_like_dataset` and `partition_labels` of
-`repro/data/synthetic.py`: 10-class 32x32x3 images = class prototype plus
-noise, so a small CNN genuinely learns. Draws come from `torch.Generator`s,
-so the images differ from the reference's for the same seed; the
+Port of `cifar_like_dataset`, `partition_labels` and `lm_batch` of
+`repro/data/synthetic.py`. CIFAR-like: 10-class 32x32x3 images = class
+prototype plus noise, so a small CNN genuinely learns. LM batches: token
+streams that follow a noisy +step pattern, so next-token prediction has
+signal. Draws come from `torch.Generator`s, so the data differ from the
+reference's for the same seed; `lm_batch` is split into a draws step and
+a deterministic step that the tests feed with the reference's draws. The
 partition is numpy, the same as the reference's.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -56,3 +61,40 @@ def partition_labels(labels: np.ndarray, n_clients: int,
         parts[j % n_clients].append(part)
     return [np.concatenate(p) if p else np.array([], np.int64)
             for p in parts]
+
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+
+def lm_batch_draws(gen: torch.Generator, b: int, t: int,
+                   vocab: int) -> Dict[str, torch.Tensor]:
+    """The random draws of `lm_batch`, on `gen`'s device: start token and
+    step per row, and per position a 10% Bernoulli `noise` flag with the
+    uniform token `rand` that replaces it."""
+    device = gen.device
+    return {
+        "start": torch.randint(0, vocab, (b, 1), generator=gen,
+                               device=device),
+        "step": torch.randint(1, 7, (b, 1), generator=gen, device=device),
+        "noise": torch.rand((b, t + 1), generator=gen, device=device) < 0.1,
+        "rand": torch.randint(0, vocab, (b, t + 1), generator=gen,
+                              device=device),
+    }
+
+
+def lm_batch_from_draws(draws: Dict[str, torch.Tensor], t: int,
+                        vocab: int) -> Dict[str, torch.Tensor]:
+    """The deterministic step: tokens [b, t] and next-token labels
+    [b, t] (int64)."""
+    ar = torch.arange(t + 1, device=draws["start"].device)[None, :]
+    toks = (draws["start"] + draws["step"] * ar) % vocab
+    toks = torch.where(draws["noise"], draws["rand"], toks)
+    return {"tokens": toks[:, :t].long(), "labels": toks[:, 1:t + 1].long()}
+
+
+def lm_batch(gen: torch.Generator, b: int, t: int,
+             vocab: int) -> Dict[str, torch.Tensor]:
+    """Structured token stream: tokens follow a noisy +step pattern so the
+    next-token task has learnable signal."""
+    return lm_batch_from_draws(lm_batch_draws(gen, b, t, vocab), t, vocab)

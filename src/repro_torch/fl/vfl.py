@@ -1,0 +1,157 @@
+"""The VFL round: per-vehicle local SGD of an LLM, then the masked
+weighted aggregation that the VEDS scheduler gates.
+
+Port of `repro/fl/vfl.py` on one device. Each vehicle holds its own
+model replica: every parameter leaf has a leading [V] axis. One round:
+
+  1. local SGD (eq. 2): each vehicle's gradient over its local batch,
+     accumulated over `cfg.grad_accum` microbatches, one vehicle after
+     the other into a stacked `new_v`;
+  2. upload/aggregate (eq. 11): `fedavg_agg_tree(new_v, mask * weights,
+     old)`, the one-device form of the reference's psum over the vehicle
+     axes. Failed vehicles (mask 0) contribute nothing; if every upload
+     fails the previous global model is kept. On a CUDA device the
+     aggregation is the `fedavg_agg` kernel.
+
+The aggregate comes back broadcast to [V] as a view (no copy). V = 1 is
+the reference's scalar-mask branch. The reference's multi-device meshes
+and its whole-run streaming step (`stream=`) come with later slices and
+raise.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.veds import veds_round
+from repro_torch.kernels.fedavg_agg.ops import fedavg_agg_tree
+from repro_torch.models import engine
+from repro_torch.models import layers as L
+from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
+
+
+def _one_device(mesh) -> None:
+    if mesh not in (None, 1):
+        raise NotImplementedError(
+            "the port's VFL round runs on one device; device meshes come "
+            "with the sharding slice (ROADMAP queue 1 item 7)")
+
+
+def lm_loss(params, batch, cfg: ModelConfig, tp: str) -> torch.Tensor:
+    logits, aux = engine.forward(params, batch["tokens"], cfg, tp=tp,
+                                 src=batch.get("src"))
+    loss = L.softmax_cross_entropy(logits, batch["labels"])
+    return loss + 0.01 * aux
+
+
+def _local_sgd(params, batch, cfg: ModelConfig, tp: str,
+               loss_fn: Callable, lr: float, out=None):
+    """One FL local update (eq. 2) with microbatch gradient accumulation.
+    With `out` (a tree of tensors shaped like `params`), the new
+    parameters are written there and `out` is returned."""
+    A = max(cfg.grad_accum, 1)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    tree = tree_unflatten(params, leaves)
+    acc = None
+    for a in range(A):
+        mb = {k: x.reshape(A, x.shape[0] // A, *x.shape[1:])[a]
+              for k, x in batch.items()}
+        g = torch.autograd.grad(loss_fn(tree, mb, cfg, tp), leaves)
+        acc = list(g) if acc is None else [s + gi for s, gi in zip(acc, g)]
+    dst = [None] * len(leaves) if out is None else tree_leaves(out)
+    new = []
+    for i, p in enumerate(leaves):
+        step = lr * acc[i] / A
+        acc[i] = None                     # free the gradient as we go
+        if dst[i] is None:
+            new.append((p.detach() - step).to(p.dtype))
+        else:
+            new.append(torch.sub(p.detach(), step, out=dst[i]))
+    return tree_unflatten(params, new)
+
+
+def _vehicle(tree, v: int):
+    return tree_map(lambda x: x[v], tree)
+
+
+def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
+                   loss_fn: Callable = lm_loss, lr: float = 0.1,
+                   stage_hook: Optional[Callable[[str], None]] = None):
+    """Builds round_fn(params_v, batch_v, mask, weights) -> params_v.
+
+    params_v: leading [V] axis; batch_v leaves [V, b, ...];
+    mask/weights: [V] (success indicators from the scheduler; |D_m|
+    weights). `stage_hook(name)`, if given, is called after the
+    "local_sgd" and "aggregate" stages (a caller may time them)."""
+    _one_device(mesh)
+    V = cfg.num_vehicles
+    hook = stage_hook or (lambda name: None)
+
+    if V == 1:
+        def round_fn(params_v, batch_v, mask, weights):
+            p = _vehicle(params_v, 0)
+            new = _local_sgd(p, _vehicle(batch_v, 0), cfg, tp, loss_fn, lr)
+            hook("local_sgd")
+            m = (mask[0] * weights[0] > 0).to(torch.float32)
+            # (nw - old) in the params' dtype, the rest in float32, as
+            # the reference's type promotion does
+            out = tree_map(
+                lambda old, nw: (old.to(torch.float32) + m * (nw - old).to(
+                    torch.float32)).to(old.dtype), p, new)
+            hook("aggregate")
+            return tree_map(lambda x: x[None], out)
+        return round_fn
+
+    def round_fn(params_v, batch_v, mask, weights):
+        old = _vehicle(params_v, 0)
+        new_v = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                               device=x.device), params_v)
+        for v in range(V):
+            _local_sgd(_vehicle(params_v, v), _vehicle(batch_v, v), cfg, tp,
+                       loss_fn, lr, out=_vehicle(new_v, v))
+        hook("local_sgd")
+        w = (mask * weights).to(torch.float32)
+        agg = fedavg_agg_tree(new_v, w, old)
+        hook("aggregate")
+        return tree_map(lambda x: x.unsqueeze(0).expand(V, *x.shape), agg)
+
+    return round_fn
+
+
+def make_train_step(cfg: ModelConfig, mesh=None, tp: str = "head", *,
+                    lr: float = 0.1, inline_scheduler: bool = False,
+                    veds_prm=None, ch_prm=None, stream=None, sched=None,
+                    stage_hook: Optional[Callable[[str], None]] = None):
+    """Train step: (params_v, batch_v, round_inputs, weights) ->
+    (params_v, stats).
+
+    With inline_scheduler, the round's scheduling (Algorithm 2: `sched`,
+    or `veds_round` when it is None) runs first and its success mask
+    gates the aggregation. `stage_hook` is called after "schedule" and
+    after the round's own stages. The reference's whole-run fused step
+    (`stream=...`) comes with the streaming slice and raises."""
+    _one_device(mesh)
+    if stream is not None:
+        raise NotImplementedError(
+            "make_train_step(stream=...) is not ported yet: it needs "
+            "core/streaming.py (ROADMAP queue 1 item 4)")
+    round_fn = make_vfl_round(cfg, mesh, tp, lr=lr, stage_hook=stage_hook)
+    hook = stage_hook or (lambda name: None)
+    V = cfg.num_vehicles
+
+    def step(params_v, batch_v, rnd, weights):
+        if inline_scheduler:
+            out = (sched or veds_round)(rnd, veds_prm, ch_prm)
+            mask = out["success"].to(torch.float32)[:V]
+            n_succ = out["n_success"]
+        else:
+            mask = torch.ones((V,), dtype=torch.float32,
+                              device=weights.device)
+            n_succ = torch.tensor(V, device=weights.device)
+        hook("schedule")
+        new_params = round_fn(params_v, batch_v, mask, weights)
+        return new_params, {"n_success": n_succ, "mask": mask}
+
+    return step

@@ -1,0 +1,149 @@
+"""End-to-end VFL training driver on one device.
+
+Port of `repro/launch/train.py`: trains a reduced variant (the smoke
+config) of an architecture with the full paper pipeline, Manhattan
+mobility -> 3GPP channels -> VEDS scheduling -> local SGD -> masked
+aggregation, on synthetic LM data. Runs on CUDA unless `--device cpu`:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --rounds 2 --vehicles 4 --batch-per-vehicle 2 --seq 64
+
+`train` is the loop itself, for any `ModelConfig` (`chip_smoke.py`
+drives it at qwen3-32b's full width). One card only (`--devices 1`);
+checkpoints (`--ckpt`) come with a later slice and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.channel.mobility import ManhattanParams
+from repro_torch.channel.v2x import ChannelParams
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.core.baselines import get_scheduler
+from repro_torch.core.lyapunov import VedsParams
+from repro_torch.core.scenario import (ScenarioParams, make_round,
+                                       round_generator)
+from repro_torch.data.synthetic import lm_batch
+from repro_torch.fl.vfl import lm_loss, make_train_step
+from repro_torch.models import engine
+from repro_torch.models.module import materialize, param_bytes, tree_map
+from repro_torch.sharding.policy import attention_tp_mode
+
+EVAL_STREAM = 999
+
+
+def _generator(seed: int, stream: int, r: int, device) -> torch.Generator:
+    """The generator of draw stream `stream` in round `r` (data batches;
+    the scenario uses `round_generator(seed, r)`)."""
+    state = np.random.SeedSequence([int(seed), int(stream), int(r)]) \
+        .generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
+          seq: int, lr: float, scheduler: str = "veds", seed: int = 0,
+          device=None, log: Callable[[str], None] = print,
+          stage_hook: Optional[Callable[[str], None]] = None,
+          on_round: Optional[Callable[[dict], None]] = None) -> List[dict]:
+    """`rounds` VFL rounds of `cfg` over `cfg.num_vehicles` vehicles:
+    per round a scenario, the scheduler's success mask, local SGD and
+    the masked aggregation, then the loss of vehicle 0's (aggregated)
+    model on a fixed eval batch. Returns one record per round.
+
+    `stage_hook(name)` is called after "setup", and in every round after
+    "scenario", "schedule", "local_sgd", "aggregate" and "eval";
+    `on_round(record)` after every round."""
+    device = resolve_device(device)
+    V = cfg.num_vehicles
+    tp = attention_tp_mode(cfg.num_heads, 1)
+    sched = get_scheduler(scheduler)
+
+    decl = engine.model_decl(cfg, tp)
+    params = materialize(torch.Generator(device=device).manual_seed(seed),
+                         decl)
+    params_v = tree_map(lambda x: x.unsqueeze(0).expand(V, *x.shape),
+                        params)
+    del params
+    hook = stage_hook or (lambda name: None)
+    q_bits = 8.0 * param_bytes(decl)
+    log(f"arch={cfg.name}: {param_bytes(decl)/1e6:.1f} MB params -> "
+        f"Q={q_bits:.3g} bits, {V} vehicles, tp={tp}, device={device}")
+
+    mob, ch = ManhattanParams(), ChannelParams()
+    prm = VedsParams(Q=min(q_bits, 2e7), slot=0.1)
+    sc = ScenarioParams(n_sov=V, n_opv=8, n_slots=50)
+    step = make_train_step(cfg, None, tp, lr=lr, inline_scheduler=True,
+                           veds_prm=prm, ch_prm=ch, sched=sched,
+                           stage_hook=stage_hook)
+    weights = torch.ones((V,), device=device)
+    eval_batch = lm_batch(_generator(seed, EVAL_STREAM, 0, device), 8, seq,
+                          cfg.vocab_size)
+    hook("setup")
+    history = []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        rnd = make_round(round_generator(seed, r, device), sc, mob, ch, prm)
+        batch = lm_batch(_generator(seed, 1, r, device),
+                         V * batch_per_vehicle, seq, cfg.vocab_size)
+        batch_v = {k: x.reshape(V, batch_per_vehicle, *x.shape[1:])
+                   for k, x in batch.items()}
+        hook("scenario")
+        params_v, stats = step(params_v, batch_v, rnd, weights)
+        with torch.no_grad():
+            loss = float(lm_loss(tree_map(lambda x: x[0], params_v),
+                                 eval_batch, cfg, tp))
+        hook("eval")
+        wall = time.perf_counter() - t0
+        rec = dict(round=r, n_success=int(stats["n_success"]),
+                   mask=[int(m) for m in stats["mask"].tolist()],
+                   loss=loss, wall_s=wall)
+        history.append(rec)
+        log(f"round {r:3d} succ={int(stats['mask'].sum())}/{V} "
+            f"loss={loss:.4f}  ({wall:.1f}s)")
+        if on_round is not None:
+            on_round(rec)
+    return history
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-32b")
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--devices", type=int, default=1)
+    ap.add_argument("--vehicles", type=int, default=4)
+    ap.add_argument("--batch-per-vehicle", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=0.5)
+    ap.add_argument("--scheduler", default="veds",
+                    choices=["veds", "optimal", "v2i_only", "madca", "sa"])
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' on request)")
+    args = ap.parse_args(argv)
+    if args.devices != 1:
+        raise NotImplementedError(
+            f"--devices {args.devices}: the port trains on one card; device "
+            f"meshes come with the sharding slice (ROADMAP queue 1 item 7)")
+    if args.ckpt:
+        raise NotImplementedError(
+            "--ckpt: the npz checkpoint with bf16 leaves is not ported yet "
+            "(ROADMAP queue 1 item 9)")
+    cfg = get_smoke_config(args.arch).replace(num_vehicles=args.vehicles,
+                                              grad_accum=1)
+    train(cfg, rounds=args.rounds, batch_per_vehicle=args.batch_per_vehicle,
+          seq=args.seq, lr=args.lr, scheduler=args.scheduler, seed=args.seed,
+          device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,12 +14,19 @@ import torch
 
 from repro.channel.mobility import ManhattanParams as JManhattan
 from repro.channel.v2x import ChannelParams as JChannel
+from repro.configs import base as jbase
+from repro.configs import qwen3_32b as jqwen
+from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
 from repro.core.lyapunov import VedsParams as JVeds
 from repro.core.scenario import ScenarioParams as JScenario
 from repro.fl.simulator import FLSimConfig as JFLSimConfig
 from repro_torch import resolve_device
 from repro_torch.channel.mobility import ManhattanParams
 from repro_torch.channel.v2x import ChannelParams
+from repro_torch.configs import base
+from repro_torch.configs import qwen3_32b as qwen
+from repro_torch.configs.registry import (ARCH_IDS, get_config,
+                                          get_smoke_config)
 from repro_torch.core.lyapunov import VedsParams
 from repro_torch.core.scenario import ScenarioParams
 from repro_torch.fl.simulator import FLSimConfig
@@ -42,6 +49,51 @@ def test_parameter_dataclasses_match_reference(ours, ref):
         assert ours().noise_power == ref().noise_power
 
 
+@pytest.mark.parametrize("ours,ref", [
+    (base.ModelConfig, jbase.ModelConfig),
+    (base.ShapeConfig, jbase.ShapeConfig)])
+def test_config_dataclasses_match_reference_field_for_field(ours, ref):
+    fo, fr = dataclasses.fields(ours), dataclasses.fields(ref)
+    assert [(f.name, f.default) for f in fo] == \
+        [(f.name, f.default) for f in fr]
+    assert ours.__dataclass_params__.frozen
+
+
+def test_input_shapes_and_derived_config_values_match_reference():
+    assert [dataclasses.asdict(s) for s in base.INPUT_SHAPES] == \
+        [dataclasses.asdict(s) for s in jbase.INPUT_SHAPES]
+    assert base.round_up(1000, 128) == jbase.round_up(1000, 128)
+    cfg, ref = qwen.config(), jqwen.config()
+    for name in ("num_layers", "d_inner", "ssm_heads", "q_per_kv"):
+        assert getattr(cfg, name) == getattr(ref, name)
+    assert cfg.effective_window(4096) == ref.effective_window(4096)
+    assert str(cfg.dtype) == f"torch.{ref.dtype}"
+    assert str(cfg.replace(param_dtype="float32").pdtype) == \
+        "torch.float32"
+
+
+@pytest.mark.parametrize("which", ["config", "smoke_config"])
+def test_qwen3_configs_match_reference_value_for_value(which):
+    ours, ref = getattr(qwen, which)(), getattr(jqwen, which)()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert qwen.ID == jqwen.ID
+    got = (get_config if which == "config" else get_smoke_config)(qwen.ID)
+    assert got == ours
+
+
+def test_registry_names_every_reference_arch_and_ports_only_qwen3():
+    assert ARCH_IDS == J_ARCH_IDS
+    for arch in ARCH_IDS:
+        if arch == qwen.ID:
+            continue
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_smoke_config(arch)
+    with pytest.raises(KeyError):
+        get_config("gpt-2")
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -57,7 +109,7 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_reference_package():
     files = _port_files()
-    assert len(files) >= 17
+    assert len(files) >= 34
     for path in files + [ROOT / "chip_smoke.py"]:
         for mod in _imports(path):
             top = mod.split(".")[0]
