@@ -1,7 +1,8 @@
 """Architecture registry: --arch <id> resolution for launch/train.
 
 Port of `repro/configs/registry.py`. `ARCH_IDS` is the reference's tuple;
-only `qwen3-32b` (dense, GQA) is ported so far. Every other id raises
+`qwen3-32b` (dense, GQA) and `zamba2-2.7b` (hybrid: Mamba2 and a
+weight-tied attention block) are ported so far. Every other id raises
 `NotImplementedError` naming the slice of the port that brings its
 blocks.
 """
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs import qwen3_32b
+from repro_torch.configs import qwen3_32b, zamba2_2p7b
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS: Tuple[str, ...] = (
@@ -17,13 +18,11 @@ ARCH_IDS: Tuple[str, ...] = (
     "minitron-4b", "llama-3.2-vision-90b", "granite-moe-1b-a400m",
     "whisper-small", "codeqwen1.5-7b", "llama4-scout-17b-a16e")
 
-_PORTED = {qwen3_32b.ID: qwen3_32b}
+_PORTED = {qwen3_32b.ID: qwen3_32b, zamba2_2p7b.ID: zamba2_2p7b}
 
 # what each unported architecture still needs (ROADMAP.md queue 1)
 _WAITS_FOR = {
-    "zamba2-2.7b": "the Mamba2 slice (mamba_apply, causal conv, the "
-                   "ssd_scan kernel)",
-    "xlstm-1.3b": "the xLSTM blocks (mlstm/slstm)",
+    "xlstm-1.3b": "the xLSTM blocks (mlstm/slstm, queue 1 item 9)",
     "starcoder2-15b": "the rest of the LLM zoo (queue 1 item 9)",
     "minitron-4b": "row-parallel attention (queue 1 item 9)",
     "llama-3.2-vision-90b": "the vlm projector and cross-attention "

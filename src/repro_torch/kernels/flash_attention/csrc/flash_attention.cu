@@ -71,7 +71,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int T_len, int S, int H, int KV,
                  float scale, int causal, int window, int q_offset) {
-  constexpr int NJ = D >= 32 ? D / 32 : 1;  // output columns per lane
+  constexpr int NJ = (D + 31) / 32;  // output columns per lane (col < D)
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
   float* sK = sQ + kBQ * D;
@@ -279,6 +279,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
                            causal, window, q_offset, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
+                           causal, window, q_offset, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
                            causal, window, q_offset, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, B, T_len, S, H, KV, scale,

@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels.build import load_library
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, o, lse pointers; dtype, B, T, S, H, KV, D, causal, window,
 # q_offset; scale; stream

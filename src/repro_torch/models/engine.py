@@ -12,9 +12,10 @@ The reference scans the stacked blocks with `lax.scan`; here a Python
 loop indexes repetition r of every leaf. `cfg.remat` wraps each
 sub-block in `torch.utils.checkpoint` (non-reentrant), as the reference
 wraps it in `jax.checkpoint`. `llm_params_from_jax` carries the
-reference's parameters across. The encoder, the vlm projector, the
-MoE, Mamba and xLSTM sub-blocks and decoding come with later slices and
-raise.
+reference's parameters across. The weight-tied "shared" trees (zamba2)
+are used by every repetition, so their gradients sum over the uses. The
+encoder, the vlm projector, the MoE and xLSTM sub-blocks and decoding
+come with later slices and raise.
 """
 from __future__ import annotations
 
@@ -37,14 +38,15 @@ _DECLS = {
     "attn_swa": lambda cfg, tp: B.attn_decl(cfg, tp),
     "cross": lambda cfg, tp: B.attn_decl(cfg, tp, cross=True),
     "mlp": B.mlp_decl,
+    "mamba": B.mamba_decl,
 }
 
 
 def _ported(kind: str, table):
     if kind not in table:
         raise NotImplementedError(
-            f"sub-block kind {kind!r} is not ported yet (ROADMAP queue 1: "
-            f"item 0 for mamba, item 9 for moe, mlstm and slstm)")
+            f"sub-block kind {kind!r} is not ported yet (ROADMAP queue 1 "
+            f"item 9: moe, mlstm and slstm)")
     return table[kind]
 
 
@@ -136,6 +138,7 @@ _APPLY = {
     "attn_swa": functools.partial(B.attn_apply, kind="attn_swa"),
     "cross": functools.partial(B.attn_apply, kind="cross"),
     "mlp": B.mlp_apply,
+    "mamba": B.mamba_apply,
 }
 
 

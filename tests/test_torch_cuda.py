@@ -1,5 +1,5 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
-(`veds_score`, `flash_attention`, `fedavg_agg`) against their plain
+(`veds_score`, `flash_attention`, `fedavg_agg`, `ssd_scan`) against their plain
 PyTorch versions on the card. Marked `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
 runs on a machine without the reference package's toolchain:
@@ -15,6 +15,8 @@ from repro_torch.kernels.fedavg_agg.ops import fedavg_agg, fedavg_agg_plain
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_fwd,
                                                      flash_attention_plain)
+from repro_torch.kernels.ssd_scan.ops import (ssd_scan, ssd_scan_fwd,
+                                              ssd_scan_naive, ssd_scan_plain)
 from repro_torch.kernels.veds_score.ops import (veds_dt_score,
                                                 veds_dt_score_plain)
 from torch_port_util import require_cuda
@@ -82,6 +84,9 @@ def _qkv(B, T, S, H, KV, D, dtype, seed):
     (128, 128, 2, 2, 64, True, None, 0, torch.bfloat16),
     (1000, 1000, 16, 2, 128, True, None, 0, torch.bfloat16),
     (77, 131, 8, 8, 128, True, 50, 54, torch.float32),
+    # zamba2's head dim: 3 columns a lane, the third only for lanes < 16
+    (256, 256, 4, 4, 80, True, None, 0, torch.bfloat16),
+    (100, 150, 4, 2, 80, False, 70, 0, torch.float32),
 ])
 def test_flash_attention_kernel_matches_plain_version(
         T, S, H, KV, D, causal, window, off, dtype):
@@ -100,6 +105,31 @@ def test_flash_attention_kernel_matches_plain_version(
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_writes_every_column_at_head_dim_80(dtype):
+    """zamba2's head dim, 80, is not a multiple of 32: each lane holds
+    three output columns (lane, lane + 32, lane + 64), the third only for
+    lanes < 16. Columns 64-79 are the ones a kernel with two columns a lane
+    would leave unwritten; the output's memory is filled with NaN before
+    the launch (the caching allocator hands the same block back), so an
+    unwritten column shows as NaN. Columns 64-79 within 2e-5 (fp32) or
+    2e-2 (bf16) of the plain version."""
+    require_cuda()
+    q, k, v = _qkv(2, 192, 192, 4, 4, 80, dtype, 80)
+    torch.full_like(q, float("nan"))            # freed, then reused below
+    torch.cuda.synchronize()
+    out, _ = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ref, _ = flash_attention_plain(q, k, v, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    tail = out[..., 64:].float()
+    assert bool(torch.isfinite(tail).all())
+    torch.testing.assert_close(tail, ref[..., 64:].float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -200,3 +230,90 @@ def test_new_kernel_wrappers_check_their_inputs():
                    x[0])
     with pytest.raises(ValueError, match="contiguous"):
         fedavg_agg(x[:, ::2], torch.zeros(2, device="cuda"), x[0, ::2])
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+def _ssd(B, T, H, dtype, seed, decay=1.0):
+    """v [B,T,H,64] and b/c [B,T,64] in `dtype`, log_a [B,T,H] =
+    -decay * softplus(normal) float32, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    la = -decay * torch.nn.functional.softplus(rn(B, T, H))
+    return (rn(B, T, H, 64).to(dtype), rn(B, T, 64).to(dtype),
+            rn(B, T, 64).to(dtype), la)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,chunk,dtype,state0", [
+    (2, 512, 4, 128, torch.float32, False),
+    (2, 512, 4, 128, torch.bfloat16, False),
+    (1, 333, 3, 128, torch.float32, True),    # ragged T: pad path
+    (3, 256, 1, 128, torch.float32, False),   # H = 1: the Pallas layout
+    (2, 96, 2, 32, torch.bfloat16, True),     # the smoke config's chunk
+])
+def test_ssd_scan_kernel_matches_plain_version(B, T, H, chunk, dtype,
+                                               state0):
+    """Kernel vs plain version on the card, y and the final state: fp32
+    within atol = rtol = 2e-4 (the kernel's products and cumsum sum in
+    other orders over chunks of up to 128 steps), bf16 y within 5e-2
+    (both round the fp32 result to bf16 once). The decay of a chunk of 128
+    reaches ~100, past where exp overflows above the diagonal. One launch
+    per call."""
+    require_cuda()
+    v, b, c, la = _ssd(B, T, H, dtype, T + H)
+    s0 = torch.randn((B, H, 64, 64), device="cuda") if state0 else None
+    before = ssd_scan_fwd.launches
+    y, s = ssd_scan_fwd(v, b, c, la, chunk, s0)
+    torch.cuda.synchronize()
+    assert ssd_scan_fwd.launches == before + 1
+    assert y.dtype == dtype and y.shape == v.shape
+    ry, rs = ssd_scan_plain(v, b, c, la, chunk, s0)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float(), ry.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, rs, atol=2e-4, rtol=2e-4)
+    if T <= 333 and dtype == torch.float32:
+        ny, ns = ssd_scan_naive(v, b, c, la, s0)
+        torch.testing.assert_close(y, ny, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(s, ns, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_function_gradients_on_card():
+    """The Function (kernel forward, backward by autograd through the
+    plain version) against autograd through the plain version, both on
+    the card, fp32, with cotangents on y and the state: atol = rtol =
+    1e-4."""
+    require_cuda()
+    ins = [x.requires_grad_() for x in _ssd(2, 256, 3, torch.float32, 7,
+                                            decay=0.5)]
+    y, s = ssd_scan(*ins, 128)
+    cy, cs = torch.randn_like(y), torch.randn_like(s)
+    got = torch.autograd.grad((y * cy).sum() + (s * cs).sum(), ins)
+    ry, rs = ssd_scan_plain(*ins, 128)
+    want = torch.autograd.grad((ry * cy).sum() + (rs * cs).sum(), ins)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_checks_its_inputs():
+    require_cuda()
+    v, b, c, la = _ssd(1, 64, 2, torch.float32, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_fwd(v.transpose(1, 2).contiguous().transpose(1, 2), b, c,
+                     la, 32)
+    with pytest.raises(ValueError, match="must be"):
+        ssd_scan_fwd(v, b.bfloat16(), c, la, 32)
+    with pytest.raises(ValueError, match="must be"):
+        ssd_scan_fwd(v, b, c, la.double(), 32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan_fwd(v, b, c, la, 16)
+    with pytest.raises(ValueError, match="N = 64"):
+        ssd_scan_fwd(v[..., :32].contiguous(), b, c, la, 32)

@@ -16,6 +16,7 @@ from repro.channel.mobility import ManhattanParams as JManhattan
 from repro.channel.v2x import ChannelParams as JChannel
 from repro.configs import base as jbase
 from repro.configs import qwen3_32b as jqwen
+from repro.configs import zamba2_2p7b as jzamba2
 from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
 from repro.core.lyapunov import VedsParams as JVeds
 from repro.core.scenario import ScenarioParams as JScenario
@@ -25,6 +26,7 @@ from repro_torch.channel.mobility import ManhattanParams
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.configs import base
 from repro_torch.configs import qwen3_32b as qwen
+from repro_torch.configs import zamba2_2p7b as zamba2
 from repro_torch.configs.registry import (ARCH_IDS, get_config,
                                           get_smoke_config)
 from repro_torch.core.lyapunov import VedsParams
@@ -81,10 +83,21 @@ def test_qwen3_configs_match_reference_value_for_value(which):
     assert got == ours
 
 
-def test_registry_names_every_reference_arch_and_ports_only_qwen3():
+@pytest.mark.parametrize("which", ["config", "smoke_config"])
+def test_zamba2_configs_match_reference_value_for_value(which):
+    ours, ref = getattr(zamba2, which)(), getattr(jzamba2, which)()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert zamba2.ID == jzamba2.ID
+    for name in ("num_layers", "d_inner", "ssm_heads", "q_per_kv"):
+        assert getattr(ours, name) == getattr(ref, name)
+    got = (get_config if which == "config" else get_smoke_config)(zamba2.ID)
+    assert got == ours
+
+
+def test_registry_names_every_reference_arch_and_ports_qwen3_and_zamba2():
     assert ARCH_IDS == J_ARCH_IDS
     for arch in ARCH_IDS:
-        if arch == qwen.ID:
+        if arch in (qwen.ID, zamba2.ID):
             continue
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
@@ -109,7 +122,7 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_reference_package():
     files = _port_files()
-    assert len(files) >= 34
+    assert len(files) >= 37
     for path in files + [ROOT / "chip_smoke.py"]:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -294,7 +294,7 @@ def test_model_decl_refuses_families_of_later_slices():
     jcfg, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match="encoder"):
         engine.model_decl(cfg.replace(encoder_layers=2), "head")
-    for kind in ("moe", "mamba", "mlstm", "slstm"):
+    for kind in ("moe", "mlstm", "slstm"):
         with pytest.raises(NotImplementedError, match=kind):
             engine.model_decl(cfg.replace(pattern=("attn", kind)), "head")
     for kind, swa in [("attn", True), ("attn", False), ("mlp", True),

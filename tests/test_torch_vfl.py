@@ -231,7 +231,7 @@ def test_train_main_runs_on_cpu_with_finite_losses(capsys):
     (["--devices", "8"], "one card"),
     (["--ckpt", "x.npz"], "checkpoint"),
     (["--scheduler", "sa"], "not ported"),
-    (["--arch", "zamba2-2.7b"], "ssd_scan"),
+    (["--arch", "xlstm-1.3b"], "xLSTM"),
 ])
 def test_train_main_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
