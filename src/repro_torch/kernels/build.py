@@ -2,11 +2,13 @@
 
 Every `*.cu` source under `kernels/**/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into one shared library with a plain C interface. The
-sources are compiled in parallel, one `nvcc` each, then linked. The build
-runs at first use, into `build/torch_kernels/` at the root of the
-checkout (listed in `.gitignore`), under a name keyed by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.
+sources are compiled in parallel, one `nvcc` each, then linked; they
+include shared headers (`kernels/csrc/*.cuh`) by their path under the
+kernels directory, which is on the include path. The build runs at first
+use, into `build/torch_kernels/` at the root of the checkout (listed in
+`.gitignore`), under a name keyed by a hash of every file under
+`kernels/**/csrc/` (sources and headers) and the flags, so an edited
+source or header is rebuilt and an unchanged tree is loaded as it is.
 
 Nothing here runs at import time: the CPU tests import every module and
 this machine may have no `nvcc`.
@@ -28,7 +30,8 @@ BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "-I", str(KERNELS_DIR))
+_CSRC_SUFFIXES = (".cu", ".cuh")
 
 
 class KernelLibrary:
@@ -60,6 +63,23 @@ class KernelLibrary:
 
 def sources() -> List[Path]:
     return sorted(KERNELS_DIR.glob("**/csrc/*.cu"))
+
+
+def csrc_files() -> List[Path]:
+    """Every file the build reads: the sources and the headers they
+    include."""
+    return sorted(p for p in KERNELS_DIR.glob("**/csrc/*")
+                  if p.suffix in _CSRC_SUFFIXES and p.is_file())
+
+
+def library_name() -> str:
+    """The library's file name, keyed by the flags and the path and
+    content of every file under `kernels/**/csrc/`."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in csrc_files():
+        h.update(f.relative_to(KERNELS_DIR).as_posix().encode())
+        h.update(f.read_bytes())
+    return f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -116,12 +136,7 @@ def load_library() -> KernelLibrary:
     global _LIBRARY
     with _LOCK:
         if _LIBRARY is None:
-            h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-            for src in sources():
-                h.update(src.name.encode())
-                h.update(src.read_bytes())
-            name = f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
-            target = BUILD_DIR / name
+            target = BUILD_DIR / library_name()
             log = "" if target.is_file() else _build(target)
             _LIBRARY = KernelLibrary(target, log)
         return _LIBRARY

@@ -16,9 +16,9 @@
 // Bound: operations. At the training shape (T = S = 1024, D = 128) a
 // query row does 2 * 2 * S * D flops (half of them under a causal mask)
 // for 2 * D * 2 bytes of its own q and o, far above the card's
-// operations-per-byte balance. This first version runs on the CUDA cores
-// in fp32 (inputs converted on load), not on the tensor cores, so it sits
-// far above the bf16 tensor-core bound; wgmma and TMA are later work.
+// operations-per-byte balance. This version runs fp32 inputs on the CUDA
+// cores, where the fp32 tolerances hold (TF32 or bf16 products would not);
+// bf16 inputs run on the tensor cores in flash_attention_sm90.cu.
 //
 // The products use explicit fmaf: the library is built with --fmad=false
 // (for the bitwise kernels beside this one), which only stops the compiler
@@ -34,7 +34,6 @@
 // when every (query, key) pair in it is masked (the reference's
 // attention.py:138 `_band_tiles` does the same).
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,19 +44,6 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kRowsPerWarp = kBQ / (kThreads / 32);
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
 template <int D>
 constexpr int shared_floats() {
   // sQ [BQ][D], sK [BK][D + 1] (padded: lanes read 32 different keys at
@@ -65,10 +51,10 @@ constexpr int shared_floats() {
   return kBQ * D + kBK * (D + 1) + kBK * D + kBQ * kBK;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int T_len, int S, int H, int KV,
                  float scale, int causal, int window, int q_offset) {
   constexpr int NJ = (D + 31) / 32;  // output columns per lane (col < D)
@@ -89,18 +75,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int64_t q_row_stride = static_cast<int64_t>(H) * D;
   const int64_t kv_row_stride = static_cast<int64_t>(KV) * D;
-  const T* qb = q + (static_cast<int64_t>(b) * T_len) * q_row_stride +
-                static_cast<int64_t>(h) * D;
-  const T* kb = k + (static_cast<int64_t>(b) * S) * kv_row_stride +
-                static_cast<int64_t>(kvh) * D;
-  const T* vb = v + (static_cast<int64_t>(b) * S) * kv_row_stride +
-                static_cast<int64_t>(kvh) * D;
+  const float* qb = q + (static_cast<int64_t>(b) * T_len) * q_row_stride +
+                    static_cast<int64_t>(h) * D;
+  const float* kb = k + (static_cast<int64_t>(b) * S) * kv_row_stride +
+                    static_cast<int64_t>(kvh) * D;
+  const float* vb = v + (static_cast<int64_t>(b) * S) * kv_row_stride +
+                    static_cast<int64_t>(kvh) * D;
 
   // stage the Q block (rows past T are zero and never written out)
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int t = q0 + r;
-    sQ[i] = t < T_len ? to_f32(qb[t * q_row_stride + c]) : 0.0f;
+    sQ[i] = t < T_len ? qb[t * q_row_stride + c] : 0.0f;
   }
 
   float m_i[kRowsPerWarp], l_i[kRowsPerWarp];
@@ -129,8 +115,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = i % D;
       const int s = k0 + r;
       const bool ok = s < S;
-      sK[r * (D + 1) + c] = ok ? to_f32(kb[s * kv_row_stride + c]) : 0.0f;
-      sV[r * D + c] = ok ? to_f32(vb[s * kv_row_stride + c]) : 0.0f;
+      sK[r * (D + 1) + c] = ok ? kb[s * kv_row_stride + c] : 0.0f;
+      sV[r * D + c] = ok ? vb[s * kv_row_stride + c] : 0.0f;
     }
     __syncthreads();
 
@@ -230,12 +216,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = q0 + row0 + r;
     if (t >= T_len) continue;
     const float den = fmaxf(l_i[r], 1e-37f);
-    T* orow = o + (static_cast<int64_t>(b) * T_len + t) * q_row_stride +
-              static_cast<int64_t>(h) * D;
+    float* orow = o +
+                  (static_cast<int64_t>(b) * T_len + t) * q_row_stride +
+                  static_cast<int64_t>(h) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = lane + 32 * j;
-      if (col < D) orow[col] = from_f32<T>(acc[r][j] / den);
+      if (col < D) orow[col] = acc[r][j] / den;
     }
     if (lane == 0)
       lse[(static_cast<int64_t>(b) * H + h) * T_len + t] =
@@ -243,7 +230,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int T_len, int S, int H, int KV, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
@@ -251,41 +238,40 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+  flash_fwd_kernel<D><<<grid, kThreads, smem_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), T_len, S, H, KV, scale, causal, window,
       q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int T_len, int S, int H, int KV,
                float scale, int causal, int window, int q_offset,
                cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
-                           causal, window, q_offset, stream);
+      return launch<16>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
+                        causal, window, q_offset, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
-                           causal, window, q_offset, stream);
+      return launch<32>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
+                        causal, window, q_offset, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
-                           causal, window, q_offset, stream);
+      return launch<64>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
+                        causal, window, q_offset, stream);
     case 80:
-      return launch<T, 80>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
-                           causal, window, q_offset, stream);
+      return launch<80>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
+                        causal, window, q_offset, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
-                            causal, window, q_offset, stream);
+      return launch<128>(q, k, v, o, lse, B, T_len, S, H, KV, scale,
+                         causal, window, q_offset, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -296,24 +282,19 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // Launches the forward on `stream` and returns the CUDA error code of the
-// launch (0 on success). dtype: 0 float32, 1 bfloat16 (q, k, v and o).
+// launch (0 on success). q, k, v and o float32 (bf16 inputs go to
+// flash_attention_sm90.cu's tensor-core kernel instead).
 // window <= 0 means no window. All tensors contiguous, device pointers.
-int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* o, void* lse, int dtype, int B, int T_len,
-                        int S, int H, int KV, int D, int causal, int window,
-                        int q_offset, float scale, void* stream) {
+int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int T_len, int S,
+                            int H, int KV, int D, int causal, int window,
+                            int q_offset, float scale, void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, lse, B, T_len, S, H, KV, scale,
-                             causal, window, q_offset, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, T_len, S, H,
-                                     KV, scale, causal, window, q_offset,
-                                     st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_d(D, q, k, v, o, lse, B, T_len, S, H, KV, scale,
+                    causal, window, q_offset,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

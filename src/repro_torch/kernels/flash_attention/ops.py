@@ -2,12 +2,15 @@
 version, the backward in explicit PyTorch ops, and the autograd Function
 that joins them.
 
-The kernel (`csrc/flash_attention.cu`) replaces the Pallas TPU kernel
-`repro/kernels/flash_attention/flash_attention.py`. Layout, as the
-reference's GQA wrapper `ops.py:flash_attention_tpu`: q [B, T, H, D],
-k and v [B, S, KV, D] with KV dividing H, out [B, T, H, D]. For tensors
-on the CPU `flash_attention_fwd` runs `flash_attention_plain`; for CUDA
-tensors it launches the kernel, or raises.
+The kernels replace the Pallas TPU kernel
+`repro/kernels/flash_attention/flash_attention.py`, one per dtype: bf16
+inputs run on the tensor cores (`csrc/flash_attention_sm90.cu`: wgmma and
+TMA), fp32 inputs on the CUDA cores (`csrc/flash_attention.cu`), where the
+fp32 tolerances hold. Layout, as the reference's GQA wrapper
+`ops.py:flash_attention_tpu`: q [B, T, H, D], k and v [B, S, KV, D] with
+KV dividing H, out [B, T, H, D]. For tensors on the CPU
+`flash_attention_fwd` runs `flash_attention_plain`; for CUDA tensors it
+launches the kernel of their dtype, or raises.
 
 The JAX package has no backward kernel: it differentiates the jnp
 attention with autodiff. Here the backward is the standard flash
@@ -27,10 +30,12 @@ from repro_torch.kernels.build import load_library
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# q, k, v, o, lse pointers; dtype, B, T, S, H, KV, D, causal, window,
-# q_offset; scale; stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+# the C entry point of each dtype
+ENTRY_POINTS = {torch.float32: "flash_attention_fwd_f32",
+                torch.bfloat16: "flash_attention_fwd_bf16_sm90"}
+# q, k, v, o, lse pointers; B, T, S, H, KV, D, causal, window, q_offset;
+# scale; stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -94,8 +99,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out [B, T, H, D] in q's dtype, lse [B, H, T] float32).
-    Adds one to `flash_attention_fwd.launches` each time it launches the
-    kernel."""
+    Adds one to `flash_attention_fwd.launches` each time it launches a
+    kernel, and names its entry point in `flash_attention_fwd.entry`."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -108,9 +113,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"on {q.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
-    if q.dtype not in _DTYPES:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (the bf16 kernel loads it by TMA)")
+    if q.dtype not in ENTRY_POINTS:
         raise ValueError(f"flash_attention: dtype {q.dtype} not in "
-                         f"{list(_DTYPES)}")
+                         f"{list(ENTRY_POINTS)}")
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -121,19 +129,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out, lse
     lib = load_library()
-    fn = lib.function("flash_attention_fwd", _ARGTYPES)
+    entry = ENTRY_POINTS[q.dtype]
+    fn = lib.function(entry, _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), _DTYPES[q.dtype], B, T, S, H, KV, D,
-                int(causal), 0 if window is None else int(window),
-                int(q_offset), 1.0 / math.sqrt(D), stream)
+                lse.data_ptr(), B, T, S, H, KV, D, int(causal),
+                0 if window is None else int(window), int(q_offset),
+                1.0 / math.sqrt(D), stream)
     lib.check(rc, "flash_attention")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.entry = entry
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.entry = None
 
 
 def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,

@@ -22,9 +22,9 @@
 // Bound: bytes. At the training shape (B 4, T 1024, H 80, N = P = 64,
 // C 128, bf16) the scan reads v and writes y (42 MB each) for about
 // 6.3 MFLOP per (row, head, chunk), below the card's operations-per-byte
-// balance at the bf16 tensor-core rate. This first version runs fp32 FMAs
-// on the CUDA cores, so it sits far above that bound; wgmma and TMA are
-// later work.
+// balance at the bf16 tensor-core rate. This version runs fp32 inputs with
+// fp32 FMAs on the CUDA cores, where the fp32 tolerances hold; bf16 inputs
+// run on the tensor cores in ssd_scan_sm90.cu.
 //
 // Design: one CTA of 256 threads per (head, batch row), walking the
 // chunks in order. A chunk's v, b and c (converted to fp32), its cumsum
@@ -45,25 +45,11 @@
 // mask after that exp and gets 0 * inf = NaN there; the Pallas kernel
 // selects, as here).
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 // K consecutive floats of shared memory to registers and back, as one
 // vector access where K allows (the address is K * 4 byte aligned)
@@ -109,11 +95,11 @@ struct Shape {
   static constexpr int bytes = floats * 4;
 };
 
-template <typename T, int C, int N, int P>
+template <int C, int N, int P>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const T* __restrict__ v, const T* __restrict__ b,
-                const T* __restrict__ c, const float* __restrict__ log_a,
-                const float* __restrict__ state0, T* __restrict__ y,
+ssd_scan_kernel(const float* __restrict__ v, const float* __restrict__ b,
+                const float* __restrict__ c, const float* __restrict__ log_a,
+                const float* __restrict__ state0, float* __restrict__ y,
                 float* __restrict__ state_out, int T_len, int H) {
   using S = Shape<C, N, P>;
   static_assert(C % 32 == 0 && C <= 128, "C a multiple of 32, at most 128");
@@ -145,12 +131,12 @@ ssd_scan_kernel(const T* __restrict__ v, const T* __restrict__ b,
   const int tid = threadIdx.x;
   const int lo = tid % 16, hi = tid / 16;
   const int64_t vrow = static_cast<int64_t>(H) * P;  // v, y: per step
-  const T* vb = v + static_cast<int64_t>(row) * T_len * vrow +
-                static_cast<int64_t>(h) * P;
-  T* ybase = y + static_cast<int64_t>(row) * T_len * vrow +
-             static_cast<int64_t>(h) * P;
-  const T* bb = b + static_cast<int64_t>(row) * T_len * N;
-  const T* cb = c + static_cast<int64_t>(row) * T_len * N;
+  const float* vb = v + static_cast<int64_t>(row) * T_len * vrow +
+                    static_cast<int64_t>(h) * P;
+  float* ybase = y + static_cast<int64_t>(row) * T_len * vrow +
+                 static_cast<int64_t>(h) * P;
+  const float* bb = b + static_cast<int64_t>(row) * T_len * N;
+  const float* cb = c + static_cast<int64_t>(row) * T_len * N;
   const float* lb = log_a + static_cast<int64_t>(row) * T_len * H + h;
 
   // the state, S[n][p] for n = lo * NR + r, p = hi * PC + u
@@ -174,17 +160,17 @@ ssd_scan_kernel(const T* __restrict__ v, const T* __restrict__ b,
     // row-major too (scaled by the tail decay below); raw log_a
     for (int i = tid; i < C * P; i += kThreads) {
       const int t = i / P, p = i % P;
-      sV[i] = to_f32(vb[(t0 + t) * vrow + p]);
+      sV[i] = vb[(t0 + t) * vrow + p];
     }
     for (int i = tid; i < C * N; i += kThreads) {
       const int blk = i / 32, lane = i % 32;
       const int n = (blk % (N / 8)) * 8 + lane % 8;
       const int t = (blk / (N / 8)) * 4 + lane / 8;
       const int64_t g = static_cast<int64_t>(t0 + t) * N + n;
-      const float bv = to_f32(bb[g]);
+      const float bv = bb[g];
       sBt[n * CP + t] = bv;
       sBeff[t * NB + n] = bv;
-      sCt[n * CP + t] = to_f32(cb[g]);
+      sCt[n * CP + t] = cb[g];
     }
     for (int t = tid; t < C; t += kThreads)
       sCum[t] = lb[static_cast<int64_t>(t0 + t) * H];
@@ -318,12 +304,14 @@ ssd_scan_kernel(const T* __restrict__ v, const T* __restrict__ b,
 #pragma unroll
       for (int r = 0; r < H2; ++r) {
         const float ea = expf(sCum[rA + r]), eb = expf(sCum[rB + r]);
-        T* outa = ybase + static_cast<int64_t>(t0 + rA + r) * vrow + lo * PC;
-        T* outb = ybase + static_cast<int64_t>(t0 + rB + r) * vrow + lo * PC;
+        float* outa =
+            ybase + static_cast<int64_t>(t0 + rA + r) * vrow + lo * PC;
+        float* outb =
+            ybase + static_cast<int64_t>(t0 + rB + r) * vrow + lo * PC;
 #pragma unroll
         for (int u = 0; u < PC; ++u) {
-          outa[u] = from_f32<T>(ya[r][u] + ea * za[r][u]);
-          outb[u] = from_f32<T>(ybl[r][u] + eb * zb[r][u]);
+          outa[u] = ya[r][u] + ea * za[r][u];
+          outb[u] = ybl[r][u] + eb * zb[r][u];
         }
       }
     }
@@ -365,7 +353,7 @@ ssd_scan_kernel(const T* __restrict__ v, const T* __restrict__ b,
       state_out[soff + (lo * NR + r) * P + hi * PC + u] = st[r][u];
 }
 
-template <typename T, int C, int N, int P>
+template <int C, int N, int P>
 int launch(const void* v, const void* b, const void* c, const float* log_a,
            const float* state0, void* y, float* state_out, int B,
            int T_len, int H, cudaStream_t stream) {
@@ -373,31 +361,30 @@ int launch(const void* v, const void* b, const void* c, const float* log_a,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<T, C, N, P>,
+        ssd_scan_kernel<C, N, P>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(H, B);
-  ssd_scan_kernel<T, C, N, P><<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(v), static_cast<const T*>(b),
-      static_cast<const T*>(c), log_a, state0, static_cast<T*>(y),
+  ssd_scan_kernel<C, N, P><<<grid, kThreads, smem_bytes, stream>>>(
+      static_cast<const float*>(v), static_cast<const float*>(b),
+      static_cast<const float*>(c), log_a, state0, static_cast<float*>(y),
       state_out, T_len, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(int chunk, const void* v, const void* b, const void* c,
              const float* log_a, const float* state0, void* y,
              float* state_out, int B, int T_len, int H,
              cudaStream_t stream) {
   switch (chunk) {
     case 32:
-      return launch<T, 32, 64, 64>(v, b, c, log_a, state0, y, state_out, B,
-                                   T_len, H, stream);
+      return launch<32, 64, 64>(v, b, c, log_a, state0, y, state_out, B,
+                                T_len, H, stream);
     case 128:
-      return launch<T, 128, 64, 64>(v, b, c, log_a, state0, y, state_out,
-                                    B, T_len, H, stream);
+      return launch<128, 64, 64>(v, b, c, log_a, state0, y, state_out,
+                                 B, T_len, H, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -408,28 +395,23 @@ int dispatch(int chunk, const void* v, const void* b, const void* c,
 extern "C" {
 
 // Launches the scan on `stream` and returns the CUDA error code of the
-// launch (0 on success). dtype: 0 float32, 1 bfloat16 (v, b, c and y);
-// log_a, state0 (may be null: a zero state) and state_out float32. The
-// kernel is compiled for N = P = 64 and chunk in {32, 128}; T must be
-// a multiple of the chunk. All tensors contiguous, device pointers.
-int ssd_scan_fwd(const void* v, const void* b, const void* c,
-                 const void* log_a, const void* state0, void* y,
-                 void* state_out, int dtype, int B, int T_len, int H, int N,
-                 int P, int chunk, void* stream) {
+// launch (0 on success). v, b, c and y float32 (bf16 inputs go to
+// ssd_scan_sm90.cu's tensor-core kernel instead); log_a, state0 (may be
+// null: a zero state) and state_out float32. The kernel is compiled for
+// N = P = 64 and chunk in {32, 128}; T must be a multiple of the chunk.
+// All tensors contiguous, device pointers.
+int ssd_scan_fwd_f32(const void* v, const void* b, const void* c,
+                     const void* log_a, const void* state0, void* y,
+                     void* state_out, int B, int T_len, int H, int N, int P,
+                     int chunk, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (N != 64 || P != 64 || chunk <= 0 || T_len <= 0 ||
       T_len % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* la = static_cast<const float*>(log_a);
-  const float* s0 = static_cast<const float*>(state0);
-  float* so = static_cast<float*>(state_out);
-  if (dtype == 0)
-    return dispatch<float>(chunk, v, b, c, la, s0, y, so, B, T_len, H, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(chunk, v, b, c, la, s0, y, so, B, T_len,
-                                   H, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(chunk, v, b, c, static_cast<const float*>(log_a),
+                  static_cast<const float*>(state0), y,
+                  static_cast<float*>(state_out), B, T_len, H,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -3,9 +3,11 @@ plain PyTorch version, the naive recurrence (an oracle for the tests),
 and the autograd Function that joins the kernel to a backward in
 PyTorch ops.
 
-The kernel (`csrc/ssd_scan.cu`) replaces the Pallas TPU kernel
-`repro/kernels/ssd_scan/ssd_scan.py`, and runs where the reference's
-model computes the same function with the jnp scan
+The kernels replace the Pallas TPU kernel
+`repro/kernels/ssd_scan/ssd_scan.py`, one per dtype: bf16 inputs run on
+the tensor cores (`csrc/ssd_scan_sm90.cu`), fp32 inputs on the CUDA cores
+(`csrc/ssd_scan.cu`), where the fp32 tolerances hold. They run where the
+reference's model computes the same function with the jnp scan
 `repro/models/blocks.py:_ssd_chunk_scan`:
 
   S_t = exp(la_t) S_{t-1} + b_t v_t^T,   y_t = c_t . S_t,
@@ -19,7 +21,7 @@ neither y before T nor the state (the Pallas wrapper's pad path,
 `repro/kernels/ssd_scan/ops.py:20-31`).
 
 For tensors on the CPU `ssd_scan_fwd` runs `ssd_scan_plain`; for CUDA
-tensors it launches the kernel, or raises. The reference has no backward
+tensors it launches the kernel of their dtype, or raises. The reference has no backward
 kernel (it differentiates the jnp scan under `jax.checkpoint`), so
 `SsdScanFn.backward` re-runs `ssd_scan_plain` under autograd and takes
 its gradients.
@@ -34,14 +36,16 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.build import load_library
 
-# what the kernel is compiled for (csrc/ssd_scan.cu: dispatch)
+# what the kernels are compiled for (their `dispatch` and `launch`)
 CHUNKS = (32, 128)
 STATE_DIM = 64
 HEAD_DIM = 64
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# v, b, c, log_a, state0 (or null), y, state pointers; dtype, B, T, H, N,
-# P, chunk; stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# the C entry point of each dtype
+ENTRY_POINTS = {torch.float32: "ssd_scan_fwd_f32",
+                torch.bfloat16: "ssd_scan_fwd_bf16_sm90"}
+# v, b, c, log_a, state0 (or null), y, state pointers; B, T, H, N, P,
+# chunk; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _pad_to_chunk(v, b, c, log_a, chunk: int):
@@ -149,16 +153,16 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  state0: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [B, T, H, P] in v's dtype, final state [B, H, N, P]
-    float32). Adds one to `ssd_scan_fwd.launches` each time it launches
-    the kernel."""
+    float32). Adds one to `ssd_scan_fwd.launches` each time it launches a
+    kernel, and names its entry point in `ssd_scan_fwd.entry`."""
     _check(v, b, c, log_a, state0)
     if v.device.type == "cpu":
         return ssd_scan_plain(v, b, c, log_a, chunk, state0)
     if v.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {v.device}")
-    if v.dtype not in _DTYPES:
+    if v.dtype not in ENTRY_POINTS:
         raise ValueError(f"ssd_scan: dtype {v.dtype} not in "
-                         f"{list(_DTYPES)}")
+                         f"{list(ENTRY_POINTS)}")
     named = [("v", v, v.dtype), ("b", b, v.dtype), ("c", c, v.dtype),
              ("log_a", log_a, torch.float32)]
     if state0 is not None:
@@ -169,6 +173,9 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                              f"{v.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} is not contiguous")
+        if v.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name} is not 16-byte aligned "
+                             f"(the bf16 kernel loads it by cp.async)")
     B, T, H, P = v.shape
     N = b.shape[-1]
     chunk, vp, bp, cp, lp = _pad_to_chunk(v, b, c, log_a, chunk)
@@ -179,19 +186,22 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     y = torch.empty_like(vp)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=v.device)
     lib = load_library()
-    fn = lib.function("ssd_scan_fwd", _ARGTYPES)
+    entry = ENTRY_POINTS[v.dtype]
+    fn = lib.function(entry, _ARGTYPES)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         rc = fn(vp.data_ptr(), bp.data_ptr(), cp.data_ptr(), lp.data_ptr(),
                 None if state0 is None else state0.data_ptr(),
-                y.data_ptr(), state.data_ptr(), _DTYPES[v.dtype], B,
-                vp.shape[1], H, N, P, chunk, stream)
+                y.data_ptr(), state.data_ptr(), B, vp.shape[1], H, N, P,
+                chunk, stream)
     lib.check(rc, "ssd_scan")
     ssd_scan_fwd.launches += 1
+    ssd_scan_fwd.entry = entry
     return y[:, :T], state
 
 
 ssd_scan_fwd.launches = 0
+ssd_scan_fwd.entry = None
 
 
 class SsdScanFn(torch.autograd.Function):

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
-(`veds_score`, `flash_attention`, `fedavg_agg`, `ssd_scan`) against their plain
+(`veds_score`, `flash_attention`, `fedavg_agg`, `ssd_scan`; the last two
+in their fp32 CUDA-core and bf16 tensor-core variants) against their plain
 PyTorch versions on the card. Marked `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
 runs on a machine without the reference package's toolchain:
@@ -105,6 +106,92 @@ def test_flash_attention_kernel_matches_plain_version(
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,H,KV,D,causal,window,off", [
+    (256, 256, 4, 2, 16, True, None, 0),
+    (200, 260, 4, 2, 32, False, 90, 0),
+    (300, 300, 8, 2, 64, True, 100, 0),
+    (256, 256, 4, 4, 80, True, None, 0),
+    (333, 333, 8, 4, 128, True, None, 0),
+    # ragged T and S, window and q_offset: rows t >= 50 (qpos >= 170 =
+    # S - 1 + window) see no key and average v over all S keys
+    (77, 131, 8, 8, 80, True, 40, 120),
+    # GQA with 8 query heads per KV head, as qwen3
+    (256, 256, 16, 2, 128, True, None, 0),
+])
+def test_flash_attention_bf16_kernel_matches_plain_version(
+        T, S, H, KV, D, causal, window, off):
+    """The bf16 tensor-core kernel (wgmma, TMA) at every head dim it is
+    built for against the plain version on the card: out within atol =
+    rtol = 2e-2 (P is rounded to bf16 before P V, and both round the
+    output once), lse within 1e-4 (and 1e-5 relative: a row that sees no
+    key has lse -1e30). One launch per call, through the bf16 entry
+    point."""
+    require_cuda()
+    q, k, v = _qkv(2, T, S, H, KV, D, torch.bfloat16, T + S + D)
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert flash_attention_fwd.entry == "flash_attention_fwd_bf16_sm90"
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, q_offset=off)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    if window is not None and off + T > S - 1 + window:
+        blind = slice(S - 1 + window - off, T)
+        assert bool((ref_lse[:, :, blind] == -1e30).all())
+        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
+        torch.testing.assert_close(
+            out[:, blind].float(),
+            mean_v[:, None].expand_as(out[:, blind]), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_runs_the_tensor_core_kernels_and_fp32_the_cuda_core_ones():
+    """Dispatch by dtype only: bf16 CUDA tensors reach the sm90 entry
+    points, fp32 ones the CUDA-core kernels; one launch each."""
+    require_cuda()
+    for dtype, fa_entry, ssd_entry in (
+            (torch.bfloat16, "flash_attention_fwd_bf16_sm90",
+             "ssd_scan_fwd_bf16_sm90"),
+            (torch.float32, "flash_attention_fwd_f32", "ssd_scan_fwd_f32")):
+        q, k, v = _qkv(1, 64, 64, 2, 1, 64, dtype, 2)
+        before = flash_attention_fwd.launches
+        flash_attention_fwd(q, k, v)
+        assert flash_attention_fwd.launches == before + 1
+        assert flash_attention_fwd.entry == fa_entry
+        vv, b, c, la = _ssd(1, 64, 2, dtype, 3)
+        before = ssd_scan_fwd.launches
+        ssd_scan_fwd(vv, b, c, la, 32)
+        assert ssd_scan_fwd.launches == before + 1
+        assert ssd_scan_fwd.entry == ssd_entry
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_function_gradients_on_card():
+    """The Function with the bf16 kernel forward (whose out and lse the
+    backward reads) against autograd through the plain version in float32
+    on the same bf16 inputs: within atol = rtol = 2e-2, the forward's
+    bf16 tolerance."""
+    require_cuda()
+    q, k, v = _qkv(2, 160, 160, 8, 2, 80, torch.bfloat16, 6)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = flash_attention(q, k, v, causal=True, window=96, bwd_chunk=64)
+    ct = torch.randn(out.shape, device="cuda").bfloat16()
+    got = torch.autograd.grad(out, (q, k, v), ct)
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref, _ = flash_attention_plain(qf, kf, vf, causal=True, window=96)
+    want = torch.autograd.grad(ref, (qf, kf, vf), ct.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b, atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -282,6 +369,46 @@ def test_ssd_scan_kernel_matches_plain_version(B, T, H, chunk, dtype,
         ny, ns = ssd_scan_naive(v, b, c, la, s0)
         torch.testing.assert_close(y, ny, atol=2e-4, rtol=2e-4)
         torch.testing.assert_close(s, ns, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,chunk,state0,dt07", [
+    (2, 512, 8, 128, False, False),
+    (2, 1000, 8, 128, True, False),    # ragged T: pad path
+    (2, 256, 8, 32, True, False),      # the smoke config's chunk
+    (1, 333, 3, 32, False, False),
+    (2, 512, 8, 128, False, True),     # decays of a chunk pass 88
+])
+def test_ssd_scan_bf16_kernel_matches_plain_version(B, T, H, chunk, state0,
+                                                    dt07):
+    """The bf16 tensor-core kernel against the plain version on the card:
+    y entry by entry within 2^-7 of the plain version's entry plus 1e-3
+    of max|y| (both round an fp32 result to bf16 once; the kernel's
+    products keep ~16 bits of W, S and the decayed b), the fp32 final state
+    within 5e-5 of max|state|. At dt ~ 0.7 (zamba2's init) the exponent
+    above the diagonal reaches past exp(88): y stays finite. One launch
+    per call, through the bf16 entry point."""
+    require_cuda()
+    v, b, c, la = _ssd(B, T, H, torch.bfloat16, T + H + chunk)
+    if dt07:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        la = -0.7 * (1.0 + 0.01 * torch.randn((B, T, H), generator=g,
+                                              device="cuda"))
+        span = -la.reshape(B, T // chunk, chunk, H)[:, :, 1:].sum(2)
+        assert bool(torch.isinf(torch.exp(span)).any())
+    s0 = torch.randn((B, H, 64, 64), device="cuda") if state0 else None
+    before = ssd_scan_fwd.launches
+    y, s = ssd_scan_fwd(v, b, c, la, chunk, s0)
+    torch.cuda.synchronize()
+    assert ssd_scan_fwd.launches == before + 1
+    assert ssd_scan_fwd.entry == "ssd_scan_fwd_bf16_sm90"
+    assert y.dtype == torch.bfloat16 and y.shape == v.shape
+    ry, rs = ssd_scan_plain(v, b, c, la, chunk, s0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    ys = float(ry.float().abs().max())
+    diff = (y.float() - ry.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * ry.float().abs() + 1e-3 * ys).all())
+    assert float((s - rs).abs().max()) <= 5e-5 * float(rs.abs().max())
 
 
 @pytest.mark.cuda

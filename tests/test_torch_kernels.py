@@ -113,6 +113,34 @@ def test_build_takes_every_source_for_sm90a_without_fast_math():
     assert build.BUILD_DIR.relative_to(build.REPO_ROOT).parts[0] == "build"
 
 
+def test_build_hashes_headers_so_a_header_edit_rebuilds(tmp_path,
+                                                       monkeypatch):
+    """The library's name keys every file under `kernels/**/csrc/`: an
+    edit of the shared header alone gives another name (a rebuild), an
+    edit outside `csrc/` does not; the kernels directory is on nvcc's
+    include path, where the sources find `csrc/hopper.cuh`."""
+    assert "-I" in build.NVCC_FLAGS
+    assert build.NVCC_FLAGS[build.NVCC_FLAGS.index("-I") + 1] == \
+        str(build.KERNELS_DIR)
+    files = [p.relative_to(build.KERNELS_DIR).as_posix()
+             for p in build.csrc_files()]
+    assert "csrc/hopper.cuh" in files
+    assert "flash_attention/csrc/flash_attention_sm90.cu" in files
+    for rel in files:
+        dst = tmp_path / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes((build.KERNELS_DIR / rel).read_bytes())
+    (tmp_path / "ops.py").write_text("x = 1\n")
+    monkeypatch.setattr(build, "KERNELS_DIR", tmp_path)
+    name = build.library_name()
+    assert name == build.library_name()
+    (tmp_path / "ops.py").write_text("x = 2\n")
+    assert build.library_name() == name
+    header = tmp_path / "csrc" / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build.library_name() != name
+
+
 # ---------------------------------------------------------------------------
 # flash_attention and fedavg_agg (plain versions; the kernels run on a card)
 # ---------------------------------------------------------------------------
