@@ -11,7 +11,11 @@ with its kernel launches counted from 0:
 
 - `run_fl`, blocked, VEDS + CNN FedAvg at the paper's full width (40
   clients, S=U=10 vehicles, T=60 slots, batch 32, the 6-conv CIFAR CNN),
-  then the card against the CPU on a small input;
+  with its stages timed and traced and the block's schedule run again
+  with the slot step eager, then the card against the CPU on a small
+  input. On the card `veds_round` replays one captured CUDA graph of the
+  VEDS slot step per slot; every phase that schedules logs the graphs it
+  captured, and the graph is held to the eager step bit for bit;
 - the VFL training loop of `launch/train.py` at qwen3-32b's full width
   (d_model 5120, 64 query and 8 KV heads of 128, d_ff 25600, vocab
   151936, bf16) cut to 2 repetitions, 4 vehicles with 4 sequences of
@@ -31,8 +35,10 @@ moved to the tensor cores (the schedule does not depend on the kernels);
 their eval losses are logged beside the recorded ones, and each
 model's eval loss at init is taken through the kernels, through their
 plain versions and with every bf16 weight moved one ulp, to set the
-kernels' effect beside the model's own sensitivity. TF32 is off
-for matmuls and cuDNN throughout.
+kernels' effect beside the model's own sensitivity. `veds_score` is
+also timed launched from a CUDA graph, beside a one-element PyTorch op
+captured the same way (the floor of that setting). TF32 is off for
+matmuls and cuDNN throughout.
 
 The last line of its output is `{"ok": true, "device": {...}}`; the line
 before it lists each kernel with its launches on the main path, its error
@@ -214,8 +220,30 @@ def bound_ms(n: int):
                                  else "operations")
 
 
-def phase_kernels(shapes, device):
-    """Each kernel against its plain version on the card, and timed."""
+def graph_ms(fn, reps: int = 100, inner: int = 20):
+    """Per-launch time of `fn` captured `reps` times into one CUDA graph
+    and replayed (after one warm-up call outside the capture, as PyTorch's
+    recipe asks), and what the last captured call returned, as the
+    replays left it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    ms = time_ms(graph.replay, inner) / reps
+    torch.cuda.synchronize()
+    return ms, out
+
+
+def phase_kernels(shapes, device, graphed=()):
+    """Each kernel against its plain version on the card, and timed; at
+    the shapes in `graphed` also launched from a CUDA graph of 100
+    launches (bit for bit against the plain version), beside the floor of
+    that setting: a one-element PyTorch op captured the same way."""
     from repro_torch.core.lyapunov import VedsParams
     from repro_torch.channel.v2x import ChannelParams
     from repro_torch.kernels.veds_score.ops import (veds_dt_score,
@@ -251,6 +279,19 @@ def phase_kernels(shapes, device):
             f"{err:.3e} max_rel_err {rel:.3e} (tolerance |kernel-plain| <= "
             f"{rtol}*|plain|) kernel {ms:.5f} ms plain {plain_ms:.5f} ms "
             f"bound {b_ms:.7f} ms ({b_by})")
+        if label not in graphed:
+            continue
+        g_ms, outs = graph_ms(lambda: veds_dt_score(g, q, w, e, **kw))
+        check(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+              f"veds_score {label}: launched from a CUDA graph, the kernel "
+              f"differs from the plain version")
+        one = torch.zeros(1, device=device)
+        floor_ms, _ = graph_ms(lambda: one.add_(1.0))
+        res[label].update(graph_ms=g_ms, graph_floor_ms=floor_ms)
+        log("kernels", f"veds_score {label} {list(shape)} from a CUDA graph "
+            f"of 100 launches: {g_ms:.5f} ms a launch, bit for bit as the "
+            f"plain version; floor (a one-element add_ in the same "
+            f"setting) {floor_ms:.5f} ms; eager {ms:.5f} ms")
     return res
 
 
@@ -279,6 +320,7 @@ def make_fl_setup(device, rounds: int, round_batch: int):
 
 
 def phase_main(device, rounds: int, round_batch: int):
+    from repro_torch.core.veds import _SlotGraph
     from repro_torch.fl.simulator import run_fl
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.models.cnn import cnn_accuracy, cnn_loss
@@ -297,11 +339,13 @@ def phase_main(device, rounds: int, round_batch: int):
         f"{time.perf_counter() - t0:.2f} s")
 
     veds_dt_score.launches = 0
+    captures = _SlotGraph.captures
     t0 = time.perf_counter()
     hist = run_fl(0, params, cnn_loss, client_data, sim, eval_fn=eval_fn,
                   eval_every=1, device=device)
     wall = time.perf_counter() - t0          # run_fl synchronises at exit
     launches = {"veds_score": veds_dt_score.launches}
+    captures = _SlotGraph.captures - captures
 
     n_blocks = math.ceil(rounds / round_batch)
     want = n_blocks * sim.n_slots
@@ -312,7 +356,8 @@ def phase_main(device, rounds: int, round_batch: int):
     log("main", f"n_success {hist['n_success']} test_acc "
         f"{[round(m, 4) for m in hist['metric']]}")
     log("main", f"launches on the main path: {launches} (expected "
-        f"veds_score {want} = {n_blocks} blocks x T {sim.n_slots})")
+        f"veds_score {want} = {n_blocks} blocks x T {sim.n_slots}); slot "
+        f"graphs captured: {captures}")
     check(launches["veds_score"] == want,
           f"veds_score launched {launches['veds_score']} times on the main "
           f"path, expected {want}")
@@ -322,23 +367,30 @@ def phase_main(device, rounds: int, round_batch: int):
           "n_success out of range")
     check(all(math.isfinite(m) and 0.0 <= m <= 1.0
               for m in hist["metric"]), "accuracy not finite in [0, 1]")
-    return dict(history=hist, wall_s=wall, launches=launches), \
+    return dict(history=hist, wall_s=wall, launches=launches,
+                graph_captures=captures), \
         (params, client_data, eval_fn, sim)
 
 
 def phase_stages(device, setup):
     """One block of the main path, stage by stage: scenario, scheduling,
     training, eval. A first pass closes each stage with a device
-    synchronisation and times it on the host clock; a second pass runs
-    the same block under `torch.profiler` and reads the device's busy
-    time (the sum of its kernels' and copies' times) and their number."""
+    synchronisation and times it on the host clock, and schedules the
+    same rounds again with the slot step run eagerly (the path before the
+    slot graph), timed the same way and held to the graph's outputs bit
+    for bit; a second pass runs the block under `torch.profiler` and
+    reads the device's busy time (the sum of its kernels' and copies'
+    times) and their number. The idle share is reported only where the
+    trace holds the `veds_score` launches of the graph's replays. A third
+    pass traces the schedule alone and must see one `veds_score` run a
+    slot."""
     from repro_torch.channel.mobility import ManhattanParams
     from repro_torch.channel.v2x import ChannelParams
     from repro_torch.core.baselines import get_scheduler
     from repro_torch.core.lyapunov import VedsParams
     from repro_torch.core.scenario import (ScenarioParams, make_round,
                                            round_generator)
-    from repro_torch.core.veds import RoundInputs
+    from repro_torch.core.veds import RoundInputs, _SlotGraph, _veds_round
     from repro_torch.fl.engine import client_grads, fedavg_apply
     from repro_torch.models.cnn import cnn_loss
     params, client_data, eval_fn, sim = setup
@@ -386,31 +438,85 @@ def phase_stages(device, setup):
             "veds").solve_round(RoundInputs.stack(rounds), prm, ch))
         p = stage("train_ms", lambda: train(out))
         stage("eval_ms", lambda: float(eval_fn(p)))
+        return rounds, out
 
     times = {}
-    block(times)
+    captures = _SlotGraph.captures
+    rounds, out = block(times)
+    captures = _SlotGraph.captures - captures
     log("stages", f"one block of {B} rounds: " + ", ".join(
-        f"{k[:-3]} {v:.1f} ms" for k, v in times.items()))
+        f"{k[:-3]} {v:.1f} ms" for k, v in times.items())
+        + f"; slot graphs captured in it: {captures}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = _veds_round(RoundInputs.stack(rounds), prm, ch, enable_cot=True,
+                        carry=None, graphed=False)
+    torch.cuda.synchronize()
+    times["schedule_eager_ms"] = (time.perf_counter() - t0) * 1e3
+    for k in out.keys():
+        check(torch.equal(out[k], eager[k]), f"stages: the slot graph's "
+              f"{k} differs from the eager step's")
+    check(torch.equal(out.carry.qs, eager.carry.qs)
+          and torch.equal(out.carry.qu, eager.carry.qu),
+          "stages: the slot graph's queues differ from the eager step's")
+    log("stages", f"the same rounds with the slot step run eagerly: "
+        f"schedule {times['schedule_eager_ms']:.1f} ms (graph "
+        f"{times['schedule_ms']:.1f} ms); outputs bit for bit equal")
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     traced = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         block(traced)
-    # device-side events: kernels, copies and memsets
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    wall_ms = sum(traced.values())
-    prof_res = dict(traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                    device_events=len(kernels),
-                    idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0
-                    else None)
-    log("stages", f"traced block: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms in {len(kernels)} device events, idle share "
-        + (f"{prof_res['idle_share']:.3f}" if busy_ms > 0 else
-           "not measured (the profiler saw no device time)"))
-    return dict(rounds=B, **times, profile=prof_res)
+    prof_res = trace_summary(prof, sum(traced.values()), sim.n_slots)
+    log("stages", f"traced block (schedule {traced['schedule_ms']:.1f} "
+        f"ms): " + trace_line(prof_res))
+
+    # the schedule alone, traced: its own idle share, the device events
+    # (graph nodes that ran) a slot, and one veds_score run a slot seen
+    # by the profiler, apart from the kernel's own count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        get_scheduler("veds").solve_round(RoundInputs.stack(rounds), prm, ch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sched_res = trace_summary(prof, wall_ms, sim.n_slots)
+    sched_res["events_per_slot"] = sched_res["device_events"] / sim.n_slots
+    log("stages", f"traced schedule alone ({sched_res['events_per_slot']:.1f}"
+        f" device events a slot): " + trace_line(sched_res))
+    check(sched_res["veds_score_events"] == sim.n_slots,
+          f"stages: the traced schedule ran veds_score "
+          f"{sched_res['veds_score_events']} times on the card, expected "
+          f"one a slot ({sim.n_slots})")
+    return dict(rounds=B, graph_captures=captures, **times,
+                profile=prof_res, profile_schedule=sched_res)
+
+
+def trace_summary(prof, wall_ms: float, n_slots: int):
+    """Device busy time (the sum of the kernels', copies' and memsets'
+    times) and events of a `torch.profiler` trace over `wall_ms` of host
+    time, and the idle share, reported only where the trace holds the
+    `n_slots` `veds_score` launches of the slot graph's replays."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    n_veds = sum("veds_score" in e.name for e in events)
+    seen = busy_ms > 0 and n_veds == n_slots
+    return dict(traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_events=len(events), veds_score_events=n_veds,
+                idle_share=(1.0 - busy_ms / wall_ms) if seen else None)
+
+
+def trace_line(res) -> str:
+    return (f"wall {res['traced_wall_ms']:.1f} ms, device busy "
+            f"{res['device_busy_ms']:.1f} ms in {res['device_events']} "
+            f"device events ({res['veds_score_events']} of veds_score), "
+            f"idle share " + (f"{res['idle_share']:.3f}"
+                              if res["idle_share"] is not None else
+                              "not measured (the profiler does not show "
+                              "the slot graph's kernels)"))
 
 
 def phase_reference(device):
@@ -424,7 +530,7 @@ def phase_reference(device):
     from repro_torch.core.lyapunov import VedsParams
     from repro_torch.core.scenario import (ScenarioParams, make_round,
                                            round_generator)
-    from repro_torch.core.veds import RoundInputs, veds_round
+    from repro_torch.core.veds import RoundInputs, _veds_round, veds_round
     from repro_torch.fl.engine import client_grads, fedavg_apply
     from repro_torch.models.cnn import cnn_loss, init_cnn
     sc = ScenarioParams(n_sov=4, n_opv=4, n_slots=12)
@@ -440,6 +546,14 @@ def phase_reference(device):
     for k in ("zeta", "energy_sov", "energy_opv"):
         check(torch.allclose(gpu[k].cpu(), cpu[k], rtol=1e-4, atol=1e-9),
               f"veds_round {k} beyond rtol 1e-4 between card and CPU")
+    eager = _veds_round(rnd.to(device), prm, ch, enable_cot=True, carry=None,
+                        graphed=False)
+    for k in gpu.keys():
+        check(torch.equal(gpu[k], eager[k]), f"veds_round {k}: the slot "
+              f"graph differs from the eager step on the card")
+    check(torch.equal(gpu.carry.qs, eager.carry.qs)
+          and torch.equal(gpu.carry.qu, eager.carry.qu),
+          "veds_round queues: the slot graph differs from the eager step")
 
     model = init_cnn(torch.Generator().manual_seed(5))
     params = {k: v.detach() for k, v in model.named_parameters()}
@@ -467,7 +581,8 @@ def phase_reference(device):
           f"differ between card and CPU beyond 1e-4 relative (norm-wise)")
     log("reference", f"card vs CPU on a small input: veds_round decisions "
         f"identical (n_success {cpu.n_success.tolist()}, COT slots "
-        f"{cpu.n_cot_slots.tolist()}); CNN grads {grad_err:.2e} and FedAvg "
+        f"{cpu.n_cot_slots.tolist()}); on the card the slot graph equals the "
+        f"eager step bit for bit; CNN grads {grad_err:.2e} and FedAvg "
         f"update {upd_err:.2e} relative (norm-wise, tolerance 1e-4)")
     return dict(n_success=cpu.n_success.tolist(),
                 n_cot_slots=cpu.n_cot_slots.tolist(),
@@ -859,6 +974,7 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_fwd
+    from repro_torch.core.veds import _SlotGraph
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.launch.train import train
     from repro_torch.models import engine
@@ -893,11 +1009,13 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     fedavg_agg.launches = 0
     ssd_scan_fwd.launches = 0
     veds_dt_score.launches = 0
+    captures = _SlotGraph.captures
     mark[0] = time.perf_counter()
     hist = train(cfg, rounds=warmup + rounds, batch_per_vehicle=batch,
                  seq=seq, lr=lr, seed=0, device=device,
                  log=lambda m: log(phase, m), stage_hook=hook,
                  on_round=on_round)
+    captures = _SlotGraph.captures - captures
     launches = {"flash_attention": flash_attention_fwd.launches,
                 "fedavg_agg": fedavg_agg.launches,
                 "ssd_scan": ssd_scan_fwd.launches,
@@ -938,7 +1056,9 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
         # one per slot of the round's schedule
         "veds_score": n * VFL_SLOTS,
     }
-    log(phase, f"launches on the VFL path: {launches} (expected {want})")
+    log(phase, f"launches on the VFL path: {launches} (expected {want}); "
+        f"slot graphs captured: {captures}; schedule "
+        f"{[round(r['schedule_ms'], 1) for r in per_round]} ms by round")
     for k, w in want.items():
         check(launches[k] == w, f"{k} launched {launches[k]} times on the "
               f"VFL path, expected {w}")
@@ -948,7 +1068,7 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
         log(phase, "masks as recorded")
     timed = per_round[warmup:]
     return dict(setup_ms=setup_ms, rounds=per_round, launches=launches,
-                expected_launches=want, lr=lr,
+                expected_launches=want, lr=lr, graph_captures=captures,
                 timed_wall_s=[r["wall_s"] for r in timed],
                 history_len=len(hist))
 
@@ -1227,8 +1347,9 @@ def main(argv=None) -> int:
         elif "registers" in line or "spill" in line:
             log("build", f"{entry}: {line.strip()}")
 
-    kernels = phase_kernels({"main": (ROUND_BATCH, 10),
-                             "large": (1 << 22,)}, device)
+    kernels = phase_kernels({"main": (ROUND_BATCH, 10), "vfl": (1, 4),
+                             "large": (1 << 22,)}, device,
+                            graphed=("main", "vfl"))
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
@@ -1292,7 +1413,12 @@ def main(argv=None) -> int:
         "launches": zamba2["launches"]["veds_score"],
         "launches_by_path": by_path("veds_score"),
         "max_abs_err": max_err(kernels),
-        **timed(k, shape=k["shape"])}, {
+        **timed(k, shape=k["shape"], graph_ms=k["graph_ms"],
+                graph_floor_ms=k["graph_floor_ms"],
+                vfl_shape=timed(kernels["vfl"], shape=kernels["vfl"]["shape"],
+                                graph_ms=kernels["vfl"]["graph_ms"],
+                                graph_floor_ms=kernels["vfl"][
+                                    "graph_floor_ms"]))}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_sm90.cu",

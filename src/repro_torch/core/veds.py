@@ -3,9 +3,17 @@
 Port of `repro/core/veds.py`, cold path. Every candidate of a slot is
 scored at once: the [B, S] direct-transmission (DT) candidates through the
 `veds_score` CUDA kernel, and the [B, S, U] cooperative (COT) candidates
-through one batched interior-point solve of P4. The round is a Python loop
-over slots, and the leading batch axis `B` (independent RSU cells, or
-independent rounds of one cell) rides through the whole round.
+through one batched interior-point solve of P4. The leading batch axis `B`
+(independent RSU cells, or independent rounds of one cell) rides through
+the whole round.
+
+The reference runs the round as one `lax.scan` under `jit`: one dispatch.
+Here the slot step is the same function of a device-side slot index on
+every device, with no value read back to the host. On the CPU the round
+loops over it in Python. On a CUDA device the step is captured once per
+round shape as a CUDA graph (`_SlotGraph`), `veds_score` launch included,
+and the graph is replayed once per slot: the ~2,000 small launches of a
+slot cost the device a node each instead of the host a round trip each.
 
 Round inputs (precomputed from mobility + channel draws), single-cell
 layout on the left, batched layout on the right:
@@ -23,7 +31,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.channel.v2x import ChannelParams
@@ -189,20 +196,31 @@ def _select_slot(y_dt, p_dt, z_dt, y_cot, pm_cot, po_cot, order, z_cot,
     return m_sel, use_dt, use_cot, z_vec, e_sov_vec, e_opv_vec
 
 
-def solve_slot(t: int, state: Dict[str, torch.Tensor], rnd: RoundInputs,
-               prm: lyp.VedsParams, ch: ChannelParams, *,
+def _slot_start(t: torch.Tensor, slot: float) -> torch.Tensor:
+    """Slot t's start time on t's device: one fp32 product, as the
+    reference's `t.astype(jnp.float32) * prm.slot`."""
+    return t.to(torch.float32) * slot
+
+
+def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
+               rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
                enable_cot: bool = True):
-    """Algorithm 1 for slot t, batch-native. `rnd` must be batched; state
-    holds zeta [B,S], qs [B,S], qu [B,U] and the slot count T.
+    """Algorithm 1 for slot t, batch-native. `t` is a 0-dim int64 tensor
+    on `rnd`'s device, as the reference's traced slot index: nothing here
+    reads a value back to the host, so the step can be captured into a
+    CUDA graph. `rnd` must be batched; state holds zeta [B,S], qs [B,S],
+    qu [B,U] and the slot count T (a Python float).
 
     Returns (new state, decision dict of [B, ...] tensors)."""
     B, _, S = rnd.g_sr.shape
     U = rnd.g_or.shape[-1]
     zeta, qs, qu = state["zeta"], state["qs"], state["qu"]
-    g_sr, g_or, g_so = rnd.g_sr[:, t], rnd.g_or[:, t], rnd.g_so[:, t]
+    # `x[:, t]` would turn the 0-dim tensor into a host integer (a sync)
+    at_t = t.reshape(1)
+    g_sr, g_or, g_so = (x.index_select(1, at_t).squeeze(1)
+                        for x in (rnd.g_sr, rnd.g_or, rnd.g_so))
     w = lyp.sigmoid_weight(zeta, prm)
-    # the slot's start time in fp32, as the reference computes it
-    t_now = float(np.float32(t) * np.float32(prm.slot))
+    t_now = _slot_start(t, prm.slot)
     eligible = (rnd.t_cp <= t_now) & (zeta < prm.Q)
     if rnd.valid_sov is not None:
         eligible &= rnd.valid_sov
@@ -233,18 +251,148 @@ def solve_slot(t: int, state: Dict[str, torch.Tensor], rnd: RoundInputs,
     return new_state, info
 
 
+# the per-slot decisions that the round sums
+_SUMMED = ("e_sov", "e_opv", "use_cot", "use_dt")
+
+
+def _slots_eager(rb: RoundInputs, state, prm, ch, enable_cot):
+    """The round's slots one after another in Python. Returns the final
+    state and the summed decisions stacked over slots ([T, B, ...])."""
+    T = rb.g_sr.shape[1]
+    ts = torch.arange(T, device=rb.g_sr.device)
+    infos = []
+    for t in range(T):
+        state, info = solve_slot(ts[t], state, rb, prm, ch,
+                                 enable_cot=enable_cot)
+        infos.append(info)
+    return state, {k: torch.stack([i[k] for i in infos]) for k in _SUMMED}
+
+
+class _SlotGraph:
+    """The slot step of one round shape, captured as a CUDA graph.
+
+    It owns static buffers for the round's inputs, the state (zeta, qs,
+    qu), the slot index `t`, which the graph advances itself, and the
+    [T, B, ...] decisions that the round sums, one row written per slot.
+    `run` copies a round in, replays the graph once per slot and returns
+    what the eager loop returns, bit for bit: the same kernels on the
+    same values. What it returns lies in the static buffers until the
+    next `run`.
+    """
+    captures = 0      # graphs captured in this process
+
+    def __init__(self, rb: RoundInputs, state, prm, ch, enable_cot):
+        B, T, S = rb.g_sr.shape
+        U = rb.g_or.shape[-1]
+        dev = rb.g_sr.device
+        self.T, self.prm, self.ch = T, prm, ch
+        self.enable_cot = enable_cot
+        self.rnd = map_tensors(torch.clone, rb)
+        self.state = dict(state)
+        for k in ("zeta", "qs", "qu"):
+            self.state[k] = state[k].clone(
+                memory_format=torch.contiguous_format)
+        self.t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.infos = {
+            "e_sov": torch.zeros((T, B, S), device=dev),
+            "e_opv": torch.zeros((T, B, U), device=dev),
+            "use_cot": torch.zeros((T, B), dtype=torch.bool, device=dev),
+            "use_dt": torch.zeros((T, B), dtype=torch.bool, device=dev)}
+        self._capture()
+
+    def _step(self):
+        new, info = solve_slot(self.t, self.state, self.rnd, self.prm,
+                               self.ch, enable_cot=self.enable_cot)
+        for k in ("zeta", "qs", "qu"):
+            self.state[k].copy_(new[k])
+        at_t = self.t.reshape(1)
+        for k, buf in self.infos.items():
+            buf.index_copy_(0, at_t, info[k][None])
+        self.t.add_(1)
+
+    def _capture(self):
+        # PyTorch's recipe: one run on a side stream first, so that lazy
+        # set-up (the kernel library's module, cuBLAS and cuSOLVER
+        # handles, workspaces) happens outside the capture. The run moves
+        # only the static buffers, which `run` sets anew, and is not a
+        # slot of any round, so its `veds_score` run is not counted.
+        with torch.cuda.device(self.t.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), veds_dt_score.uncounted():
+                self._step()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self._step()
+        _SlotGraph.captures += 1
+
+    def run(self, rb: RoundInputs, state):
+        for f in dataclasses.fields(RoundInputs):
+            dst = getattr(self.rnd, f.name)
+            if dst is not None:
+                dst.copy_(getattr(rb, f.name))
+        for k in ("zeta", "qs", "qu"):
+            self.state[k].copy_(state[k])
+        self.t.zero_()
+        for _ in range(self.T):
+            self.graph.replay()
+        return self.state, self.infos
+
+
+# at most this many slot graphs are kept; each holds its static buffers
+# and its own memory pool until it is evicted, oldest first
+_MAX_SLOT_GRAPHS = 8
+_SLOT_GRAPHS: Dict[tuple, _SlotGraph] = {}
+
+
+def _slots_graphed(rb: RoundInputs, state, prm, ch, enable_cot):
+    """`_slots_eager` through the slot graph of `rb`'s shape, captured at
+    the first round of that shape. The key holds everything the graph
+    bakes in: the device, each input's shape and dtype (B, T, S, U and
+    which padding masks are present), `enable_cot`, and the frozen
+    parameter dataclasses. The queues must be float32, as `veds_score`
+    takes them: the graph's buffers are."""
+    for k in ("qs", "qu"):
+        if state[k].dtype != torch.float32:
+            raise TypeError(f"veds_round: the slot graph runs float32 "
+                            f"queues; the carry's {k} is {state[k].dtype}")
+    key = (rb.g_sr.device, enable_cot, prm, ch) + tuple(
+        None if x is None else (tuple(x.shape), x.dtype)
+        for x in (getattr(rb, f.name) for f in dataclasses.fields(rb)))
+    graph = _SLOT_GRAPHS.get(key)
+    if graph is None:
+        while len(_SLOT_GRAPHS) >= _MAX_SLOT_GRAPHS:
+            del _SLOT_GRAPHS[next(iter(_SLOT_GRAPHS))]
+        graph = _SLOT_GRAPHS[key] = _SlotGraph(rb, state, prm, ch,
+                                               enable_cot)
+    return graph.run(rb, state)
+
+
 def veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
                enable_cot: bool = True,
                carry: Optional[SchedulerCarry] = None) -> RoundOutputs:
-    """Algorithm 2: loop over slots, return success mask + diagnostics.
+    """Algorithm 2: run every slot, return success mask + diagnostics.
 
     Accepts single-cell or batched rounds on any device; outputs match
-    the input layout and device. `carry` seeds the virtual energy queues
-    (eqs. 19-20); None starts them at zero. The round-end queues come
-    back in `RoundOutputs.carry`. Only the cold P4 path is ported: where
-    the reference would run warm-started (a warm budget and a carried
-    `p4` table, with COT on), this raises.
+    the input layout and device. On a CUDA device the slots are replays
+    of one captured slot graph, on the CPU a Python loop over the same
+    step. `carry` seeds the virtual energy queues (eqs. 19-20); None
+    starts them at zero. The round-end queues come back in
+    `RoundOutputs.carry`. Only the cold P4 path is ported: where the
+    reference would run warm-started (a warm budget and a carried `p4`
+    table, with COT on), this raises.
     """
+    return _veds_round(rnd, prm, ch, enable_cot=enable_cot, carry=carry,
+                       graphed=rnd.g_sr.is_cuda)
+
+
+def _veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
+                *, enable_cot: bool, carry: Optional[SchedulerCarry],
+                graphed: bool) -> RoundOutputs:
+    """`veds_round`, with the slot graph or the eager loop as asked; the
+    card tests and `chip_smoke.py` hold the graph against the eager loop
+    on the card."""
     if (enable_cot and prm.ipm_warm_iters > 0 and carry is not None
             and carry.p4 is not None):
         raise NotImplementedError(
@@ -256,26 +404,22 @@ def veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
     qs0, qu0 = init_queues(rb, carry)
     state = {"zeta": torch.zeros((B, S), device=rb.g_sr.device),
              "qs": qs0, "qu": qu0, "T": float(T)}
-    infos = []
-    for t in range(T):
-        state, info = solve_slot(t, state, rb, prm, ch,
-                                 enable_cot=enable_cot)
-        infos.append(info)
-
-    def total(k):
-        return torch.stack([i[k] for i in infos]).sum(0)
-
+    slots = _slots_graphed if graphed else _slots_eager
+    state, infos = slots(rb, state, prm, ch, enable_cot)
+    total = {k: infos[k].sum(0) for k in _SUMMED}
     success = state["zeta"] >= prm.Q
     if rb.valid_sov is not None:
         success &= rb.valid_sov
     out = RoundOutputs(
         success=success,
         n_success=success.sum(-1),
-        zeta=state["zeta"],
-        energy_sov=total("e_sov") + masked_e_cp(rb),
-        energy_opv=total("e_opv"),
-        n_cot_slots=total("use_cot"),
-        n_dt_slots=total("use_dt"),
-        carry=SchedulerCarry(qs=state["qs"], qu=state["qu"]),
+        # copies: the graph's state buffers are overwritten by its next run
+        zeta=state["zeta"].clone(),
+        energy_sov=total["e_sov"] + masked_e_cp(rb),
+        energy_opv=total["e_opv"],
+        n_cot_slots=total["use_cot"],
+        n_dt_slots=total["use_dt"],
+        carry=SchedulerCarry(qs=state["qs"].clone(),
+                             qu=state["qu"].clone()),
     )
     return unbatch(out, batched)

@@ -16,6 +16,16 @@
 // neighbouring threads on neighbouring addresses so every load and store
 // coalesces, nothing staged in shared memory.
 //
+// On the main path the grid is small: [B, S] = [3, 10] candidates a slot
+// in the CNN block, [1, 4] in the VFL rounds. There the launch, not the
+// bytes, is the cost, so the block shrinks to the candidates (one warp
+// for up to 32) and the VEDS round replays the slot step, this launch
+// included, from a CUDA graph (src/repro_torch/core/veds.py). The launch
+// is capture-safe: it goes on the caller's stream and allocates nothing.
+// A graph's replays do not pass through the host wrapper, so the kernel
+// counts its own runs: where `count` is not null, one thread adds one to
+// it each time the kernel runs, eagerly or as a graph's node.
+//
 // Numerics: the arithmetic runs in the order of the reference and of the
 // plain PyTorch version, with IEEE division and log1pf. Build without
 // --use_fast_math and with --fmad=false, so no multiply-add is contracted.
@@ -35,7 +45,11 @@ __global__ void veds_score_kernel(const float* __restrict__ g,
                                   float* __restrict__ p,
                                   float* __restrict__ z,
                                   int64_t n, float V, float kappa, float bw,
-                                  float noise, float p_max) {
+                                  float noise, float p_max,
+                                  unsigned long long* __restrict__ count) {
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(count, 1ULL);
+  }
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
@@ -63,13 +77,15 @@ __global__ void veds_score_kernel(const float* __restrict__ g,
 extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() of the
-// launch (0 on success). Pointers are device pointers of n elements.
+// launch (0 on success). Pointers are device pointers of n elements;
+// `count` is a device counter of the kernel's runs, or null.
 int veds_score_f32(const void* g, const void* q, const void* w,
                    const void* e, void* y, void* p, void* z, int64_t n,
                    float V, float kappa, float bw, float noise, float p_max,
-                   void* stream) {
+                   void* count, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
+  // whole warps, no more than the candidates need, at most 256
+  const int threads = n < 256 ? static_cast<int>((n + 31) / 32 * 32) : 256;
   int64_t blocks = (n + threads - 1) / threads;
   // enough blocks to fill 132 SMs many times over; the grid-stride loop
   // covers the rest
@@ -79,7 +95,8 @@ int veds_score_f32(const void* g, const void* q, const void* w,
       static_cast<const float*>(g), static_cast<const float*>(q),
       static_cast<const float*>(w), static_cast<const uint8_t*>(e),
       static_cast<float*>(y), static_cast<float*>(p),
-      static_cast<float*>(z), n, V, kappa, bw, noise, p_max);
+      static_cast<float*>(z), n, V, kappa, bw, noise, p_max,
+      static_cast<unsigned long long*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,10 +7,19 @@ grids of any shape, the scheduler's batched [B, S] grid included, by
 flattening into the kernel's 1-D candidate layout and restoring the shape
 on the way out. For tensors on the CPU it runs `veds_dt_score_plain`; for
 CUDA tensors it launches the kernel, or raises.
+
+The launch is safe to capture into a CUDA graph (`core/veds.py` replays
+the VEDS slot step as one): it goes on PyTorch's current stream, which is
+the capturing stream during a capture, allocates only through
+`torch.empty` and does not synchronise (but once a process and device,
+outside any capture, when it makes the device's counter of the kernel's
+runs).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -18,9 +27,10 @@ from repro_torch.kernels.build import load_library
 
 LN2 = 0.6931471805599453
 NEG = -1e30
-# g, q, w, e, y, p, z pointers; n; V, kappa, bw, noise, p_max; stream
+# g, q, w, e, y, p, z pointers; n; V, kappa, bw, noise, p_max; the run
+# counter (or null); stream
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
-             + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 2)
 
 
 def veds_dt_score_plain(g, q, w, e, *, V, kappa, bw, noise, p_max):
@@ -46,41 +56,107 @@ def veds_dt_score_plain(g, q, w, e, *, V, kappa, bw, noise, p_max):
             torch.where(valid, z, 0.0))
 
 
-def veds_dt_score(g, q, w, e, *, V, kappa, bw, noise, p_max):
-    """Score every DT candidate: returns (y, p, z), each shaped like `g`.
-
-    g, q, w: float32; e: bool; all of one shape, contiguous, on one device.
-    Adds one to `veds_dt_score.launches` each time it launches the kernel.
-    """
-    kw = dict(V=V, kappa=kappa, bw=bw, noise=noise, p_max=p_max)
-    if g.device.type == "cpu":
-        return veds_dt_score_plain(g, q, w, e, **kw)
-    if g.device.type != "cuda":
-        raise ValueError(f"veds_dt_score: unsupported device {g.device}")
-    for name, x, dtype in (("g", g, torch.float32), ("q", q, torch.float32),
-                           ("w", w, torch.float32), ("e", e, torch.bool)):
-        if x.device != g.device or x.dtype != dtype:
-            raise ValueError(f"veds_dt_score: {name} must be {dtype} on "
-                             f"{g.device}, got {x.dtype} on {x.device}")
-        if x.shape != g.shape:
-            raise ValueError(f"veds_dt_score: {name} has shape "
-                             f"{tuple(x.shape)}, g has {tuple(g.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"veds_dt_score: {name} is not contiguous")
-    y, p, z = (torch.empty_like(g) for _ in range(3))
-    n = g.numel()
-    if n == 0:
-        return y, p, z
+@functools.cache
+def _launcher():
+    """The library and its `veds_score_f32`, resolved once per process."""
     lib = load_library()
-    fn = lib.function("veds_score_f32", _ARGTYPES)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = fn(g.data_ptr(), q.data_ptr(), w.data_ptr(), e.data_ptr(),
-                y.data_ptr(), p.data_ptr(), z.data_ptr(), n,
-                V, kappa, bw, noise, p_max, stream)
-    lib.check(rc, "veds_score")
-    veds_dt_score.launches += 1
-    return y, p, z
+    return lib, lib.function("veds_score_f32", _ARGTYPES)
 
 
-veds_dt_score.launches = 0
+class _VedsDtScore:
+    """The kernel's wrapper; `veds_dt_score` is its one instance.
+
+    `veds_dt_score(g, q, w, e, *, V, kappa, bw, noise, p_max)` scores every
+    DT candidate and returns (y, p, z), each shaped like `g`. g, q, w:
+    float32; e: bool; all of one shape, contiguous, on one device.
+
+    `launches` counts the kernel's runs on the card. A CUDA graph's replay
+    runs the kernel without passing through this wrapper, so the count is
+    kept where the kernel runs: each launch hands the kernel a counter on
+    its device, and the kernel adds one to it each time it runs, eagerly
+    or from a graph (a capture records the launch and runs nothing).
+    Reading `launches` synchronises the devices it counts on; setting it
+    (to 0, say) sets the count from then on. Launches made under
+    `uncounted()` are not counted.
+    """
+
+    def __init__(self):
+        self._base = 0
+        self._counts = {}      # device -> int64[1] counter of kernel runs
+        self._counting = True
+
+    @property
+    def launches(self) -> int:
+        n = self._base
+        for count in self._counts.values():
+            torch.cuda.synchronize(count.device)
+            n += int(count.item())
+        return n
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._base = int(n)
+        for count in self._counts.values():
+            count.zero_()
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Launches in this block pass the kernel no counter: for runs
+        that are not part of a path, such as the warm-up before a
+        capture."""
+        self._counting, before = False, self._counting
+        try:
+            yield
+        finally:
+            self._counting = before
+
+    def _count(self, device: torch.device) -> torch.Tensor:
+        count = self._counts.get(device)
+        if count is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "veds_dt_score: first launch on a device inside a "
+                    "stream capture; launch it once outside the capture "
+                    "first (as PyTorch's warm-up before a capture does), "
+                    "so that its launch counter exists")
+            count = torch.zeros(1, dtype=torch.int64, device=device)
+            torch.cuda.synchronize(device)
+            self._counts[device] = count
+        return count
+
+    def __call__(self, g, q, w, e, *, V, kappa, bw, noise, p_max):
+        kw = dict(V=V, kappa=kappa, bw=bw, noise=noise, p_max=p_max)
+        if g.device.type == "cpu":
+            return veds_dt_score_plain(g, q, w, e, **kw)
+        if g.device.type != "cuda":
+            raise ValueError(f"veds_dt_score: unsupported device {g.device}")
+        for name, x, dtype in (("g", g, torch.float32),
+                               ("q", q, torch.float32),
+                               ("w", w, torch.float32),
+                               ("e", e, torch.bool)):
+            if x.device != g.device or x.dtype != dtype:
+                raise ValueError(f"veds_dt_score: {name} must be {dtype} on "
+                                 f"{g.device}, got {x.dtype} on {x.device}")
+            if x.shape != g.shape:
+                raise ValueError(f"veds_dt_score: {name} has shape "
+                                 f"{tuple(x.shape)}, g has {tuple(g.shape)}")
+            if not x.is_contiguous():
+                raise ValueError(f"veds_dt_score: {name} is not contiguous")
+        y, p, z = (torch.empty(g.shape, dtype=torch.float32, device=g.device)
+                   for _ in range(3))
+        n = g.numel()
+        if n == 0:
+            return y, p, z
+        lib, fn = _launcher()
+        with torch.cuda.device(g.device):
+            count = self._count(g.device)
+            stream = torch.cuda.current_stream(g.device).cuda_stream
+            rc = fn(g.data_ptr(), q.data_ptr(), w.data_ptr(), e.data_ptr(),
+                    y.data_ptr(), p.data_ptr(), z.data_ptr(), n,
+                    V, kappa, bw, noise, p_max,
+                    count.data_ptr() if self._counting else None, stream)
+        lib.check(rc, "veds_score")
+        return y, p, z
+
+
+veds_dt_score = _VedsDtScore()

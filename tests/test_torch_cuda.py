@@ -1,13 +1,16 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
 (`veds_score`, `flash_attention`, `fedavg_agg`, `ssd_scan`; the last two
 in their fp32 CUDA-core and bf16 tensor-core variants) against their plain
-PyTorch versions on the card. Marked `cuda`; each skips
+PyTorch versions on the card, and the VEDS round's CUDA graph of the slot
+step against the same step run eagerly. Marked `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
 runs on a machine without the reference package's toolchain:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,13 @@ from repro_torch.kernels.ssd_scan.ops import (ssd_scan, ssd_scan_fwd,
                                               ssd_scan_naive, ssd_scan_plain)
 from repro_torch.kernels.veds_score.ops import (veds_dt_score,
                                                 veds_dt_score_plain)
+from repro_torch.channel.mobility import ManhattanParams
+from repro_torch.channel.v2x import ChannelParams
+from repro_torch.core import veds as port_veds
+from repro_torch.core.lyapunov import VedsParams
+from repro_torch.core.scenario import (ScenarioParams, make_round,
+                                       round_generator)
+from repro_torch.core.scheduler import SchedulerCarry
 from torch_port_util import require_cuda
 
 KW = dict(V=0.2, kappa=0.1, bw=20e6, noise=8.007e-14, p_max=0.3)
@@ -64,6 +74,143 @@ def test_veds_score_wrapper_checks_its_inputs():
         veds_dt_score(g, q[:32], w, e, **KW)
     with pytest.raises(ValueError, match="cuda"):
         veds_dt_score(g, q.cpu(), w, e, **KW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 10), (1, 4)])
+def test_veds_score_in_a_cuda_graph_matches_plain_version(shape):
+    """The launch is capture-safe: recorded into a CUDA graph and
+    replayed, it gives the plain version's outputs to the bit. The kernel
+    counts its own runs: the capture adds nothing to `launches`, each
+    replay adds one, and the warm-up under `uncounted()` nothing."""
+    require_cuda()
+    g, q, w, e = _inputs(shape, 5, "cuda")
+    veds_dt_score.launches = 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), veds_dt_score.uncounted():
+        veds_dt_score(g, q, w, e, **KW)         # warm-up outside capture
+    torch.cuda.current_stream().wait_stream(side)
+    assert veds_dt_score.launches == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = veds_dt_score(g, q, w, e, **KW)
+    assert veds_dt_score.launches == 0
+    for x in outs:
+        x.fill_(float("nan"))
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert veds_dt_score.launches == 3
+    for a, b in zip(outs, veds_dt_score_plain(g, q, w, e, **KW)):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the VEDS round: slot graph against the eager step
+# ---------------------------------------------------------------------------
+
+def _rounds(n_sov, n_opv, n_slots, B, seed, device="cuda"):
+    sc = ScenarioParams(n_sov=n_sov, n_opv=n_opv, n_slots=n_slots)
+    return port_veds.RoundInputs.stack([
+        make_round(round_generator(seed, r, device), sc, ManhattanParams(),
+                   ChannelParams(), VedsParams()) for r in range(B)])
+
+
+def _with_masks(rnd):
+    """Mark the last SOV of every cell and the first OPV of cell 0 as
+    padding."""
+    valid_sov = torch.ones_like(rnd.t_cp, dtype=torch.bool)
+    valid_sov[:, -1] = False
+    valid_opv = torch.ones_like(rnd.e_opv, dtype=torch.bool)
+    valid_opv[0, 0] = False
+    return dataclasses.replace(rnd, valid_sov=valid_sov, valid_opv=valid_opv)
+
+
+def _assert_rounds_equal(a, b):
+    for k in a.keys():
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(a.carry.qs, b.carry.qs)
+    assert torch.equal(a.carry.qu, b.carry.qu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,masks,enable_cot,carry", [
+    ("fig10", False, True, False),      # run_fl's block: B 3, S=U=10, T 60
+    ("fig10", False, False, True),
+    ("reference", False, True, False),  # chip_smoke's reference input
+    ("reference", True, True, True),
+    ("reference", True, False, False),
+])
+def test_veds_round_graph_equals_eager_step(case, masks, enable_cot, carry):
+    """The slot graph's round equals the eager loop's bit for bit: every
+    output, the queues carried out included. A second round of the same
+    shape replays the same graph on new inputs, and the first round's
+    outputs stay as they were."""
+    require_cuda()
+    shape = (10, 10, 60) if case == "fig10" else (4, 4, 12)
+    rnds = [_rounds(*shape, B=3, seed=s) for s in (11, 12)]
+    if masks:
+        rnds = [_with_masks(r) for r in rnds]
+    prm, ch = VedsParams(), ChannelParams()
+    c = None
+    if carry:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        c = SchedulerCarry(
+            qs=0.02 * torch.rand((3, shape[0]), generator=gen,
+                                 device="cuda"),
+            qu=0.02 * torch.rand((3, shape[1]), generator=gen,
+                                 device="cuda"))
+    graphed = [port_veds.veds_round(r, prm, ch, enable_cot=enable_cot,
+                                    carry=c) for r in rnds]
+    eager = [port_veds._veds_round(r, prm, ch, enable_cot=enable_cot,
+                                   carry=c, graphed=False) for r in rnds]
+    for g, e in zip(graphed, eager):
+        _assert_rounds_equal(g, e)
+    if enable_cot and case == "fig10":
+        assert int(eager[0].n_cot_slots.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_slot_graph_is_captured_once_per_shape_key():
+    """One capture for the first round of a key; none for more rounds of
+    it; one more for a new shape, for COT off, and for padding masks."""
+    require_cuda()
+    prm, ch = VedsParams(), ChannelParams()
+    rnd = _rounds(4, 3, 7, B=2, seed=5)
+    port_veds._SLOT_GRAPHS.clear()
+    n0 = port_veds._SlotGraph.captures
+    for _ in range(3):
+        port_veds.veds_round(rnd, prm, ch)
+    assert port_veds._SlotGraph.captures == n0 + 1
+    port_veds.veds_round(rnd.cell(0), prm, ch)              # B 1
+    port_veds.veds_round(_rounds(4, 3, 8, B=2, seed=5), prm, ch)   # T 8
+    port_veds.veds_round(rnd, prm, ch, enable_cot=False)
+    port_veds.veds_round(_with_masks(rnd), prm, ch)
+    assert port_veds._SlotGraph.captures == n0 + 5
+    port_veds.veds_round(rnd, prm, ch)
+    assert port_veds._SlotGraph.captures == n0 + 5
+    assert len(port_veds._SLOT_GRAPHS) == 5
+
+
+@pytest.mark.cuda
+def test_veds_score_launches_count_one_per_slot_of_a_graphed_round():
+    """`veds_dt_score.launches` counts the kernel's runs on the card, as
+    the kernel itself counts them: T per round block, the round that
+    captures the graph included (its warm-up and its capture run no slot
+    of a round and count nothing)."""
+    require_cuda()
+    prm, ch = VedsParams(), ChannelParams()
+    port_veds._SLOT_GRAPHS.clear()
+    for T in (9, 9, 13):
+        rnd = _rounds(5, 4, T, B=3, seed=T)
+        before = veds_dt_score.launches
+        port_veds.veds_round(rnd, prm, ch)
+        assert veds_dt_score.launches == before + T
+    before = veds_dt_score.launches
+    port_veds._veds_round(rnd, prm, ch, enable_cot=True, carry=None,
+                          graphed=False)
+    assert veds_dt_score.launches == before + 13
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ identical; floats agree within fp32 tolerance: rtol 1e-4 on delivered
 bits, energies and queues, which accumulate 10 slots of interior-point
 results (the solver alone agrees to rtol 1e-4, see test_torch_solver).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,14 +24,17 @@ from repro.core.scenario import make_round_batch
 from repro.core.scheduler import SchedulerCarry as JCarry
 from repro.core.veds import _dt_candidates as j_dt_candidates
 from repro.core.veds import _select_slot as j_select_slot
+from repro.core.veds import solve_slot as j_solve_slot
 from repro.core.veds import veds_round as j_veds_round
 from repro_torch.channel.v2x import ChannelParams
+from repro_torch.core import veds as port_veds
 from repro_torch.core.baselines import VedsScheduler, get_scheduler
 from repro_torch.core.lyapunov import VedsParams, sigmoid_weight
 from repro_torch.core.scheduler import (SchedulerCarry, init_queues,
                                         masked_e_cp)
 from repro_torch.core.veds import (NEG, RoundInputs, _dt_candidates,
-                                   _select_slot, veds_round)
+                                   _select_slot, _slot_start, solve_slot,
+                                   veds_round)
 from torch_port_util import round_to_torch, tn, tt
 
 PRM, JPRM = VedsParams(), JVeds()
@@ -178,3 +183,138 @@ def test_warm_p4_is_not_ported(rounds3):
     cold, plain = veds_round(r, warm, CH), veds_round(r, PRM, CH)
     for k in DECISIONS + FLOATS:
         assert torch.equal(cold[k], plain[k])
+
+
+@pytest.mark.parametrize("t", [0, 3, 7, 9])
+def test_solve_slot_at_a_device_index_matches_reference(rounds3, t):
+    """One slot with `t` a 0-dim int64 tensor against the reference's
+    jitted `solve_slot` at a traced index, from a mid-round state. In cell
+    0 one SOV's t_cp lies exactly on the slot's start t * slot (eligible:
+    `<=` in fp32 on both sides), with a strong link and an empty queue,
+    the next SOV's one fp32 step above it, and every other SOV's far
+    later: cell 0 transmits at slot t only if the start time is the fp32
+    product."""
+    B, S = 3, SC.n_sov
+    rng = np.random.default_rng(t)
+    t_cp, g_sr = np.array(rounds3.t_cp), np.array(rounds3.g_sr)
+    start = np.float32(t) * np.float32(JPRM.slot)
+    v0, v1 = np.flatnonzero(np.array(rounds3.valid_sov[0]))[:2]
+    t_cp[0] = 1e3
+    t_cp[0, v0] = start
+    t_cp[0, v1] = np.nextafter(start, np.float32(1))
+    g_sr[0, t, v0] = 1e-11
+    jr = dataclasses.replace(rounds3, t_cp=jnp.asarray(t_cp),
+                             g_sr=jnp.asarray(g_sr))
+    zeta = rng.uniform(0, 1.2 * JPRM.Q, (B, S)).astype(np.float32)
+    qs = rng.uniform(0, 0.02, (B, S)).astype(np.float32)
+    zeta[0, v0] = qs[0, v0] = 0.0
+    qu = rng.uniform(0, 0.02, (B, SC.n_opv)).astype(np.float32)
+    T = float(SC.n_slots)
+    ref_state, ref_info = jax.jit(lambda t_, st: j_solve_slot(
+        t_, st, jr, JPRM, JCH, enable_cot=True, use_kernel=True))(
+            jnp.asarray(t, jnp.int32),
+            {"zeta": jnp.asarray(zeta), "qs": jnp.asarray(qs),
+             "qu": jnp.asarray(qu), "T": jnp.asarray(T)})
+    state, info = solve_slot(
+        torch.tensor(t), {"zeta": tt(zeta), "qs": tt(qs), "qu": tt(qu),
+                          "T": T}, round_to_torch(jr), PRM, CH)
+    for k in ("m", "use_dt", "use_cot"):
+        np.testing.assert_array_equal(tn(info[k]), np.asarray(ref_info[k]),
+                                      err_msg=k)
+    for k in ("z", "e_sov", "e_opv"):
+        np.testing.assert_allclose(tn(info[k]), np.asarray(ref_info[k]),
+                                   rtol=1e-4, atol=1e-9, err_msg=k)
+    for k in ("zeta", "qs", "qu"):
+        np.testing.assert_allclose(tn(state[k]), np.asarray(ref_state[k]),
+                                   rtol=1e-4, atol=1e-9, err_msg=k)
+    assert int(info["m"][0]) == v0
+    assert bool(info["use_dt"][0] | info["use_cot"][0])
+
+
+@pytest.mark.parametrize("slot", [0.1, 0.05, 0.3])
+def test_slot_start_is_the_fp32_product(slot):
+    """The slot's start time is computed on the device as one fp32
+    product, equal to the reference's fp32(t) * fp32(slot) for every slot
+    of a round (0.1 is the slot of `run_fl` and of the VFL rounds)."""
+    for t in range(60):
+        got = _slot_start(torch.tensor(t), slot)
+        assert got.dtype == torch.float32 and got.ndim == 0
+        assert got.item() == np.float32(t) * np.float32(slot), t
+
+
+@pytest.fixture
+def replayed_step(monkeypatch):
+    """The slot graph with each replay run as the captured step itself
+    (the CPU has no CUDA graphs), and an empty cache of graphs."""
+    class Replay:
+        def __init__(self, step):
+            self.replay = step
+
+    def capture(self):
+        self.graph = Replay(self._step)
+        port_veds._SlotGraph.captures += 1
+
+    monkeypatch.setattr(port_veds._SlotGraph, "_capture", capture)
+    monkeypatch.setattr(port_veds, "_SLOT_GRAPHS", {})
+
+
+def test_slot_graph_bookkeeping_matches_eager_loop(rounds3, replayed_step):
+    """The slot graph's buffers, with each replay run as the captured step
+    itself: inputs copied in, the slot index advanced by the step, one
+    row of decisions written per slot, outputs copied out. Bit for bit
+    the eager loop's, for two rounds of one shape through one graph, the
+    first round's outputs untouched by the second, padding masks and a
+    carry included."""
+    r = round_to_torch(rounds3)
+    other = port_veds.map_tensors(lambda x: x.flip(0), r)   # cells reversed
+    qs, qu = _carry(3, seed=9)
+    c = SchedulerCarry(qs=tt(qs), qu=tt(qu))
+    n0 = port_veds._SlotGraph.captures
+    for cot in (True, False):
+        runs = [(x, port_veds._veds_round(x, PRM, CH, enable_cot=cot,
+                                          carry=c, graphed=True))
+                for x in (r, other)]
+        for x, got in runs:
+            want = veds_round(x, PRM, CH, enable_cot=cot, carry=c)
+            for k in DECISIONS + FLOATS:
+                assert torch.equal(got[k], want[k]), k
+            assert torch.equal(got.carry.qs, want.carry.qs)
+            assert torch.equal(got.carry.qu, want.carry.qu)
+    assert port_veds._SlotGraph.captures == n0 + 2
+
+
+def _first_slots(r, T):
+    """The round cut to its first T slots."""
+    return dataclasses.replace(r, **{k: getattr(r, k)[:, :T].contiguous()
+                                     for k in ("g_sr", "g_or", "g_so")})
+
+
+def test_slot_graph_cache_is_bounded_and_takes_float32_queues(
+        rounds3, replayed_step):
+    """At most `_MAX_SLOT_GRAPHS` graphs are kept, the oldest evicted
+    first: a round of its shape captures again, the newest shapes replay.
+    A carry in another dtype than float32 is refused, not copied into the
+    graph's float32 buffers (on the card `veds_score` refuses it too)."""
+    r = round_to_torch(rounds3)
+    cap = port_veds._MAX_SLOT_GRAPHS
+    n0 = port_veds._SlotGraph.captures
+
+    def run(x, carry=None):
+        return port_veds._veds_round(x, PRM, CH, enable_cot=False,
+                                     carry=carry, graphed=True)
+
+    for T in range(1, cap + 2):
+        run(_first_slots(r, T))
+    assert port_veds._SlotGraph.captures == n0 + cap + 1
+    assert len(port_veds._SLOT_GRAPHS) == cap
+    run(_first_slots(r, cap + 1))                  # newest: a replay
+    assert port_veds._SlotGraph.captures == n0 + cap + 1
+    run(_first_slots(r, 1))                        # evicted: captured anew
+    assert port_veds._SlotGraph.captures == n0 + cap + 2
+    assert len(port_veds._SLOT_GRAPHS) == cap
+
+    qs, qu = _carry(3, seed=2)
+    c64 = SchedulerCarry(qs=torch.from_numpy(qs).double(), qu=tt(qu))
+    with pytest.raises(TypeError, match="float32"):
+        run(_first_slots(r, cap + 1), c64)
+    assert port_veds._SlotGraph.captures == n0 + cap + 2
