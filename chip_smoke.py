@@ -16,10 +16,17 @@ with its kernel launches counted from 0:
   input. On the card `veds_round` replays one captured CUDA graph of the
   VEDS slot step per slot; every phase that schedules logs the graphs it
   captured, and the graph is held to the eager step bit for bit;
+- `run_fl(streaming=True)`, the paper's own loop, at the same setting: a
+  persistent fleet, carried queues and the warm P4 table riding the
+  slot graph, 20 rounds with eval every 5 inside the loop, then 5 rounds
+  cold, each round's stages timed; the warm slot graph held to the
+  eager step on one streaming round, and 3 small streaming rounds on
+  the card against the CPU;
 - the VFL training loop of `launch/train.py` at qwen3-32b's full width
   (d_model 5120, 64 query and 8 KV heads of 128, d_ff 25600, vocab
   151936, bf16) cut to 2 repetitions, 4 vehicles with 4 sequences of
-  1024 tokens each, at `launch/train.py`'s lr 0.5;
+  1024 tokens each, at `launch/train.py`'s lr 0.5, and its whole-run
+  streaming step (`make_train_step(stream=...)`, 2 rounds);
 - the same loop at zamba2-2.7b's full width and depth (9 x (5 Mamba2,
   the weight-tied attention of 32 heads of 80 and MLP), d_model 2560,
   80 SSM heads of 64, N 64, chunk 128, vocab 32000, bf16), the path of
@@ -97,6 +104,12 @@ RECORDED_MASKS = {
     "qwen3-32b": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]],
     "zamba2-2.7b": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]],
 }
+# the streaming path (`run_fl(streaming=True)`): rounds with the warm P4
+# table (benchmarks/fig4_speed.py warm_ipm_sweep's budget, at most half
+# of ipm_iters 25) and eval every 5 rounds inside the loop, then rounds
+# cold; the whole-run VFL step takes 2 rounds
+STREAM_ROUNDS, STREAM_EVAL_EVERY, STREAM_WARM_ITERS = 20, 5, 10
+STREAM_COLD_ROUNDS, STREAM_SEED, STREAM_VFL_ROUNDS = 5, 11, 2
 # the eval loss at init through the kernels may move from the plain
 # versions' by at most SENS_ULP_FACTOR times the largest move that
 # SENS_DRAWS random one-ulp changes of every nonzero bf16 weight make
@@ -381,9 +394,13 @@ def phase_stages(device, setup):
     for bit; a second pass runs the block under `torch.profiler` and
     reads the device's busy time (the sum of its kernels' and copies'
     times) and their number. The idle share is reported only where the
-    trace holds the `veds_score` launches of the graph's replays. A third
-    pass traces the schedule alone and must see one `veds_score` run a
-    slot."""
+    trace holds the `veds_score` launches of the graph's replays, and that
+    trace must see one `veds_score` run a slot. A third pass traces the
+    schedule alone. Each trace opens on two eager kernels run to their
+    end, which the summary leaves out: a trace loses what runs first. The
+    schedule's trace too must see one `veds_score` run a slot; one that
+    loses a run is taken once more and fails the phase if it loses one
+    again."""
     from repro_torch.channel.mobility import ManhattanParams
     from repro_torch.channel.v2x import ChannelParams
     from repro_torch.core.baselines import get_scheduler
@@ -417,9 +434,9 @@ def phase_stages(device, setup):
             mb = {k: torch.as_tensor(np.stack([m[k] for m in mbs]))
                   .to(device) for k in ("x", "y")}
             grads = client_grads(cnn_loss, p, mb)
-            p = fedavg_apply(p, grads, out.cell(j).success.float(),
-                             torch.tensor(weights, device=device),
-                             lr=sim.lr)
+            p, _ = fedavg_apply(p, grads, out.cell(j).success.float(),
+                                torch.tensor(weights, device=device),
+                                lr=sim.lr)
         return p
 
     def block(times):
@@ -463,60 +480,116 @@ def phase_stages(device, setup):
         f"schedule {times['schedule_eager_ms']:.1f} ms (graph "
         f"{times['schedule_ms']:.1f} ms); outputs bit for bit equal")
 
+    # Each trace opens on two eager kernels (PyTorch's `spin_kernel`),
+    # each run to its end and followed by 10 ms on the host, before the
+    # timed work; the summary leaves them out and counts those it holds.
+    # A profiler session after the first in a process loses the records
+    # that open it (on an H100, one session in each of four runs: the
+    # first opening kernel; an opening kernel and ~190 events after it;
+    # a whole slot-graph replay with its copies, 2,333 events, where the
+    # schedule opened the trace); the first session lost none.
     from torch.profiler import ProfilerActivity, profile
+
+    def open_trace():
+        for _ in range(2):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+
     traced = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        open_trace()
         block(traced)
-    prof_res = trace_summary(prof, sum(traced.values()), sim.n_slots)
+    prof_res = trace_summary(prof, sum(traced.values()), sim.n_slots,
+                             opener="spin_kernel")
     log("stages", f"traced block (schedule {traced['schedule_ms']:.1f} "
         f"ms): " + trace_line(prof_res))
 
-    # the schedule alone, traced: its own idle share, the device events
-    # (graph nodes that ran) a slot, and one veds_score run a slot seen
-    # by the profiler, apart from the kernel's own count
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        get_scheduler("veds").solve_round(RoundInputs.stack(rounds), prm, ch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    sched_res = trace_summary(prof, wall_ms, sim.n_slots)
-    sched_res["events_per_slot"] = sched_res["device_events"] / sim.n_slots
-    log("stages", f"traced schedule alone ({sched_res['events_per_slot']:.1f}"
-        f" device events a slot): " + trace_line(sched_res))
+    # one veds_score run a slot seen by the profiler, apart from the
+    # kernel's own count
+    check(prof_res["veds_score_events"] == sim.n_slots,
+          f"stages: the traced block ran veds_score "
+          f"{prof_res['veds_score_events']} times on the card, expected "
+          f"one a slot ({sim.n_slots})")
+
+    # the schedule alone, traced: its own idle share and the device events
+    # (graph nodes that ran) a slot; a trace that loses a veds_score run,
+    # or both its openers, is taken once more, and a second loss of a
+    # veds_score run fails the phase
+    def trace_schedule():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_trace()
+            t0 = time.perf_counter()
+            get_scheduler("veds").solve_round(RoundInputs.stack(rounds), prm,
+                                              ch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return trace_summary(prof, wall_ms, sim.n_slots,
+                             opener="spin_kernel")
+
+    sched_res, first = trace_schedule(), None
+    if (sched_res["veds_score_events"] != sim.n_slots
+            or not sched_res["opener_seen"]):
+        first = sched_res
+        log("stages", f"traced schedule alone, a trace that lost records: "
+            + trace_line(first) + "; taken again")
+        sched_res = trace_schedule()
+    sched_res["retried_from"] = first
     check(sched_res["veds_score_events"] == sim.n_slots,
           f"stages: the traced schedule ran veds_score "
           f"{sched_res['veds_score_events']} times on the card, expected "
-          f"one a slot ({sim.n_slots})")
+          f"one a slot ({sim.n_slots}), in a second trace too")
+    sched_res["events_per_slot"] = sched_res["device_events"] / sim.n_slots
+    log("stages", f"traced schedule alone ({sched_res['events_per_slot']:.1f}"
+        f" device events a slot): " + trace_line(sched_res))
     return dict(rounds=B, graph_captures=captures, **times,
                 profile=prof_res, profile_schedule=sched_res)
 
 
-def trace_summary(prof, wall_ms: float, n_slots: int):
+def trace_summary(prof, wall_ms: float, n_slots: int, opener=None):
     """Device busy time (the sum of the kernels', copies' and memsets'
     times) and events of a `torch.profiler` trace over `wall_ms` of host
     time, and the idle share, reported only where the trace holds the
-    `n_slots` `veds_score` launches of the slot graph's replays."""
+    `n_slots` `veds_score` launches of the slot graph's replays and, where
+    the trace was opened by kernels named `opener`, one of them at least
+    (a trace loses a stretch of records from its opening: where it holds
+    an opener, the stretch ended before the timed work). The openers are
+    left out and counted. `slot_events` gives the device events
+    before the first `veds_score` run, [min, max] between two, and after
+    the last, in start order: where a trace loses records."""
     from torch.autograd import DeviceType
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = None
+    if opener is not None:
+        seen = sum(opener in e.name for e in events)
+        events = [e for e in events if opener not in e.name]
+    marks = [i for i, e in enumerate(sorted(
+        events, key=lambda e: e.time_range.start)) if "veds_score" in e.name]
+    gaps = [b - a - 1 for a, b in zip(marks, marks[1:])]
+    slot_events = (None if not marks else
+                   [marks[0], [min(gaps, default=0), max(gaps, default=0)],
+                    len(events) - 1 - marks[-1]])
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     n_veds = sum("veds_score" in e.name for e in events)
-    seen = busy_ms > 0 and n_veds == n_slots
+    whole = busy_ms > 0 and n_veds == n_slots and seen != 0
     return dict(traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_events=len(events), veds_score_events=n_veds,
-                idle_share=(1.0 - busy_ms / wall_ms) if seen else None)
+                idle_share=(1.0 - busy_ms / wall_ms) if whole else None,
+                opener_seen=seen, slot_events=slot_events)
 
 
 def trace_line(res) -> str:
+    idle = (f"{res['idle_share']:.3f}" if res["idle_share"] is not None
+            else "not measured (the trace lost veds_score runs or its "
+                 "openers)")
     return (f"wall {res['traced_wall_ms']:.1f} ms, device busy "
             f"{res['device_busy_ms']:.1f} ms in {res['device_events']} "
-            f"device events ({res['veds_score_events']} of veds_score), "
-            f"idle share " + (f"{res['idle_share']:.3f}"
-                              if res["idle_share"] is not None else
-                              "not measured (the profiler does not show "
-                              "the slot graph's kernels)"))
+            f"device events ({res['veds_score_events']} of veds_score; "
+            f"events before the first, between two and after the last: "
+            f"{res['slot_events']}; openers held {res['opener_seen']}), "
+            f"idle share {idle}")
 
 
 def phase_reference(device):
@@ -566,7 +639,7 @@ def phase_reference(device):
         p = {k: v.to(dev) for k, v in params.items()}
         b = {k: v.to(dev) for k, v in batch.items()}
         gr = client_grads(cnn_loss, p, b)
-        return gr, fedavg_apply(p, gr, mask.to(dev), w.to(dev), lr=0.07)
+        return gr, fedavg_apply(p, gr, mask.to(dev), w.to(dev), lr=0.07)[0]
 
     (gc, pc), (gg, pg) = step("cpu"), step(device)
 
@@ -587,6 +660,316 @@ def phase_reference(device):
     return dict(n_success=cpu.n_success.tolist(),
                 n_cot_slots=cpu.n_cot_slots.tolist(),
                 grad_rel_err=grad_err, update_rel_err=upd_err)
+
+
+def _stage_timer(records):
+    """A `stage_hook` closing each stage with a device synchronisation:
+    appends one dict of `<stage>_ms` a round to `records` (a round ends
+    with its "eval" stage). Call `.start()` right before the run."""
+    cur, mark = {}, [0.0]
+
+    def hook(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        cur[f"{name}_ms"] = (now - mark[0]) * 1e3
+        mark[0] = now
+        if name == "eval":
+            records.append(dict(cur))
+            cur.clear()
+
+    hook.start = lambda: mark.__setitem__(0, time.perf_counter())
+    return hook
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else float("nan")
+
+
+def phase_stream(device, setup):
+    """The paper's own loop, `run_fl(streaming=True)`, at fig10's setting
+    (the CNN and data of `make_fl_setup`, 40 clients, S=U=10, T=60,
+    batch 32, lr 0.07, a persistent fleet of 2(S+U) vehicles, carried
+    queues, VEDS with COT): STREAM_ROUNDS rounds with the warm P4 table
+    (`ipm_warm_iters` STREAM_WARM_ITERS) and eval every
+    STREAM_EVAL_EVERY rounds inside the loop, then STREAM_COLD_ROUNDS
+    rounds cold, each stage of every round closed by a device
+    synchronisation (the stage hook). `veds_score` must run T times a
+    round by its own count. Then the warm slot graph against the eager
+    step on one streaming round, bit for bit."""
+    import dataclasses
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import ScenarioParams, fleet_round
+    from repro_torch.core.scheduler import SchedulerCarry
+    from repro_torch.core.streaming import (ROUND_STREAM, StreamConfig,
+                                            round_key, stream_rounds)
+    from repro_torch.core.veds import _SlotGraph, _veds_round, veds_round
+    from repro_torch.fl.simulator import run_fl
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.models.cnn import cnn_loss
+    params, client_data, eval_fn, sim = setup
+    out = {}
+    for label, rounds, warm, every in (
+            ("warm", STREAM_ROUNDS, STREAM_WARM_ITERS, STREAM_EVAL_EVERY),
+            ("cold", STREAM_COLD_ROUNDS, 0, None)):
+        s = dataclasses.replace(sim, rounds=rounds, round_batch=1,
+                                streaming=True, carry_queues=True,
+                                ipm_warm_iters=warm)
+        records = []
+        hook = _stage_timer(records)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        veds_dt_score.launches = 0
+        captures = _SlotGraph.captures
+        t0 = time.perf_counter()
+        hook.start()
+        hist = run_fl(STREAM_SEED, params, cnn_loss, client_data, s,
+                      eval_fn=eval_fn if every else None,
+                      eval_every=every or 1, device=device,
+                      stage_hook=hook)
+        wall = time.perf_counter() - t0      # run_fl synchronises at exit
+        launches = veds_dt_score.launches
+        captures = _SlotGraph.captures - captures
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(len(records) == rounds, f"stream {label}: {len(records)} "
+              f"rounds timed, expected {rounds}")
+        for r, rec in enumerate(records):
+            log("stream", f"{label} round {r}: scenario "
+                f"{rec['scenario_ms']:.1f} + schedule "
+                f"{rec['schedule_ms']:.1f} + train {rec['train_ms']:.1f} + "
+                f"eval {rec['eval_ms']:.1f} ms"
+                + (" (round 0's scenario includes run_fl's set-up)"
+                   if r == 0 else ""))
+        steady = records[1:]
+        med = {k: _median([rec[k] for rec in steady])
+               for k in ("scenario_ms", "schedule_ms", "train_ms",
+                         "eval_ms")}
+        want = rounds * s.n_slots
+        log("stream", f"{label}: run_fl(streaming=True) {rounds} rounds, "
+            f"ipm_warm_iters {warm}, eval every {every}: wall {wall:.3f} "
+            f"s; median of rounds 1.. " + ", ".join(
+                f"{k[:-3]} {v:.2f} ms" for k, v in med.items())
+            + f"; veds_score launches {launches} (expected {want} = "
+            f"{rounds} x T {s.n_slots}); slot graphs captured {captures}; "
+            f"peak memory {peak_gb:.3f} GB; history {hist}")
+        check(launches == want, f"stream {label}: veds_score launched "
+              f"{launches} times, expected {want}")
+        check(hist["scheduled_rounds"] == rounds, "stream history rounds")
+        if every:
+            check(hist["dispatches"] == 1
+                  and hist["round"] == [r for r in range(rounds)
+                                        if r % every == 0 or
+                                        r == rounds - 1],
+                  f"stream {label}: history {hist}")
+            check(all(0 <= n <= sim.n_sov for n in hist["n_success"])
+                  and all(math.isfinite(m) and 0.0 <= m <= 1.0
+                          for m in hist["metric"]),
+                  f"stream {label}: n_success or accuracy out of range")
+        out[label] = dict(rounds=records, median=med, wall_s=wall,
+                          launches={"veds_score": launches},
+                          graph_captures=captures, peak_memory_gb=peak_gb,
+                          history=hist)
+    out["schedule_warm_over_cold"] = (out["warm"]["median"]["schedule_ms"]
+                                      / out["cold"]["median"]["schedule_ms"])
+    log("stream", f"warm schedule / cold schedule (medians): "
+        f"{out['schedule_warm_over_cold']:.3f}")
+
+    # the warm slot graph against the eager step on one streaming round:
+    # two rounds refresh the table and queues, the third is held
+    mob, ch = ManhattanParams(v_max=sim.v_max), ChannelParams()
+    prm = VedsParams(alpha=sim.alpha, V=sim.V, Q=sim.q_bits, slot=0.1,
+                     ipm_warm_iters=STREAM_WARM_ITERS)
+    sc = ScenarioParams(n_sov=sim.n_sov, n_opv=sim.n_opv,
+                        n_slots=sim.n_slots, batch_size=sim.batch_size)
+    pre = stream_rounds(STREAM_SEED, get_scheduler("veds"), sc, mob, ch, prm,
+                        StreamConfig(n_rounds=2, carry_queues=True),
+                        device=device)
+    fl, rnd, sel = fleet_round(round_key(STREAM_SEED, ROUND_STREAM, 2),
+                               pre.fleet, sc, mob, ch, prm)
+    rows = torch.arange(1, device=device)[:, None]
+    c = SchedulerCarry(qs=torch.gather(fl.queue, 1, sel.sov_idx),
+                       qu=torch.gather(fl.queue, 1, sel.opv_idx),
+                       p4=fl.p4_tab[rows, sel.sov_idx])
+    g = veds_round(rnd, prm, ch, carry=c)
+    e = _veds_round(rnd, prm, ch, enable_cot=True, carry=c, graphed=False)
+    for k in g.keys():
+        check(torch.equal(g[k], e[k]), f"stream: the warm slot graph's {k} "
+              f"differs from the eager step's")
+    for k in ("qs", "qu", "p4"):
+        check(torch.equal(getattr(g.carry, k), getattr(e.carry, k)),
+              f"stream: the warm slot graph's {k} differs from the eager "
+              f"step's")
+    check(not torch.equal(g.carry.p4, c.p4), "stream: table not refreshed")
+    log("stream", f"warm slot graph vs eager step on streaming round 2 "
+        f"(n_success {int(g.n_success)}, COT slots {int(g.n_cot_slots)}, "
+        f"queues max {float(g.carry.qs.max()):.3e}): masks, zeta, queues "
+        f"and the P4 table bit for bit equal")
+    out["graph_vs_eager"] = dict(n_success=int(g.n_success),
+                                 n_cot_slots=int(g.n_cot_slots))
+    return out
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_stream_reference(device):
+    """3 streaming rounds at a small size (S=U=4, T=10, a fleet of 16,
+    warm P4 and carried queues, the CNN on 8 clients of 12 samples,
+    batch 4) through `fused_rollout` on the card and on the CPU, every
+    draw made on the CPU and moved across: decisions identical, every
+    parameter within 1e-4 relative, norm-wise (TF32 off; cuDNN and oneDNN
+    sum the convolutions in other orders)."""
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import (ScenarioParams, fleet_round_draws,
+                                           init_fleet, init_fleet_draws)
+    from repro_torch.core.streaming import StreamConfig
+    from repro_torch.data.synthetic import cifar_like_dataset
+    from repro_torch.fl.engine import ClientShards, fused_rollout, init_carry
+    from repro_torch.models.cnn import cnn_loss, init_cnn
+    R, S, N, C, BS = 3, 4, 16, 8, 4
+    sc = ScenarioParams(n_sov=S, n_opv=S, n_slots=10, batch_size=BS)
+    mob, ch = ManhattanParams(), ChannelParams()
+    prm = VedsParams(ipm_warm_iters=STREAM_WARM_ITERS)
+    cfg = StreamConfig(n_rounds=R, batch=1, carry_queues=True, n_fleet=N)
+    gen = torch.Generator().manual_seed(13)
+    fleet_draws = init_fleet_draws(gen, mob, sc, 1, N, "cpu")
+    rounds = [fleet_round_draws(gen, sc, 1, N, "cpu") for _ in range(R)]
+    sel = torch.stack([torch.randperm(C, generator=gen)[:S]
+                       for _ in range(R)])[:, None]
+    mb_u = torch.rand((R, 1, S, BS), generator=gen)
+    x, y = cifar_like_dataset(torch.Generator().manual_seed(14), C * 12,
+                              0.8)
+    data = [{"x": x[i::C], "y": y[i::C]} for i in range(C)]
+    model = init_cnn(torch.Generator().manual_seed(15))
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    res = {}
+    for dev in ("cpu", device):
+        fleet = init_fleet(_to_device(fleet_draws, dev), sc, mob, 1,
+                           n_fleet=N)
+        carry = init_carry(0, sc, mob, cfg, params, fleet=fleet, device=dev)
+        res[str(dev)] = fused_rollout(
+            [_to_device(d, dev) for d in rounds], sel.to(dev),
+            mb_u.to(dev), get_scheduler("veds"), sc, mob, ch, prm, cfg,
+            cnn_loss, ClientShards.from_ragged(data, dev), carry, lr=0.07)
+    cpu, gpu = res["cpu"], res[str(device)]
+    for k in ("success", "n_success", "n_cot_slots", "n_dt_slots"):
+        check(torch.equal(cpu.outputs[k], gpu.outputs[k].cpu()),
+              f"stream reference: {k} differs between card and CPU")
+    rel = max(float((gpu.params[k].cpu() - cpu.params[k]).norm()
+                    / cpu.params[k].norm().clamp_min(1e-30))
+              for k in cpu.params)
+    moved = math.sqrt(
+        sum(float((cpu.params[k][0] - params[k]).norm()) ** 2
+            for k in params)
+        / sum(float(cpu.params[k].norm()) ** 2 for k in params))
+    check(rel <= 1e-4, f"stream reference: parameters differ between card "
+          f"and CPU by {rel:.2e} relative (norm-wise), beyond 1e-4")
+    log("stream_reference", f"3 warm streaming rounds, S=U=4, T=10, card vs "
+        f"CPU on the same draws: decisions identical (n_success "
+        f"{cpu.outputs.n_success[:, 0].tolist()}, COT slots "
+        f"{cpu.outputs.n_cot_slots[:, 0].tolist()}); parameters "
+        f"{rel:.2e} relative, norm-wise (tolerance 1e-4; the rounds moved "
+        f"the whole model by {moved:.2e} of its norm)")
+    return dict(n_success=cpu.outputs.n_success[:, 0].tolist(),
+                n_cot_slots=cpu.outputs.n_cot_slots[:, 0].tolist(),
+                param_rel_err=rel, moved=moved)
+
+
+def phase_stream_vfl(device, cfg, rounds: int, batch: int, seq: int,
+                     lr: float):
+    """`make_train_step(stream=...)`, the whole-run VFL step, at the
+    setting of `phase_vfl` (the same model, vehicles, batch and lr; a
+    persistent fleet with carried queues and the warm P4 table): the
+    run's schedule, then its rounds, stage by stage; every kernel count
+    set to 0 first and held to what the code implies."""
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import ScenarioParams
+    from repro_torch.core.streaming import StreamConfig
+    from repro_torch.core.veds import _SlotGraph
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.fl.vfl import make_train_step
+    from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.models import engine
+    from repro_torch.models.module import (materialize, param_bytes,
+                                           tree_leaves, tree_map)
+    phase = f"stream_vfl {cfg.name}"
+    V = cfg.num_vehicles
+    decl = engine.model_decl(cfg, "head")
+    params = materialize(torch.Generator(device=device).manual_seed(0),
+                         decl)
+    params_v = tree_map(lambda x: x.unsqueeze(0).expand(V, *x.shape),
+                        params)
+    del params
+    prm = VedsParams(Q=min(8.0 * param_bytes(decl), 2e7), slot=0.1,
+                     ipm_warm_iters=STREAM_WARM_ITERS)
+    sc = ScenarioParams(n_sov=V, n_opv=8, n_slots=VFL_SLOTS)
+    stages = []
+    mark = [0.0]
+
+    def hook(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages.append((name, (now - mark[0]) * 1e3))
+        mark[0] = now
+
+    run = make_train_step(cfg, None, "head", lr=lr,
+                          stream=StreamConfig(n_rounds=rounds, batch=1,
+                                              carry_queues=True),
+                          sc=sc, mob=ManhattanParams(), veds_prm=prm,
+                          ch_prm=ChannelParams(), stage_hook=hook)
+    data = lm_batch(torch.Generator(device=device).manual_seed(1),
+                    rounds * V * batch, seq, cfg.vocab_size)
+    batches_v = {k: x.reshape(rounds, V, batch, *x.shape[1:])
+                 for k, x in data.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = 0
+    fedavg_agg.launches = 0
+    veds_dt_score.launches = 0
+    captures = _SlotGraph.captures
+    t0 = time.perf_counter()
+    mark[0] = t0
+    out, stats = run(params_v, batches_v, torch.ones(V, device=device), 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention_fwd.launches,
+                "fedavg_agg": fedavg_agg.launches,
+                "veds_score": veds_dt_score.launches}
+    captures = _SlotGraph.captures - captures
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_attn = cfg.n_rep * sum(k in ("attn", "attn_swa", "cross")
+                             for k in cfg.pattern)
+    want = {"flash_attention": rounds * V * n_attn * 2,
+            "fedavg_agg": rounds * len(tree_leaves(decl)),
+            "veds_score": rounds * VFL_SLOTS}
+    finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(out))
+    log(phase, f"{rounds} rounds, {V} vehicles x {batch} x {seq} tokens, "
+        f"ipm_warm_iters {STREAM_WARM_ITERS}: wall {wall:.3f} s = "
+        + " + ".join(f"{n} {ms:.1f}" for n, ms in stages)
+        + f" ms; masks {stats['mask'].tolist()} n_success "
+        f"{stats['n_success'].tolist()}; slot graphs captured {captures}; "
+        f"peak memory {peak_gb:.2f} GB; launches {launches} (expected "
+        f"{want})")
+    check(finite, f"{phase}: parameters not finite")
+    for k, w in want.items():
+        check(launches[k] == w, f"{phase}: {k} launched {launches[k]} "
+              f"times, expected {w}")
+    return dict(wall_s=wall, stages=stages, launches=launches,
+                expected_launches=want, masks=stats["mask"].tolist(),
+                n_success=stats["n_success"].tolist(),
+                graph_captures=captures, peak_memory_gb=peak_gb)
 
 
 def sm90_resources(kernel: str, variant: int):
@@ -1348,18 +1731,24 @@ def main(argv=None) -> int:
             log("build", f"{entry}: {line.strip()}")
 
     kernels = phase_kernels({"main": (ROUND_BATCH, 10), "vfl": (1, 4),
-                             "large": (1 << 22,)}, device,
-                            graphed=("main", "vfl"))
+                             "stream": (1, 10), "large": (1 << 22,)},
+                            device, graphed=("main", "vfl", "stream"))
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
     stages = phase_stages(device, setup)
     ref = phase_reference(device)
+    stream = phase_stream(device, setup)
+    stream_ref = phase_stream_reference(device)
     del setup
     free()
     vfl = phase_vfl(device, vfl_config("qwen3-32b", VFL_REPS), VFL_WARMUP,
                     VFL_ROUNDS, VFL_BATCH, VFL_SEQ, VFL_LR,
                     RECORDED_MASKS["qwen3-32b"])
+    free()
+    stream_vfl = phase_stream_vfl(device, vfl_config("qwen3-32b", VFL_REPS),
+                                  STREAM_VFL_ROUNDS, VFL_BATCH, VFL_SEQ,
+                                  VFL_LR)
     free()
     zcfg = vfl_config("zamba2-2.7b", ZAMBA2_REPS)
     zamba2 = phase_vfl(device, zcfg, VFL_WARMUP, VFL_ROUNDS, VFL_BATCH,
@@ -1387,8 +1776,12 @@ def main(argv=None) -> int:
     def by_path(name):
         out = {"vfl_qwen3": vfl["launches"][name],
                "vfl_zamba2": zamba2["launches"][name]}
+        if name in stream_vfl["launches"]:
+            out["stream_vfl_qwen3"] = stream_vfl["launches"][name]
         if name == "veds_score":
             out["run_fl"] = main_res["launches"][name]
+            out["stream_run_fl"] = stream["warm"]["launches"][name]
+            out["stream_run_fl_cold"] = stream["cold"]["launches"][name]
         return out
 
     def timed(r, **extra):
@@ -1418,7 +1811,12 @@ def main(argv=None) -> int:
                 vfl_shape=timed(kernels["vfl"], shape=kernels["vfl"]["shape"],
                                 graph_ms=kernels["vfl"]["graph_ms"],
                                 graph_floor_ms=kernels["vfl"][
-                                    "graph_floor_ms"]))}, {
+                                    "graph_floor_ms"]),
+                stream_shape=timed(kernels["stream"],
+                                   shape=kernels["stream"]["shape"],
+                                   graph_ms=kernels["stream"]["graph_ms"],
+                                   graph_floor_ms=kernels["stream"][
+                                       "graph_floor_ms"]))}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_sm90.cu",
@@ -1458,7 +1856,8 @@ def main(argv=None) -> int:
         smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, kernels=kernels, llm_kernels=llm_kernels,
         ssd_kernels=ssd_kernels, main=main_res, stages=stages,
-        reference=ref, vfl=vfl, vfl_zamba2=zamba2, sensitivity=sensitivity,
+        reference=ref, stream=stream, stream_reference=stream_ref,
+        stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2, sensitivity=sensitivity,
         vfl_reference=vfl_ref), indent=1, default=str))
     log("device", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included")

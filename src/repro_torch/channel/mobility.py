@@ -12,7 +12,7 @@ takes them as tensors, so tests can feed the reference's own draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -32,29 +32,45 @@ class ManhattanParams:
 # bit), so it needs no table copied to the device.
 
 
-def init_draws(gen: torch.Generator, n: int, prm: ManhattanParams,
+def init_draws(gen: torch.Generator, n, prm: ManhattanParams,
                device) -> Dict[str, torch.Tensor]:
     """Random numbers of `init_mobility`: street index, offset along the
-    street, orientation, heading bit and speed of each of `n` vehicles."""
+    street, orientation, heading bit and speed of each of `n` vehicles
+    (an int, or a shape such as [B, N] for B cells)."""
+    shape = (n,) if isinstance(n, int) else tuple(n)
     n_lines = int(prm.extent // prm.block) + 1
-    line = torch.randint(0, n_lines, (n,), generator=gen, device=device)
-    offset = torch.rand(n, generator=gen, device=device) * prm.extent
-    horiz = torch.rand(n, generator=gen, device=device) < 0.5
-    d_bit = torch.randint(0, 2, (n,), generator=gen, device=device)
+    line = torch.randint(0, n_lines, shape, generator=gen, device=device)
+    offset = torch.rand(shape, generator=gen, device=device) * prm.extent
+    horiz = torch.rand(shape, generator=gen, device=device) < 0.5
+    d_bit = torch.randint(0, 2, shape, generator=gen, device=device)
     v_lo, v_hi = 0.3 * prm.v_max, max(prm.v_max, 1e-3)
-    speed = v_lo + torch.rand(n, generator=gen, device=device) * (v_hi - v_lo)
+    speed = v_lo + torch.rand(shape, generator=gen, device=device) \
+        * (v_hi - v_lo)
     return dict(line=line, offset=offset, horiz=horiz, d_bit=d_bit,
                 speed=speed)
 
 
 def init_from_draws(draws: Dict[str, torch.Tensor], prm: ManhattanParams,
                     near_rsu: bool = True,
-                    rsu_xy: Optional[Tuple[float, float]] = None):
-    """Deterministic half of `init_mobility`: state dict with pos [n,2],
-    dir [n] (int64) and speed [n]."""
+                    rsu_xy: Union[Tuple[float, float], torch.Tensor,
+                                  None] = None):
+    """Deterministic half of `init_mobility`: state dict with pos [...,2],
+    dir [...] (int64) and speed [...], for draws of any shape [..., n].
+
+    `rsu_xy` is a Python pair, or an fp32 tensor [..., 2] of per-cell
+    RSU positions (the draws' leading axes are the cells); the clamp
+    bounds are then computed in fp32, as the reference computes them
+    for a traced RSU position."""
     line = draws["line"].to(torch.float32)
     offset = draws["offset"]
-    if near_rsu:
+    if near_rsu and torch.is_tensor(rsu_xy):
+        r = 0.8 * prm.coverage
+        cx, cy = rsu_xy[..., 0, None], rsu_xy[..., 1, None]
+        lo_l = torch.floor(torch.clamp_min(cx - r, 0.0) / prm.block)
+        hi_l = torch.ceil(torch.clamp_max(cx + r, prm.extent) / prm.block)
+        line = torch.clamp(line, lo_l, hi_l)
+        offset = torch.clamp(offset, cy - r, cy + r)
+    elif near_rsu:
         r = 0.8 * prm.coverage
         cx, cy = prm.rsu_xy if rsu_xy is None else rsu_xy
         lo_l = float(int(max(cx - r, 0.0) // prm.block))
@@ -94,7 +110,8 @@ def step_draws(gen: torch.Generator, shape,
 
 def step_from_draws(state, prm: ManhattanParams, dt: float,
                     draws: Dict[str, torch.Tensor]):
-    """Deterministic half of `step_mobility`."""
+    """Deterministic half of `step_mobility`: pos [n,2], dir and speed
+    [n], draws [n]."""
     pos, d, speed = state["pos"], state["dir"], state["speed"]
     moving_axis = torch.where(d < 2, 0, 1)
     sign = 1.0 - 2.0 * (d % 2)
@@ -135,8 +152,16 @@ def rollout_positions(gen: torch.Generator, state, prm: ManhattanParams,
     [n_steps, N, 2]). The draws of all steps are made up front."""
     draws = step_draws(gen, (n_steps,) + tuple(state["dir"].shape),
                        state["pos"].device)
+    return rollout_from_draws(state, prm, dt, draws)
+
+
+def rollout_from_draws(state, prm: ManhattanParams, dt: float,
+                       draws: Dict[str, torch.Tensor]):
+    """Deterministic half of `rollout_positions`: one step per leading
+    entry of the draws ([n_steps, N] each). Returns (final state,
+    positions [n_steps, N, 2])."""
     traj = []
-    for t in range(n_steps):
+    for t in range(draws["u_turn"].shape[0]):
         state = step_from_draws(state, prm, dt,
                                 {k: v[t] for k, v in draws.items()})
         traj.append(state["pos"])

@@ -21,9 +21,19 @@ class VedsParams:
     slot: float = 0.1        # kappa [s]
     ipm_iters: int = 25      # Newton iterations for P4 (cold start)
     ipm_mu: float = 1e-3     # final barrier weight
-    ipm_warm_iters: int = 0  # warm-started P4 budget (not ported yet)
-    ipm_far_iters: int = 0   # adaptive two-tier warm budget (not ported yet)
-    ipm_far_grad_tol: float = 0.0  # near/far tier threshold (not ported yet)
+    ipm_warm_iters: int = 0  # warm-started P4 budget: when > 0 and a
+    #                          warm-start table is threaded in (streaming
+    #                          carry, FleetState.p4_tab), each candidate
+    #                          re-solves from its previous optimum with
+    #                          this many Newton steps (the tail of the cold
+    #                          schedule). 0 disables the warm path.
+    ipm_far_iters: int = 0   # adaptive two-tier warm budget: candidates
+    #                          whose seed is far from stationary (gradient
+    #                          norm > ipm_far_grad_tol) apply this many
+    #                          steps instead. Needs ipm_far_iters >
+    #                          ipm_warm_iters and ipm_far_grad_tol > 0.
+    ipm_far_grad_tol: float = 0.0  # gradient-norm threshold of the
+    #                          near/far tiers (0 disables the split)
 
 
 def sigmoid_shifted(z: torch.Tensor, prm: VedsParams) -> torch.Tensor:

@@ -6,39 +6,91 @@ scheduler accepts both the single-cell layout (`g_sr: [T, S]`) and the
 batched layout (`g_sr: [B, T, S]`) and returns outputs of matching
 batchedness. The virtual energy queues (eqs. 19-20) come in through an
 optional `SchedulerCarry` and go out in `RoundOutputs.carry`; `carry=None`
-starts them at zero.
+starts them at zero. A multi-round rollout threads them, with the P4
+warm-start table, from round to round (`RolloutCarry`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+from typing import Any, Iterator, Optional
 
 import torch
 
 
 def map_tensors(fn, obj):
-    """Apply `fn` to every tensor field of a dataclass (None stays None)."""
+    """Apply `fn` to every tensor of a dataclass, through nested
+    dataclasses, dicts and tuples (None stays None)."""
     return dataclasses.replace(obj, **{
-        f.name: _map_value(fn, getattr(obj, f.name))
+        f.name: map_tree(fn, getattr(obj, f.name))
         for f in dataclasses.fields(obj)})
 
 
-def _map_value(fn, v):
+def zip_tree(fn, a, b):
+    """`fn(x, y)` on the paired tensors of two like-shaped trees of
+    dataclasses, dicts and tuples (None stays None); the tree of the
+    results."""
+    if a is None:
+        return None
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: zip_tree(fn, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)})
+    if isinstance(a, dict):
+        return {k: zip_tree(fn, x, b[k]) for k, x in a.items()}
+    if isinstance(a, tuple):
+        return tuple(zip_tree(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+def stack_tree(objs, fn=torch.stack):
+    """Dataclasses of tensors (or tensors) combined field by field with
+    `fn` (stack on a new leading axis, or `torch.cat`); None stays
+    None."""
+    first = objs[0]
+    if first is None:
+        return None
+    if torch.is_tensor(first):
+        return fn(list(objs))
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: stack_tree([getattr(o, f.name) for o in objs], fn)
+            for f in dataclasses.fields(first)})
+    if isinstance(first, dict):
+        return {k: stack_tree([o[k] for o in objs], fn) for k in first}
+    if isinstance(first, tuple):
+        parts = [stack_tree([o[i] for o in objs], fn)
+                 for i in range(len(first))]
+        return (type(first)(*parts) if hasattr(first, "_fields")
+                else tuple(parts))
+    raise TypeError(f"stack_tree: cannot combine {type(first).__name__}")
+
+
+def map_tree(fn, v):
+    """`fn` on every tensor of a tree of dataclasses, dicts and tuples
+    (None stays None)."""
     if v is None:
         return None
     if dataclasses.is_dataclass(v):
         return map_tensors(fn, v)
+    if isinstance(v, dict):
+        return {k: map_tree(fn, x) for k, x in v.items()}
+    if isinstance(v, tuple):
+        return tuple(map_tree(fn, x) for x in v)
     return fn(v)
 
 
 @dataclasses.dataclass(frozen=True)
 class SchedulerCarry:
-    """Virtual energy queues threaded round-to-round (eqs. 19-20).
+    """Virtual energy queues threaded round-to-round (eqs. 19-20), plus
+    the optional P4 warm-start table.
 
       qs  [S] / [B, S]   per-SOV queue [J]
       qu  [U] / [B, U]   per-OPV queue [J]
-      p4  warm-start table of the reference; the port has only the cold
-          path, so it stays None.
+      p4  [S, U, 1+U] / [B, S, U, 1+U] or None: each SOV slot's last P4
+          power vectors over the U prefix candidates (sorted-prefix
+          layout). VEDS consumes and refreshes it only when
+          `VedsParams.ipm_warm_iters > 0` and COT is on; otherwise it
+          stays None.
     """
     qs: torch.Tensor
     qu: torch.Tensor
@@ -49,6 +101,24 @@ class SchedulerCarry:
         """Fresh queues matching `rnd`'s fleet shape."""
         return SchedulerCarry(qs=torch.zeros_like(rnd.e_sov),
                               qu=torch.zeros_like(rnd.e_opv))
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutCarry:
+    """The carry of a multi-round rollout. A scheduling-only rollout
+    (`repro_torch.core.streaming.stream_rounds`) threads just `sched`: a
+    `SchedulerCarry` in fresh-fleet mode, a persistent `FleetState`
+    otherwise. The fused training engine (`repro_torch.fl.engine.
+    fused_rollout`) adds the global model and the optimizer state.
+
+      sched      SchedulerCarry (virtual queues) or FleetState
+      params     global model, dict of tensors with a leading [B] cell
+                 axis (or None)
+      opt_state  optimizer state with a leading [B] cell axis (or None)
+    """
+    sched: Any
+    params: Any = None
+    opt_state: Any = None
 
 
 def init_queues(rnd, carry: Optional[SchedulerCarry]):

@@ -1,6 +1,6 @@
 """Convex solvers for the per-slot subproblems.
 
-Port of `repro/core/solver.py`, cold path.
+Port of `repro/core/solver.py`.
 
 * P3.1 (direct transmission): closed form (Proposition 1).
 * P4 (cooperative transmission, fixed OPV prefix): log-barrier
@@ -14,15 +14,21 @@ P4 in canonical form, variables p in R^{1+U} (index 0 = the SOV):
 with d = a - g_min * e0 (decodability constraint (28), reduced to the
 weakest scheduled OPV), entries of a zeroed for unscheduled OPVs.
 
-The warm-started and adaptive two-tier budgets of the reference are not
-ported yet.
+The P4 solver supports a warm start (`p_init` + `warm_iters`): the
+streaming rollout threads the previous round's per-vehicle optima through
+its carry and re-solves with the tail of the cold barrier schedule, and an
+adaptive two-tier budget (`far_iters`, `far_grad_tol`) gives far-from-
+stationary seeds the longer tail. Both tiers run as masked updates in one
+loop, so no branch depends on a tensor value.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 
 def dt_power_opt(cw: torch.Tensor, q: torch.Tensor, gain: torch.Tensor,
@@ -88,6 +94,18 @@ def _project_feasible(p, d, p_max, margin: float = 0.999):
     return torch.cat([p[..., :1], rest * scale[..., None]], dim=-1)
 
 
+def p4_seed_table(shape, p_max: float, device=None) -> torch.Tensor:
+    """The cold starting point of `solve_p4`, broadcast to `shape` (whose
+    trailing axis is the P4 power vector [1+U]). Warm-start tables are
+    seeded with it, so a warm solve at the full iteration budget from an
+    untouched table is bit for bit the cold solve. On `device`: CUDA
+    unless the caller names another."""
+    tab = torch.full(tuple(shape), 0.25 * p_max,
+                     device=resolve_device(device))
+    tab[..., 0] = 0.5 * p_max
+    return tab
+
+
 def _polish_count(n_it: int, iters: int) -> int:
     """Gradient-polish steps for a Newton budget of `n_it` out of the cold
     `iters`: the full 10 at the full budget, proportionally fewer on a
@@ -97,22 +115,62 @@ def _polish_count(n_it: int, iters: int) -> int:
 
 def solve_p4(cw: torch.Tensor, a: torch.Tensor, q: torch.Tensor,
              d: torch.Tensor, p_max: torch.Tensor, *, iters: int = 25,
-             mu_final: float = 1e-3):
-    """Cold interior-point solve of P4 for every candidate at once.
+             mu_final: float = 1e-3, p_init: Optional[torch.Tensor] = None,
+             warm_iters: int = 0, far_iters: int = 0,
+             far_grad_tol: float = 0.0):
+    """Interior-point solve of P4 for every candidate at once.
 
     `a, q, d, p_max` are [..., 1+U] and `cw` is [...]. Unscheduled OPVs
     must have a=0, q arbitrary, p_max>0; their optimum is 0. Returns
     (p_opt [..., 1+U], value [...]) with value = cw*ln(1+a.p) - q.p,
     floored at the zero-power value 0.
+
+    Warm start: `p_init [..., 1+U]` seeds the Newton iteration (pulled
+    into the interior by the same margin-0.5 projection as the cold
+    start), and the barrier schedule becomes the last `warm_iters` values
+    of the cold one; the gradient polish shortens in proportion.
+    `warm_iters <= 0` keeps the full budget, so `p_init =
+    p4_seed_table(...)` at the full budget is bit for bit the cold solve.
+
+    Adaptive two-tier budget (warm path only; `far_iters > warm_iters`
+    and `far_grad_tol > 0` enable it): a candidate whose projected seed
+    has a raw-objective gradient norm above `far_grad_tol` applies the
+    last `far_iters` steps of the schedule, the others only the last
+    `warm_iters`. Every candidate runs the `far_iters`-long loop and a
+    masked update selects which steps it applies, so a near candidate
+    is bit for bit the plain `warm_iters` solve and a far candidate with
+    `far_iters == iters` the cold solve from its seed.
     """
     n = a.shape[-1]
-    p0 = torch.full_like(a, 0.25) * p_max
-    p0[..., 0] = 0.5 * p_max[..., 0]
+    adaptive = (p_init is not None and warm_iters > 0
+                and far_iters > warm_iters and far_grad_tol > 0.0)
+    if p_init is None:
+        p0 = torch.full_like(a, 0.25) * p_max
+        p0[..., 0] = 0.5 * p_max[..., 0]
+        n_it = iters
+    else:
+        p0 = p_init
+        n_it = min(int(warm_iters), iters) if warm_iters > 0 else iters
     p = _project_feasible(p0, d, p_max, margin=0.5)
+
+    if adaptive:
+        n_run = min(int(far_iters), iters)
+        s0 = (1.0 + _dot(a, p))[..., None]
+        g0 = torch.linalg.vector_norm(cw[..., None] * a / s0 - q, dim=-1)
+        far = g0 > far_grad_tol
+        # the first step a candidate applies, of the Newton loop and of
+        # the polish loop
+        first = torch.where(far, 0, n_run - n_it)[..., None]
+        first_pol = torch.where(
+            far, 0, _polish_count(n_run, iters)
+            - _polish_count(n_it, iters))[..., None]
+    else:
+        n_run = n_it
+
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     step_cap = (0.5 * p_max.amax(-1))[..., None]
-
-    for mu in barrier_schedule(iters, float(mu_final)):
+    mus = barrier_schedule(iters, float(mu_final))[iters - n_run:]
+    for i, mu in enumerate(mus):
         grad, hess = _phi_grad_hess(p, a, q, cw, d, p_max, mu)
         # damped Newton ascent on the concave barrier objective
         hess = hess - 1e-9 * eye
@@ -120,16 +178,18 @@ def solve_p4(cw: torch.Tensor, a: torch.Tensor, q: torch.Tensor,
         # keep steps inside the trust region of the barrier
         norm = torch.linalg.vector_norm(dlt, dim=-1, keepdim=True)
         dlt = dlt * torch.clamp_max(step_cap / (norm + 1e-12), 1.0)
-        p = _project_feasible(p + dlt, d, p_max)
+        p_new = _project_feasible(p + dlt, d, p_max)
+        p = torch.where(i >= first, p_new, p) if adaptive else p_new
 
     # gradient polish: a few projected-ascent steps on the raw objective
     lr_cap = (0.05 * p_max.amax(-1))[..., None]
-    for _ in range(_polish_count(iters, iters)):
+    for j in range(_polish_count(n_run, iters)):
         s = (1.0 + _dot(a, p))[..., None]
         g = cw[..., None] * a / s - q
         lr = lr_cap / (torch.linalg.vector_norm(g, dim=-1, keepdim=True)
                        + 1e-12)
-        p = _project_feasible(p + lr * g, d, p_max)
+        p_new = _project_feasible(p + lr * g, d, p_max)
+        p = torch.where(j >= first_pol, p_new, p) if adaptive else p_new
 
     val = cw * torch.log1p(_dot(a, p)) - _dot(q, p)
     # zero-power value as a floor (solver never worse than not transmitting)

@@ -1,9 +1,10 @@
 """V2V-Enhanced Dynamic Scheduling (VEDS) — Algorithms 1 and 2, batched.
 
-Port of `repro/core/veds.py`, cold path. Every candidate of a slot is
-scored at once: the [B, S] direct-transmission (DT) candidates through the
+Port of `repro/core/veds.py`. Every candidate of a slot is scored at
+once: the [B, S] direct-transmission (DT) candidates through the
 `veds_score` CUDA kernel, and the [B, S, U] cooperative (COT) candidates
-through one batched interior-point solve of P4. The leading batch axis `B`
+through one batched interior-point solve of P4, cold or warm-started
+from a carried table of previous optima. The leading batch axis `B`
 (independent RSU cells, or independent rounds of one cell) rides through
 the whole round.
 
@@ -100,13 +101,16 @@ def _dt_candidates(w, qs, g_sr, eligible, prm: lyp.VedsParams,
 
 
 def _cot_candidates(w, qs, qu, g_sr, g_or, g_so, eligible,
-                    prm: lyp.VedsParams, ch: ChannelParams):
+                    prm: lyp.VedsParams, ch: ChannelParams, p_init=None):
     """P4 for every (cell b, SOV m, prefix size i). Proposition 2: only
     prefixes of OPVs sorted by h_{m,n} descending need be enumerated.
 
-    Inputs are [B, S] / [B, U] / [B, S, U]. Returns y [B,S,U],
-    p_m [B,S,U], p_opv [B,S,U,U] (in *sorted* OPV order), order [B,S,U]
-    and z [B,S,U].
+    Inputs are [B, S] / [B, U] / [B, S, U]. `p_init [B,S,U,1+U]`
+    warm-starts every candidate's solve from the previous slot's or
+    round's optimum with the `prm.ipm_warm_iters` budget (None = cold,
+    the full `prm.ipm_iters`). Returns y [B,S,U], p_m [B,S,U],
+    p_opv [B,S,U,U] (in *sorted* OPV order), order [B,S,U], z [B,S,U] and
+    p_all [B,S,U,1+U] (this slot's warm-start table).
     """
     B, S = g_sr.shape
     U = g_or.shape[-1]
@@ -136,7 +140,10 @@ def _cot_candidates(w, qs, qu, g_sr, g_or, g_so, eligible,
 
     p_all, _ = solve_p4(cw[..., None].expand(B, S, U), a_full, q_full,
                         d_full, pmax_full, iters=prm.ipm_iters,
-                        mu_final=prm.ipm_mu)
+                        mu_final=prm.ipm_mu, p_init=p_init,
+                        warm_iters=prm.ipm_warm_iters,
+                        far_iters=prm.ipm_far_iters,
+                        far_grad_tol=prm.ipm_far_grad_tol)
     # evaluate the exact objective y (21a) for each candidate
     sinr = (a_full * p_all).sum(-1)
     rate = ch.bandwidth * torch.log2(1.0 + sinr)
@@ -146,7 +153,7 @@ def _cot_candidates(w, qs, qu, g_sr, g_or, g_so, eligible,
     y = (prm.V * w[..., None] * z - qs[..., None] * e_sov_cm
          - (e_opv_cm * qu_sorted[..., None, :]).sum(-1))
     y = torch.where(feasible & eligible[..., None], y, NEG)
-    return y, p_all[..., 0], p_all[..., 1:], order, z
+    return y, p_all[..., 0], p_all[..., 1:], order, z, p_all
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -209,11 +216,15 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
     on `rnd`'s device, as the reference's traced slot index: nothing here
     reads a value back to the host, so the step can be captured into a
     CUDA graph. `rnd` must be batched; state holds zeta [B,S], qs [B,S],
-    qu [B,U] and the slot count T (a Python float).
+    qu [B,U] and the slot count T (a Python float). An optional
+    state["p4"] [B,S,U,1+U] threads the P4 warm-start table from slot to
+    slot: each slot's candidate solves start from the previous slot's
+    optima and write their own back.
 
     Returns (new state, decision dict of [B, ...] tensors)."""
     B, _, S = rnd.g_sr.shape
     U = rnd.g_or.shape[-1]
+    warm = "p4" in state
     zeta, qs, qu = state["zeta"], state["qs"], state["qu"]
     # `x[:, t]` would turn the 0-dim tensor into a host integer (a sync)
     at_t = t.reshape(1)
@@ -227,14 +238,17 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
 
     y_dt, p_dt, z_dt = _dt_candidates(w, qs, g_sr, eligible, prm, ch)
     if enable_cot:
-        y_cot, pm_cot, po_cot, order, z_cot = _cot_candidates(
-            w, qs, qu, g_sr, g_or, g_so, eligible, prm, ch)
+        y_cot, pm_cot, po_cot, order, z_cot, p_all = _cot_candidates(
+            w, qs, qu, g_sr, g_or, g_so, eligible, prm, ch,
+            state["p4"] if warm else None)
     else:
         y_cot = torch.full((B, S, U), NEG, device=g_sr.device)
         pm_cot = torch.zeros((B, S, U), device=g_sr.device)
         po_cot = torch.zeros((B, S, U, U), device=g_sr.device)
         order = torch.arange(U, device=g_sr.device).expand(B, S, U)
         z_cot = torch.zeros((B, S, U), device=g_sr.device)
+        # no P4 solves without COT: a threaded table passes through
+        p_all = state.get("p4")
 
     m_sel, use_dt, use_cot, z_vec, e_sov_vec, e_opv_vec = _select_slot(
         y_dt, p_dt, z_dt, y_cot, pm_cot, po_cot, order, z_cot, prm)
@@ -246,6 +260,8 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
         "qu": lyp.update_queue_opv(qu, e_opv_vec, rnd.e_opv, state["T"]),
         "T": state["T"],
     }
+    if warm:
+        new_state["p4"] = p_all
     info = {"m": m_sel, "use_dt": use_dt, "use_cot": use_cot,
             "z": z_vec, "e_sov": e_sov_vec, "e_opv": e_opv_vec}
     return new_state, info
@@ -253,6 +269,12 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
 
 # the per-slot decisions that the round sums
 _SUMMED = ("e_sov", "e_opv", "use_cot", "use_dt")
+
+
+def _carried(state) -> tuple:
+    """The state tensors a slot step advances: the delivered bits, the
+    queues, and the P4 table where the round runs warm."""
+    return ("zeta", "qs", "qu") + (("p4",) if "p4" in state else ())
 
 
 def _slots_eager(rb: RoundInputs, state, prm, ch, enable_cot):
@@ -272,7 +294,8 @@ class _SlotGraph:
     """The slot step of one round shape, captured as a CUDA graph.
 
     It owns static buffers for the round's inputs, the state (zeta, qs,
-    qu), the slot index `t`, which the graph advances itself, and the
+    qu, and the P4 warm-start table on the warm path), the slot index
+    `t`, which the graph advances itself, and the
     [T, B, ...] decisions that the round sums, one row written per slot.
     `run` copies a round in, replays the graph once per slot and returns
     what the eager loop returns, bit for bit: the same kernels on the
@@ -289,7 +312,8 @@ class _SlotGraph:
         self.enable_cot = enable_cot
         self.rnd = map_tensors(torch.clone, rb)
         self.state = dict(state)
-        for k in ("zeta", "qs", "qu"):
+        self.carried = _carried(state)
+        for k in self.carried:
             self.state[k] = state[k].clone(
                 memory_format=torch.contiguous_format)
         self.t = torch.zeros((), dtype=torch.int64, device=dev)
@@ -303,7 +327,7 @@ class _SlotGraph:
     def _step(self):
         new, info = solve_slot(self.t, self.state, self.rnd, self.prm,
                                self.ch, enable_cot=self.enable_cot)
-        for k in ("zeta", "qs", "qu"):
+        for k in self.carried:
             self.state[k].copy_(new[k])
         at_t = self.t.reshape(1)
         for k, buf in self.infos.items():
@@ -332,7 +356,7 @@ class _SlotGraph:
             dst = getattr(self.rnd, f.name)
             if dst is not None:
                 dst.copy_(getattr(rb, f.name))
-        for k in ("zeta", "qs", "qu"):
+        for k in self.carried:
             self.state[k].copy_(state[k])
         self.t.zero_()
         for _ in range(self.T):
@@ -350,14 +374,16 @@ def _slots_graphed(rb: RoundInputs, state, prm, ch, enable_cot):
     """`_slots_eager` through the slot graph of `rb`'s shape, captured at
     the first round of that shape. The key holds everything the graph
     bakes in: the device, each input's shape and dtype (B, T, S, U and
-    which padding masks are present), `enable_cot`, and the frozen
-    parameter dataclasses. The queues must be float32, as `veds_score`
-    takes them: the graph's buffers are."""
-    for k in ("qs", "qu"):
+    which padding masks are present), whether a P4 table is carried,
+    `enable_cot`, and the frozen parameter dataclasses. The queues and
+    the table must be float32, as `veds_score` and the solver take them:
+    the graph's buffers are."""
+    for k in _carried(state)[1:]:
         if state[k].dtype != torch.float32:
             raise TypeError(f"veds_round: the slot graph runs float32 "
-                            f"queues; the carry's {k} is {state[k].dtype}")
-    key = (rb.g_sr.device, enable_cot, prm, ch) + tuple(
+                            f"queues and P4 tables; the carry's {k} is "
+                            f"{state[k].dtype}")
+    key = (rb.g_sr.device, enable_cot, prm, ch, "p4" in state) + tuple(
         None if x is None else (tuple(x.shape), x.dtype)
         for x in (getattr(rb, f.name) for f in dataclasses.fields(rb)))
     graph = _SLOT_GRAPHS.get(key)
@@ -379,9 +405,13 @@ def veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
     of one captured slot graph, on the CPU a Python loop over the same
     step. `carry` seeds the virtual energy queues (eqs. 19-20); None
     starts them at zero. The round-end queues come back in
-    `RoundOutputs.carry`. Only the cold P4 path is ported: where the
-    reference would run warm-started (a warm budget and a carried `p4`
-    table, with COT on), this raises.
+    `RoundOutputs.carry`.
+
+    When `carry.p4` holds a warm-start table, `prm.ipm_warm_iters > 0`
+    and COT is on, the P4 candidate solves run warm-started: the table
+    threads from slot to slot and the last slot's table comes back in
+    `RoundOutputs.carry.p4`. Otherwise the cold path runs and
+    `carry.p4` comes back None.
     """
     return _veds_round(rnd, prm, ch, enable_cot=enable_cot, carry=carry,
                        graphed=rnd.g_sr.is_cuda)
@@ -393,17 +423,16 @@ def _veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
     """`veds_round`, with the slot graph or the eager loop as asked; the
     card tests and `chip_smoke.py` hold the graph against the eager loop
     on the card."""
-    if (enable_cot and prm.ipm_warm_iters > 0 and carry is not None
-            and carry.p4 is not None):
-        raise NotImplementedError(
-            "warm-started P4 (VedsParams.ipm_warm_iters, carry.p4) comes "
-            "with the streaming slice of the port")
     batched = rnd.batched
     rb = rnd.with_batch_axis()
     B, T, S = rb.g_sr.shape
+    U = rb.g_or.shape[-1]
     qs0, qu0 = init_queues(rb, carry)
     state = {"zeta": torch.zeros((B, S), device=rb.g_sr.device),
              "qs": qs0, "qu": qu0, "T": float(T)}
+    if (enable_cot and prm.ipm_warm_iters > 0 and carry is not None
+            and carry.p4 is not None):
+        state["p4"] = torch.broadcast_to(carry.p4, (B, S, U, U + 1))
     slots = _slots_graphed if graphed else _slots_eager
     state, infos = slots(rb, state, prm, ch, enable_cot)
     total = {k: infos[k].sum(0) for k in _SUMMED}
@@ -419,7 +448,8 @@ def _veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
         energy_opv=total["e_opv"],
         n_cot_slots=total["use_cot"],
         n_dt_slots=total["use_dt"],
-        carry=SchedulerCarry(qs=state["qs"].clone(),
-                             qu=state["qu"].clone()),
+        carry=SchedulerCarry(
+            qs=state["qs"].clone(), qu=state["qu"].clone(),
+            p4=state["p4"].clone() if "p4" in state else None),
     )
     return unbatch(out, batched)

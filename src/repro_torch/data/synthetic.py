@@ -1,7 +1,7 @@
 """Deterministic synthetic data (offline substitutes).
 
-Port of `cifar_like_dataset`, `partition_labels` and `lm_batch` of
-`repro/data/synthetic.py`. CIFAR-like: 10-class 32x32x3 images = class
+Port of `cifar_like_dataset`, `partition_labels`, `pad_client_shards_np`,
+`pad_client_shards` and `lm_batch` of `repro/data/synthetic.py`. CIFAR-like: 10-class 32x32x3 images = class
 prototype plus noise, so a small CNN genuinely learns. LM batches: token
 streams that follow a noisy +step pattern, so next-token prediction has
 signal. Draws come from `torch.Generator`s, so the data differ from the
@@ -11,10 +11,12 @@ partition is numpy, the same as the reference's.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 
 def cifar_like_dataset(gen: torch.Generator, n: int, noise: float = 0.6,
@@ -61,6 +63,50 @@ def partition_labels(labels: np.ndarray, n_clients: int,
         parts[j % n_clients].append(part)
     return [np.concatenate(p) if p else np.array([], np.int64)
             for p in parts]
+
+
+def pad_client_shards_np(client_data) -> Tuple[Dict[str, np.ndarray],
+                                               np.ndarray]:
+    """Host-side padding: stack ragged per-client dicts of arrays into the
+    padded layout as numpy arrays. Every leaf becomes `[C, n_max, ...]`
+    and `n_samples [C]` holds the true per-client counts.
+
+    Padding rows are zeros and are never sampled: minibatch indices are
+    drawn against the true counts, and aggregation weights use them too,
+    so a padded (or empty) client cannot move the global model. Clients
+    share one set of keys; a client may be empty (0 samples, or `{}`).
+    """
+    counts = np.array(
+        [int(next(iter(d.values())).shape[0]) if d else 0
+         for d in client_data], np.int32)
+    n_max = max(int(counts.max(initial=0)), 1)
+    # schema from the first non-empty client
+    keys = next((list(d.keys()) for d in client_data if d), [])
+    data = {}
+    for k in keys:
+        ref = next(_np(d[k]) for d in client_data if d)
+        out = np.zeros((len(client_data), n_max) + ref.shape[1:],
+                       ref.dtype)
+        for c, d in enumerate(client_data):
+            if d:
+                a = _np(d[k])
+                out[c, :a.shape[0]] = a
+        data[k] = out
+    return data, counts
+
+
+def pad_client_shards(client_data, device=None
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """`pad_client_shards_np` as tensors on `device` (the fused engine's
+    layout): CUDA unless the caller names another."""
+    data, counts = pad_client_shards_np(client_data)
+    device = resolve_device(device)
+    return ({k: torch.as_tensor(v, device=device) for k, v in data.items()},
+            torch.as_tensor(counts, device=device))
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 # ---------------------------------------------------------------------------

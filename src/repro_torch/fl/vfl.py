@@ -14,8 +14,9 @@ model replica: every parameter leaf has a leading [V] axis. One round:
      aggregation is the `fedavg_agg` kernel.
 
 The aggregate comes back broadcast to [V] as a view (no copy). V = 1 is
-the reference's scalar-mask branch. The reference's multi-device meshes
-and its whole-run streaming step (`stream=`) come with later slices and
+the reference's scalar-mask branch. `make_train_step(stream=...)` is the
+whole-run step: the run's scheduling (`stream_rounds`) and then its VFL
+rounds. The reference's multi-device meshes come with a later slice and
 raise.
 """
 from __future__ import annotations
@@ -123,6 +124,7 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
 def make_train_step(cfg: ModelConfig, mesh=None, tp: str = "head", *,
                     lr: float = 0.1, inline_scheduler: bool = False,
                     veds_prm=None, ch_prm=None, stream=None, sched=None,
+                    sc=None, mob=None,
                     stage_hook: Optional[Callable[[str], None]] = None):
     """Train step: (params_v, batch_v, round_inputs, weights) ->
     (params_v, stats).
@@ -130,16 +132,50 @@ def make_train_step(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     With inline_scheduler, the round's scheduling (Algorithm 2: `sched`,
     or `veds_round` when it is None) runs first and its success mask
     gates the aggregation. `stage_hook` is called after "schedule" and
-    after the round's own stages. The reference's whole-run fused step
-    (`stream=...`) comes with the streaming slice and raises."""
+    after the round's own stages.
+
+    With `stream` (a `repro_torch.core.streaming.StreamConfig`, plus the
+    scenario and mobility params `sc`/`mob` and optionally a `sched`
+    scheduler), the returned step is the whole run instead:
+
+        run(params_v, batches_v, weights, key) -> params_v, stats
+
+    where `batches_v` entries are [R, V, b, ...] (one per-vehicle batch
+    a round) and `key` is the run's seed. The scheduling of all R rounds
+    (`stream_rounds`) runs first, then the R VFL rounds gated by its
+    masks; `stats` holds `n_success` [R] and `mask` [R, V]."""
     _one_device(mesh)
-    if stream is not None:
-        raise NotImplementedError(
-            "make_train_step(stream=...) is not ported yet: it needs "
-            "core/streaming.py (ROADMAP queue 1 item 4)")
     round_fn = make_vfl_round(cfg, mesh, tp, lr=lr, stage_hook=stage_hook)
     hook = stage_hook or (lambda name: None)
     V = cfg.num_vehicles
+
+    if stream is not None:
+        from repro_torch.core.baselines import get_scheduler
+        from repro_torch.core.streaming import stream_rounds
+        sched = sched if sched is not None else get_scheduler("veds")
+        if int(stream.batch) != 1:
+            # the step trains ONE federation; masks come from cell 0
+            raise ValueError(
+                f"make_train_step(stream=...) needs batch=1 cells, got "
+                f"batch={stream.batch}")
+        if sc.n_sov < V:
+            raise ValueError(
+                f"stream scenario schedules n_sov={sc.n_sov} SOVs but the "
+                f"mesh federates num_vehicles={V}")
+
+        def run(params_v, batches_v, weights, key):
+            res = stream_rounds(key, sched, sc, mob, ch_prm, veds_prm,
+                                stream, device=weights.device)
+            masks = res.outputs.success[:, 0, :V].to(torch.float32)
+            hook("schedule")
+            for r in range(masks.shape[0]):
+                params_v = round_fn(params_v, {k: x[r] for k, x in
+                                               batches_v.items()},
+                                    masks[r], weights)
+            return params_v, {"n_success": res.outputs.n_success[:, 0],
+                              "mask": masks}
+
+        return run
 
     def step(params_v, batch_v, rnd, weights):
         if inline_scheduler:

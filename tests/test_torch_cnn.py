@@ -135,9 +135,9 @@ def test_fedavg_matches_reference(case):
     for k in g:
         _close(avg[k], javg[k], 1e-6)
     np.testing.assert_allclose(float(scale), float(jscale), rtol=1e-6)
-    new = fedavg_apply({k: tt(v) for k, v in params.items()},
-                       {k: tt(v) for k, v in g.items()}, tt(mask),
-                       tt(weights), lr=0.07)
+    new, _ = fedavg_apply({k: tt(v) for k, v in params.items()},
+                          {k: tt(v) for k, v in g.items()}, tt(mask),
+                          tt(weights), lr=0.07)
     jnew, _ = j_fedavg_apply({k: jnp.asarray(v) for k, v in params.items()},
                              jg, jnp.asarray(mask), jnp.asarray(weights),
                              lr=0.07)

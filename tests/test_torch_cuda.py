@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
 (`veds_score`, `flash_attention`, `fedavg_agg`, `ssd_scan`; the last two
 in their fp32 CUDA-core and bf16 tensor-core variants) against their plain
-PyTorch versions on the card, and the VEDS round's CUDA graph of the slot
-step against the same step run eagerly. Marked `cuda`; each skips
+PyTorch versions on the card, the VEDS round's CUDA graph of the slot
+step (cold and with the warm P4 table) against the same step run
+eagerly, and the streaming `run_fl` on the card against the CPU. Marked
+`cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
 runs on a machine without the reference package's toolchain:
 
@@ -211,6 +213,128 @@ def test_veds_score_launches_count_one_per_slot_of_a_graphed_round():
     port_veds._veds_round(rnd, prm, ch, enable_cot=True, carry=None,
                           graphed=False)
     assert veds_dt_score.launches == before + 13
+
+
+# ---------------------------------------------------------------------------
+# the streaming path: warm P4 in the slot graph, run_fl(streaming=True)
+# ---------------------------------------------------------------------------
+
+def _warm_table(B, S, U, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return 0.3 * torch.rand((B, S, U, U + 1), generator=gen, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,B,far", [((10, 10, 60), 1, 0),
+                                         ((4, 4, 12), 3, 0),
+                                         ((4, 4, 12), 3, 25)])
+def test_warm_slot_graph_equals_eager_step(shape, B, far):
+    """With a carried P4 table the graph holds one more static buffer:
+    masks, zeta, queues and the returned table equal the eager step's
+    bit for bit, on two rounds of the shape (the second replays)."""
+    require_cuda()
+    S, U, _ = shape
+    prm = VedsParams(ipm_warm_iters=10, ipm_far_iters=far,
+                     ipm_far_grad_tol=0.05 if far else 0.0)
+    ch = ChannelParams()
+    rnds = [_rounds(*shape, B=B, seed=s) for s in (21, 22)]
+    c = SchedulerCarry(qs=torch.zeros((B, S), device="cuda"),
+                       qu=torch.zeros((B, U), device="cuda"),
+                       p4=_warm_table(B, S, U, 4))
+    n0 = port_veds._SlotGraph.captures
+    graphed = [port_veds.veds_round(r, prm, ch, carry=c) for r in rnds]
+    assert port_veds._SlotGraph.captures <= n0 + 1
+    eager = [port_veds._veds_round(r, prm, ch, enable_cot=True, carry=c,
+                                   graphed=False) for r in rnds]
+    for g, e in zip(graphed, eager):
+        _assert_rounds_equal(g, e)
+        assert torch.equal(g.carry.p4, e.carry.p4)
+        assert not torch.equal(g.carry.p4, c.p4)
+
+
+def _linear_problem():
+    rng = np.random.default_rng(0)
+    protos = rng.normal(size=(3, 6)).astype(np.float32)
+    data = []
+    for i in range(8):
+        n = 5 + 3 * (i % 3)
+        y = rng.integers(0, 3, n)
+        data.append({"x": (protos[y] + 0.5 * rng.normal(size=(n, 6)))
+                     .astype(np.float32), "y": y.astype(np.int64)})
+    xt = protos[np.arange(3).repeat(8)] + 0.5 * rng.normal(size=(24, 6))
+    return data, xt.astype(np.float32), np.arange(3).repeat(8)
+
+
+def _linear_loss(p, b):
+    logp = torch.log_softmax(b["x"] @ p["w"], -1)
+    return -torch.gather(logp, -1, b["y"][:, None]).mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [{}, {"fused": False}])
+def test_streaming_run_fl_on_card_matches_cpu(mode):
+    """`run_fl(streaming=True)` with warm P4 and carried queues, 3 rounds
+    at S=U=4, T=10, on the card and on the CPU from the same seed (the
+    draws are made on the CPU and moved across): rounds and `n_success`
+    identical, the eval loss within rtol 1e-4."""
+    require_cuda()
+    from repro_torch.core.scenario import fleet_round_draws, init_fleet_draws
+    from repro_torch.fl import simulator
+    from repro_torch.fl.simulator import FLSimConfig, run_fl
+    data, xt, yt = _linear_problem()
+    sim = FLSimConfig(n_clients=8, rounds=3, n_slots=10, n_sov=4, n_opv=4,
+                      batch_size=4, lr=0.1, streaming=True,
+                      ipm_warm_iters=10, **mode)
+    sc = ScenarioParams(n_sov=4, n_opv=4, n_slots=10, batch_size=4)
+    real = simulator._stream_draws
+    keys, fleet_key, sel, mb_u = real(7, sim, torch.device("cpu"))
+    # the integer keys as the draws they seed on the CPU
+    round_draws = [fleet_round_draws(torch.Generator().manual_seed(k), sc,
+                                     1, 16, "cpu") for k in keys]
+    fleet_draws = init_fleet_draws(torch.Generator().manual_seed(fleet_key),
+                                   ManhattanParams(), sc, 1, 16, "cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        return tree.to(device)
+
+    def draws(seed, sim_, device):
+        return ([to(d, device) for d in round_draws],
+                to(fleet_draws, device), sel.to(device), mb_u.to(device))
+
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        x, y = torch.as_tensor(xt, device=dev), torch.as_tensor(yt,
+                                                                 device=dev)
+        simulator._stream_draws = draws
+        try:
+            hist[dev] = run_fl(7, {"w": torch.zeros(6, 3)}, _linear_loss,
+                               data, sim, eval_fn=lambda p: _linear_loss(
+                                   p, {"x": x, "y": y}), eval_every=1,
+                               device=dev)
+        finally:
+            simulator._stream_draws = real
+    assert hist["cuda"]["round"] == hist["cpu"]["round"] == [0, 1, 2]
+    assert hist["cuda"]["n_success"] == hist["cpu"]["n_success"]
+    np.testing.assert_allclose(hist["cuda"]["metric"], hist["cpu"]["metric"],
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_veds_score_launches_count_one_per_slot_of_streaming_rounds():
+    """A persistent warm stream of R rounds runs `veds_score` R x T times
+    on the card, from the slot graph."""
+    require_cuda()
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.streaming import StreamConfig, stream_rounds
+    sc = ScenarioParams(n_sov=4, n_opv=4, n_slots=10)
+    cfg = StreamConfig(n_rounds=3, batch=1, carry_queues=True)
+    before = veds_dt_score.launches
+    res = stream_rounds(2, get_scheduler("veds"), sc, ManhattanParams(),
+                        ChannelParams(), VedsParams(ipm_warm_iters=10), cfg)
+    assert res.outputs.success.is_cuda
+    assert veds_dt_score.launches == before + 3 * 10
 
 
 # ---------------------------------------------------------------------------

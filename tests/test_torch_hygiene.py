@@ -19,7 +19,10 @@ from repro.configs import qwen3_32b as jqwen
 from repro.configs import zamba2_2p7b as jzamba2
 from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
 from repro.core.lyapunov import VedsParams as JVeds
+from repro.core.scenario import FleetState as JFleetState
 from repro.core.scenario import ScenarioParams as JScenario
+from repro.core.streaming import StreamConfig as JStreamConfig
+from repro.fl.engine import ClientShards as JClientShards
 from repro.fl.simulator import FLSimConfig as JFLSimConfig
 from repro_torch import resolve_device
 from repro_torch.channel.mobility import ManhattanParams
@@ -30,7 +33,9 @@ from repro_torch.configs import zamba2_2p7b as zamba2
 from repro_torch.configs.registry import (ARCH_IDS, get_config,
                                           get_smoke_config)
 from repro_torch.core.lyapunov import VedsParams
-from repro_torch.core.scenario import ScenarioParams
+from repro_torch.core.scenario import FleetState, ScenarioParams
+from repro_torch.core.streaming import StreamConfig
+from repro_torch.fl.engine import ClientShards
 from repro_torch.fl.simulator import FLSimConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,7 +45,7 @@ PORT = ROOT / "src" / "repro_torch"
 @pytest.mark.parametrize("ours,ref", [
     (ChannelParams, JChannel), (ManhattanParams, JManhattan),
     (VedsParams, JVeds), (ScenarioParams, JScenario),
-    (FLSimConfig, JFLSimConfig)])
+    (FLSimConfig, JFLSimConfig), (StreamConfig, JStreamConfig)])
 def test_parameter_dataclasses_match_reference(ours, ref):
     fo, fr = dataclasses.fields(ours), dataclasses.fields(ref)
     assert [f.name for f in fo] == [f.name for f in fr]
@@ -49,6 +54,16 @@ def test_parameter_dataclasses_match_reference(ours, ref):
     assert ours.__dataclass_params__.frozen
     if hasattr(ref, "noise_power"):
         assert ours().noise_power == ref().noise_power
+
+
+@pytest.mark.parametrize("ours,ref", [
+    (FleetState, JFleetState), (ClientShards, JClientShards)])
+def test_state_dataclasses_match_reference_field_for_field(ours, ref):
+    """The tensor containers of the streaming path: the same fields in
+    the same order, frozen."""
+    assert [f.name for f in dataclasses.fields(ours)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert ours.__dataclass_params__.frozen
 
 
 @pytest.mark.parametrize("ours,ref", [
@@ -157,6 +172,36 @@ def test_entry_points_default_to_cuda_and_refuse_to_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _builders():
+    from repro_torch.core import scenario as scn
+    from repro_torch.core.solver import p4_seed_table
+    from repro_torch.data.synthetic import pad_client_shards
+    sc, mob = ScenarioParams(n_sov=2, n_opv=2, n_slots=3), ManhattanParams()
+    data = [{"x": torch.zeros(2, 3)}, {"x": torch.ones(1, 3)}]
+    return {
+        "make_round_batch": lambda d: scn.make_round_batch(
+            3, sc, mob, ChannelParams(), VedsParams(), 1, device=d).g_sr,
+        "init_fleet": lambda d: scn.init_fleet(3, sc, mob, 1,
+                                               device=d).pos,
+        "rsu_grid": lambda d: scn.rsu_grid(2, mob, device=d),
+        "p4_seed_table": lambda d: p4_seed_table((2, 3), 1.0, device=d),
+        "pad_client_shards": lambda d: pad_client_shards(data, d)[1],
+        "ClientShards.from_ragged": lambda d: ClientShards.from_ragged(
+            data, d).n_samples}
+
+
+@pytest.mark.parametrize("name", sorted(_builders()))
+def test_builders_default_to_cuda_and_refuse_to_fall_back(monkeypatch,
+                                                          name):
+    """The public builders place their tensors on CUDA unless the caller
+    names another device, as the entry points do."""
+    build = _builders()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(None)
+    assert build("cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):

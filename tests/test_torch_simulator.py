@@ -125,10 +125,12 @@ def test_run_fl_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(streaming=True), "streaming"),
-    (dict(streaming=True, fused=False), "streaming"),
+    (dict(streaming=True, scheduler="sa"), "not ported"),
+    (dict(streaming=True, fused=False, scheduler="optimal"), "not ported"),
     (dict(scheduler="madca"), "not ported")])
 def test_run_fl_refuses_paths_of_later_slices(change, match):
+    """The streaming paths run (`tests/test_torch_fused.py`); what is
+    still refused, blocked or streaming, is a baseline scheduler."""
     with pytest.raises(NotImplementedError, match=match):
         run_fl(0, {}, cnn_loss, _clients(),
                FLSimConfig(**dict(CFG, **change)), device="cpu")

@@ -171,18 +171,39 @@ def test_scheduler_registry_has_veds_only():
 
 
 def test_warm_p4_is_not_ported(rounds3):
-    """A warm budget with a carried P4 table raises; without a table the
-    reference runs cold, and so does the port."""
+    """Warm P4 is ported (the test keeps the name of the slice that
+    refused it): a warm budget with a carried P4 table runs the
+    reference's warm round, decisions identical and floats within rtol
+    1e-4; the returned table is refreshed and stays in the box (its
+    entries of infeasible candidates are ill-conditioned solves, compared
+    only where feasible, in `test_torch_streaming.py`). Without a table
+    the reference runs cold, and so does the port."""
     r = round_to_torch(rounds3)
     warm = VedsParams(ipm_warm_iters=5)
-    table = SchedulerCarry(qs=torch.zeros(SC.n_sov),
-                           qu=torch.zeros(SC.n_opv),
-                           p4=torch.zeros(SC.n_sov, SC.n_opv, SC.n_opv + 1))
-    with pytest.raises(NotImplementedError, match="warm"):
-        veds_round(r, warm, CH, carry=table)
+    B, S, U = 3, SC.n_sov, SC.n_opv
+    tab = np.random.default_rng(5).uniform(
+        0.0, 0.3, (B, S, U, U + 1)).astype(np.float32)
+    table = SchedulerCarry(qs=torch.zeros(B, S), qu=torch.zeros(B, U),
+                           p4=tt(tab))
+    ref = jax.jit(lambda r_, c_: j_veds_round(
+        r_, dataclasses.replace(JPRM, ipm_warm_iters=5), JCH,
+        carry=c_))(rounds3, JCarry(qs=jnp.zeros((B, S)),
+                                   qu=jnp.zeros((B, U)),
+                                   p4=jnp.asarray(tab)))
+    out = veds_round(r, warm, CH, carry=table)
+    for k in DECISIONS:
+        np.testing.assert_array_equal(tn(out[k]), np.asarray(ref[k]),
+                                      err_msg=k)
+    for k in FLOATS:
+        np.testing.assert_allclose(tn(out[k]), np.asarray(ref[k]),
+                                   rtol=1e-4, atol=1e-9, err_msg=k)
+    p4 = tn(out.carry.p4)
+    assert p4.shape == tab.shape and not np.array_equal(p4, tab)
+    assert ((p4 >= 0) & (p4 <= CH.p_max)).all()
     cold, plain = veds_round(r, warm, CH), veds_round(r, PRM, CH)
     for k in DECISIONS + FLOATS:
         assert torch.equal(cold[k], plain[k])
+    assert cold.carry.p4 is None
 
 
 @pytest.mark.parametrize("t", [0, 3, 7, 9])

@@ -205,9 +205,19 @@ def test_train_step_schedules_with_the_reference_decisions(setup):
 
 
 def test_vfl_refuses_paths_of_later_slices(setup):
+    """Meshes are still refused; `stream=` runs
+    (`tests/test_torch_fused.py`) and refuses only what the reference
+    refuses at build time: more than one cell, and fewer SOVs than
+    vehicles."""
+    from repro_torch.core.scenario import ScenarioParams
+    from repro_torch.core.streaming import StreamConfig
     jcfg, cfg, jp, batch_v, params, tbatch_v = setup
-    with pytest.raises(NotImplementedError, match="stream"):
-        vfl.make_train_step(cfg, None, "head", stream=object())
+    with pytest.raises(ValueError, match="batch=1"):
+        vfl.make_train_step(cfg, None, "head", stream=StreamConfig(batch=2),
+                            sc=ScenarioParams(n_sov=V))
+    with pytest.raises(ValueError, match="num_vehicles"):
+        vfl.make_train_step(cfg, None, "head", stream=StreamConfig(),
+                            sc=ScenarioParams(n_sov=V - 1))
     with pytest.raises(NotImplementedError, match="mesh"):
         vfl.make_vfl_round(cfg, 8, "head")
 
