@@ -22,6 +22,14 @@ with its kernel launches counted from 0:
   cold, each round's stages timed; the warm slot graph held to the
   eager step on one streaming round, and 3 small streaming rounds on
   the card against the CPU;
+- the paper's Section VI comparison: all five schedulers (`veds` and
+  the benchmarks `optimal`, `v2i_only`, `madca`, `sa`) through blocked
+  `run_fl` on fig10's CIFAR task and on fig12's trajectory task
+  (LaneGCN at its full width on 40 clients of 128 Argoverse-like
+  tracks), 20 rounds each, stage by stage, `veds_score` counted under
+  each; the five on one fig10 batch and LaneGCN on the card against the
+  CPU (`v2i_only`'s slot graph, without COT, against its eager step);
+  then the four baselines through `run_fl(streaming=True)`;
 - the VFL training loop of `launch/train.py` at qwen3-32b's full width
   (d_model 5120, 64 query and 8 KV heads of 128, d_ff 25600, vocab
   151936, bf16) cut to 2 repetitions, 4 vehicles with 4 sequences of
@@ -110,6 +118,14 @@ RECORDED_MASKS = {
 # cold; the whole-run VFL step takes 2 rounds
 STREAM_ROUNDS, STREAM_EVAL_EVERY, STREAM_WARM_ITERS = 20, 5, 10
 STREAM_COLD_ROUNDS, STREAM_SEED, STREAM_VFL_ROUNDS = 5, 11, 2
+# the Section VI comparison (figs. 10-12): the five schedulers through
+# blocked run_fl on fig10's CIFAR task and fig12's trajectory task, cut
+# from the figure scripts' 30 rounds; then the four baselines through
+# run_fl(streaming=True)
+COMPARE_SCHEDULERS = ("veds", "optimal", "v2i_only", "madca", "sa")
+COMPARE_ROUNDS, COMPARE_EVAL_EVERY, COMPARE_SEED = 20, 5, 4
+TRAJ_CLIENTS, TRAJ_PER_CLIENT, TRAJ_TEST = 40, 128, 512
+STREAM_COMPARE_ROUNDS = 10
 # the eval loss at init through the kernels may move from the plain
 # versions' by at most SENS_ULP_FACTOR times the largest move that
 # SENS_DRAWS random one-ulp changes of every nonzero bf16 weight make
@@ -395,12 +411,11 @@ def phase_stages(device, setup):
     reads the device's busy time (the sum of its kernels' and copies'
     times) and their number. The idle share is reported only where the
     trace holds the `veds_score` launches of the graph's replays, and that
-    trace must see one `veds_score` run a slot. A third pass traces the
-    schedule alone. Each trace opens on two eager kernels run to their
-    end, which the summary leaves out: a trace loses what runs first. The
-    schedule's trace too must see one `veds_score` run a slot; one that
-    loses a run is taken once more and fails the phase if it loses one
-    again."""
+    trace must see one `veds_score` run a slot. The same trace then holds
+    the schedule alone, which must see one `veds_score` run a slot too.
+    Each part opens on two eager kernels run to their end, which the
+    summary leaves out and which mark where the schedule's part
+    begins."""
     from repro_torch.channel.mobility import ManhattanParams
     from repro_torch.channel.v2x import ChannelParams
     from repro_torch.core.baselines import get_scheduler
@@ -480,14 +495,13 @@ def phase_stages(device, setup):
         f"schedule {times['schedule_eager_ms']:.1f} ms (graph "
         f"{times['schedule_ms']:.1f} ms); outputs bit for bit equal")
 
-    # Each trace opens on two eager kernels (PyTorch's `spin_kernel`),
-    # each run to its end and followed by 10 ms on the host, before the
-    # timed work; the summary leaves them out and counts those it holds.
-    # A profiler session after the first in a process loses the records
-    # that open it (on an H100, one session in each of four runs: the
-    # first opening kernel; an opening kernel and ~190 events after it;
-    # a whole slot-graph replay with its copies, 2,333 events, where the
-    # schedule opened the trace); the first session lost none.
+    # Each part of the trace opens on two eager kernels (PyTorch's
+    # `spin_kernel`), each run to its end and followed by 10 ms on the
+    # host; the summary leaves them out and counts those it holds. The
+    # block and the schedule alone share one profiler session: a session
+    # after the first in a process loses stretches of its records (on an
+    # H100 from one kernel to ~34k events, at its opening or its end,
+    # in runs of PRs 18 and 19), and the first session lost none.
     from torch.profiler import ProfilerActivity, profile
 
     def open_trace():
@@ -501,57 +515,47 @@ def phase_stages(device, setup):
                              ProfilerActivity.CUDA]) as prof:
         open_trace()
         block(traced)
-    prof_res = trace_summary(prof, sum(traced.values()), sim.n_slots,
-                             opener="spin_kernel")
+        open_trace()
+        t0 = time.perf_counter()
+        get_scheduler("veds").solve_round(RoundInputs.stack(rounds), prm, ch)
+        torch.cuda.synchronize()
+        sched_wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    # the schedule's part begins at the first opener after the block's work
+    work = next((i for i, e in enumerate(events)
+                 if "spin_kernel" not in e.name), len(events))
+    cut = next((i for i in range(work, len(events))
+                if "spin_kernel" in events[i].name), None)
+    check(cut is not None, "stages: the trace holds no opener between the "
+          "block and the schedule")
+    prof_res = trace_summary(events[:cut], sum(traced.values()),
+                             sim.n_slots, opener="spin_kernel")
     log("stages", f"traced block (schedule {traced['schedule_ms']:.1f} "
         f"ms): " + trace_line(prof_res))
-
-    # one veds_score run a slot seen by the profiler, apart from the
-    # kernel's own count
-    check(prof_res["veds_score_events"] == sim.n_slots,
-          f"stages: the traced block ran veds_score "
-          f"{prof_res['veds_score_events']} times on the card, expected "
-          f"one a slot ({sim.n_slots})")
-
-    # the schedule alone, traced: its own idle share and the device events
-    # (graph nodes that ran) a slot; a trace that loses a veds_score run,
-    # or both its openers, is taken once more, and a second loss of a
-    # veds_score run fails the phase
-    def trace_schedule():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            open_trace()
-            t0 = time.perf_counter()
-            get_scheduler("veds").solve_round(RoundInputs.stack(rounds), prm,
-                                              ch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        return trace_summary(prof, wall_ms, sim.n_slots,
-                             opener="spin_kernel")
-
-    sched_res, first = trace_schedule(), None
-    if (sched_res["veds_score_events"] != sim.n_slots
-            or not sched_res["opener_seen"]):
-        first = sched_res
-        log("stages", f"traced schedule alone, a trace that lost records: "
-            + trace_line(first) + "; taken again")
-        sched_res = trace_schedule()
-    sched_res["retried_from"] = first
-    check(sched_res["veds_score_events"] == sim.n_slots,
-          f"stages: the traced schedule ran veds_score "
-          f"{sched_res['veds_score_events']} times on the card, expected "
-          f"one a slot ({sim.n_slots}), in a second trace too")
+    sched_res = trace_summary(events[cut:], sched_wall_ms, sim.n_slots,
+                              opener="spin_kernel")
     sched_res["events_per_slot"] = sched_res["device_events"] / sim.n_slots
     log("stages", f"traced schedule alone ({sched_res['events_per_slot']:.1f}"
         f" device events a slot): " + trace_line(sched_res))
+    # one veds_score run a slot seen by the profiler, apart from the
+    # kernel's own count, in each part
+    for part, res in (("block", prof_res), ("schedule", sched_res)):
+        check(res["veds_score_events"] == sim.n_slots,
+              f"stages: the traced {part} ran veds_score "
+              f"{res['veds_score_events']} times on the card, expected "
+              f"one a slot ({sim.n_slots})")
     return dict(rounds=B, graph_captures=captures, **times,
                 profile=prof_res, profile_schedule=sched_res)
 
 
-def trace_summary(prof, wall_ms: float, n_slots: int, opener=None):
+def trace_summary(events, wall_ms: float, n_slots: int, opener=None):
     """Device busy time (the sum of the kernels', copies' and memsets'
-    times) and events of a `torch.profiler` trace over `wall_ms` of host
-    time, and the idle share, reported only where the trace holds the
+    times) and number of `events`, a stretch of a `torch.profiler` trace's
+    device events in start order, over `wall_ms` of host time, and the
+    idle share, reported only where the trace holds the
     `n_slots` `veds_score` launches of the slot graph's replays and, where
     the trace was opened by kernels named `opener`, one of them at least
     (a trace loses a stretch of records from its opening: where it holds
@@ -559,14 +563,11 @@ def trace_summary(prof, wall_ms: float, n_slots: int, opener=None):
     left out and counted. `slot_events` gives the device events
     before the first `veds_score` run, [min, max] between two, and after
     the last, in start order: where a trace loses records."""
-    from torch.autograd import DeviceType
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     seen = None
     if opener is not None:
         seen = sum(opener in e.name for e in events)
         events = [e for e in events if opener not in e.name]
-    marks = [i for i, e in enumerate(sorted(
-        events, key=lambda e: e.time_range.start)) if "veds_score" in e.name]
+    marks = [i for i, e in enumerate(events) if "veds_score" in e.name]
     gaps = [b - a - 1 for a, b in zip(marks, marks[1:])]
     slot_events = (None if not marks else
                    [marks[0], [min(gaps, default=0), max(gaps, default=0)],
@@ -881,6 +882,399 @@ def phase_stream_reference(device):
     return dict(n_success=cpu.outputs.n_success[:, 0].tolist(),
                 n_cot_slots=cpu.outputs.n_cot_slots[:, 0].tolist(),
                 param_rel_err=rel, moved=moved)
+
+
+def make_traj_setup(device, rounds: int):
+    """fig12's setting (`benchmarks/fig12_traj.py`): 40 clients of
+    `make_trajectory_batch(., 128)` with 64 lane nodes, a test batch of
+    512, LaneGCN at its full width (D 64), S=U=10, T=60, batch 32, lr
+    0.02. The data is drawn on the card; the clients' shards are host
+    arrays, as `run_fl` gathers minibatches on the host."""
+    from repro_torch.data.synthetic import make_trajectory_batch
+    from repro_torch.fl.simulator import FLSimConfig
+    from repro_torch.models.lanegcn import init_lanegcn
+    client_data = []
+    for c in range(TRAJ_CLIENTS):
+        b = make_trajectory_batch(
+            torch.Generator(device=device).manual_seed(100 + c),
+            TRAJ_PER_CLIENT)
+        client_data.append({k: v.cpu().numpy() for k, v in b.items()})
+    test = make_trajectory_batch(
+        torch.Generator(device=device).manual_seed(999), TRAJ_TEST)
+    params = init_lanegcn(torch.Generator(device=device).manual_seed(3))
+    sim = FLSimConfig(n_clients=TRAJ_CLIENTS, rounds=rounds, seed=7,
+                      lr=0.02)
+    return params, client_data, test, sim
+
+
+class _Recorder:
+    """A scheduler that hands each round to `sched` and keeps what it
+    returned and the round's validity mask (device tensors, read after
+    the run): `run_fl` reports `n_success` on its eval rounds only."""
+
+    def __init__(self, sched):
+        self.sched, self.rounds = sched, []
+        self.name = sched.name
+
+    def solve_round(self, rnd, prm, ch, carry=None):
+        out = self.sched.solve_round(rnd, prm, ch, carry)
+        self.rounds.append((out, rnd.valid_sov))
+        return out
+
+    __call__ = solve_round
+
+
+def _run_recorded(device, seed, params, loss_fn, client_data, eval_fn,
+                  sim, every):
+    """One blocked `run_fl` under `sim.scheduler`, each stage closed by a
+    device synchronisation, with the `veds_score` count set to 0 just
+    before and read just after. Returns the history, the per-round
+    stage times, the recorded rounds and the launches."""
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.fl import simulator
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    rec = _Recorder(get_scheduler(sim.scheduler))
+    records = []
+    hook = _stage_timer(records)
+    real = simulator.get_scheduler
+    simulator.get_scheduler = lambda name: rec
+    try:
+        torch.cuda.synchronize()
+        veds_dt_score.launches = 0
+        t0 = time.perf_counter()
+        hook.start()
+        hist = simulator.run_fl(seed, params, loss_fn, client_data, sim,
+                                eval_fn=eval_fn, eval_every=every,
+                                device=device, stage_hook=hook)
+        wall = time.perf_counter() - t0
+        launches = veds_dt_score.launches
+    finally:
+        simulator.get_scheduler = real
+    return hist, records, rec.rounds, launches, wall
+
+
+def phase_compare(device, cifar_setup):
+    """The paper's Section VI comparison (Figs. 10-12) on the card: all
+    five schedulers through blocked `run_fl` on fig10's CIFAR task (the
+    CNN and data of `make_fl_setup`) and fig12's trajectory task
+    (`make_traj_setup`), COMPARE_ROUNDS rounds each (cut from the figure
+    scripts' 30), `round_batch` 1, eval every COMPARE_EVAL_EVERY. Every
+    round of one task draws the same scenario under every scheduler.
+    Checked: `optimal` succeeds on every valid SOV and at least as often
+    as every other scheduler in every round; only `veds` uses COT slots;
+    `veds_score` runs rounds x T times under `veds` and `v2i_only` by
+    its own count and never under the others; every metric is finite.
+    Logged only: the total uploads of `veds` against `v2i_only` and the
+    order of the final metrics."""
+    import dataclasses
+    from repro_torch.core.veds import _SlotGraph
+    from repro_torch.models.cnn import cnn_loss
+    from repro_torch.models.lanegcn import lanegcn_ade, lanegcn_loss
+    params, client_data, eval_fn, sim = cifar_setup
+    tparams, tclients, ttest, tsim = make_traj_setup(device,
+                                                     COMPARE_ROUNDS)
+    tasks = {
+        "cifar": (params, cnn_loss, client_data, eval_fn,
+                  dataclasses.replace(sim, rounds=COMPARE_ROUNDS,
+                                      round_batch=1), "accuracy"),
+        "traj": (tparams, lanegcn_loss, tclients,
+                 lambda p: lanegcn_ade(p, ttest), tsim, "ADE"),
+    }
+    out = {}
+    for task, (p0, loss_fn, data, ev, s, metric) in tasks.items():
+        res = {}
+        for name in COMPARE_SCHEDULERS:
+            captures = _SlotGraph.captures
+            hist, records, rounds, launches, wall = _run_recorded(
+                device, COMPARE_SEED, p0, loss_fn, data, ev,
+                dataclasses.replace(s, scheduler=name), COMPARE_EVAL_EVERY)
+            captures = _SlotGraph.captures - captures
+            n_succ = [int(o.n_success) for o, _ in rounds]
+            n_valid = [s.n_sov if v is None else int(v.sum())
+                       for _, v in rounds]
+            n_cot = [int(o.n_cot_slots) for o, _ in rounds]
+            n_dt = [int(o.n_dt_slots) for o, _ in rounds]
+            med = {k: _median([r[k] for r in records[1:]])
+                   for k in ("scenario_ms", "schedule_ms", "train_ms",
+                             "eval_ms")}
+            want = s.rounds * s.n_slots if name in ("veds", "v2i_only") \
+                else 0
+            log("compare", f"{task} {name}: wall {wall:.3f} s; median of "
+                f"rounds 1.. " + ", ".join(f"{k[:-3]} {v:.2f} ms"
+                                           for k, v in med.items())
+                + f"; n_success {n_succ}; COT slots {sum(n_cot)}, DT slots "
+                f"{sum(n_dt)}; {metric} {[round(m, 4) for m in hist['metric']]}"
+                f" at rounds {hist['round']}; veds_score launches {launches}"
+                f" (expected {want}); slot graphs captured {captures}")
+            check(len(rounds) == s.rounds and len(records) == s.rounds,
+                  f"compare {task} {name}: {len(rounds)} rounds scheduled, "
+                  f"{len(records)} timed, expected {s.rounds}")
+            check(launches == want, f"compare {task} {name}: veds_score "
+                  f"launched {launches} times, expected {want}")
+            check(name == "veds" or sum(n_cot) == 0,
+                  f"compare {task} {name}: {sum(n_cot)} COT slots")
+            check(hist["round"] == [r for r in range(s.rounds)
+                                    if r % COMPARE_EVAL_EVERY == 0
+                                    or r == s.rounds - 1]
+                  and all(math.isfinite(m) for m in hist["metric"]),
+                  f"compare {task} {name}: history {hist}")
+            if name == "optimal":
+                check(n_succ == n_valid, f"compare {task} optimal: "
+                      f"n_success {n_succ}, valid SOVs {n_valid}")
+            res[name] = dict(n_success=n_succ, n_valid=n_valid,
+                             n_cot_slots=n_cot, n_dt_slots=n_dt,
+                             metric=hist["metric"], rounds=hist["round"],
+                             stages=records, median=med, wall_s=wall,
+                             launches={"veds_score": launches},
+                             graph_captures=captures)
+        best = res["optimal"]["n_success"]
+        for name, r in res.items():
+            check(all(a <= b for a, b in zip(r["n_success"], best)),
+                  f"compare {task} {name}: n_success {r['n_success']} "
+                  f"above optimal's {best}")
+        total = {n: sum(r["n_success"]) for n, r in res.items()}
+        finals = {n: r["metric"][-1] for n, r in res.items()}
+        order = sorted(finals, key=finals.get,
+                       reverse=(metric == "accuracy"))
+        log("compare", f"{task}: total uploads {total} (veds >= v2i_only: "
+            f"{total['veds'] >= total['v2i_only']}, logged, not checked); "
+            f"final {metric} {finals}, best first {order}")
+        out[task] = dict(schedulers=res, total_uploads=total, final=finals,
+                         order=order)
+    return out
+
+
+def phase_compare_reference(device):
+    """Card against CPU for the comparison's pieces. The five schedulers
+    on one stacked fig10 round (B=3 heterogeneous cells, S=U=10, T=60,
+    a non-zero carry): masks, `n_success` and slot counts identical,
+    delivered bits, energies and queues within rtol 1e-4; `v2i_only`'s
+    slot graph against its eager loop on the card, bit for bit. LaneGCN
+    at full width on the same parameters and batch: forward and ADE
+    within rtol 1e-5 (TF32 off; the forward's entries within 1e-5 of its
+    scale, where sums cancel). Two blocked `run_fl` rounds of fig12's
+    task under `sa` on rounds made on the CPU: `n_success` identical and
+    the parameters within 1e-5 of their norm after each round."""
+    import dataclasses
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import (ScenarioParams, make_round,
+                                           make_round_batch,
+                                           round_generator)
+    from repro_torch.core.scheduler import SchedulerCarry
+    from repro_torch.core.veds import _veds_round
+    from repro_torch.data.synthetic import make_trajectory_batch
+    from repro_torch.fl import simulator
+    from repro_torch.models.lanegcn import (init_lanegcn, lanegcn_ade,
+                                            lanegcn_apply, lanegcn_loss)
+    sc = ScenarioParams(n_sov=10, n_opv=10, n_slots=60)
+    mob, ch, prm = ManhattanParams(), ChannelParams(), VedsParams()
+    rnd = make_round_batch(17, sc, mob, ch, prm, 3, hetero_fleet=True,
+                           device="cpu")
+    gen = torch.Generator().manual_seed(18)
+    carry = SchedulerCarry(qs=0.02 * torch.rand((3, 10), generator=gen),
+                           qu=0.02 * torch.rand((3, 10), generator=gen))
+    gcarry = SchedulerCarry(qs=carry.qs.to(device), qu=carry.qu.to(device))
+    grnd = rnd.to(device)
+    sched_res = {}
+    for name in COMPARE_SCHEDULERS:
+        cpu = get_scheduler(name).solve_round(rnd, prm, ch, carry)
+        gpu = get_scheduler(name).solve_round(grnd, prm, ch, gcarry)
+        for k in ("success", "n_success", "n_cot_slots", "n_dt_slots"):
+            check(torch.equal(cpu[k], gpu[k].cpu()), f"compare reference "
+                  f"{name}: {k} differs between card and CPU")
+        rel = 0.0
+        for a, b in [(gpu[k], cpu[k]) for k in
+                     ("zeta", "energy_sov", "energy_opv")] + \
+                [(getattr(gpu.carry, k), getattr(cpu.carry, k))
+                 for k in ("qs", "qu")]:
+            check(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-9),
+                  f"compare reference {name}: floats beyond rtol 1e-4 "
+                  f"between card and CPU")
+            rel = max(rel, float(((a.cpu() - b).abs()
+                                  / b.abs().clamp_min(1e-30)).max()))
+        sched_res[name] = dict(n_success=cpu.n_success.tolist(),
+                               n_dt_slots=cpu.n_dt_slots.tolist(),
+                               n_cot_slots=cpu.n_cot_slots.tolist(),
+                               max_rel_err=rel)
+    g = get_scheduler("v2i_only").solve_round(grnd, prm, ch, gcarry)
+    e = _veds_round(grnd, prm, ch, enable_cot=False, carry=gcarry,
+                    graphed=False)
+    for k in g.keys():
+        check(torch.equal(g[k], e[k]), f"compare reference: v2i_only's slot "
+              f"graph {k} differs from its eager step")
+    check(torch.equal(g.carry.qs, e.carry.qs)
+          and torch.equal(g.carry.qu, e.carry.qu),
+          "compare reference: v2i_only's slot graph queues differ from its "
+          "eager step's")
+    log("compare_reference", "fig10 batch (B=3 heterogeneous, S=U=10, T=60, "
+        "a carry), card vs CPU: decisions identical, floats within rtol "
+        "1e-4 for all five; " + "; ".join(
+            f"{n} n_success {r['n_success']} DT {r['n_dt_slots']} COT "
+            f"{r['n_cot_slots']} max rel {r['max_rel_err']:.2e}"
+            for n, r in sched_res.items())
+        + "; v2i_only's slot graph equals its eager step bit for bit")
+
+    params = init_lanegcn(torch.Generator().manual_seed(19))
+    batch = make_trajectory_batch(torch.Generator().manual_seed(20),
+                                  TRAJ_PER_CLIENT)
+    gp = {k: v.to(device) for k, v in params.items()}
+    gb = {k: v.to(device) for k, v in batch.items()}
+    out_c, out_g = lanegcn_apply(params, batch), lanegcn_apply(gp, gb)
+    scale = float(out_c.abs().max())
+    fwd_err = float((out_g.cpu() - out_c).abs().max())
+    check(bool(((out_g.cpu() - out_c).abs()
+                <= 1e-5 * out_c.abs() + 1e-5 * scale).all()),
+          f"compare reference: LaneGCN forward differs between card and "
+          f"CPU by {fwd_err:.2e} (scale {scale:.3f})")
+    ade_c, ade_g = float(lanegcn_ade(params, batch)), float(lanegcn_ade(gp,
+                                                                        gb))
+    check(abs(ade_g - ade_c) <= 1e-5 * abs(ade_c), f"compare reference: "
+          f"LaneGCN ADE {ade_g} on the card, {ade_c} on the CPU")
+
+    # two blocked run_fl rounds of fig12's task under sa, card and CPU,
+    # on the same rounds, clients and minibatch draws
+    _, tclients, ttest, tsim = make_traj_setup("cpu", 2)
+    tsim = dataclasses.replace(tsim, scheduler="sa")
+    tsc = ScenarioParams(n_sov=tsim.n_sov, n_opv=tsim.n_opv,
+                         n_slots=tsim.n_slots, batch_size=tsim.batch_size)
+    rounds = [make_round(round_generator(COMPARE_SEED, r, "cpu"), tsc,
+                         ManhattanParams(v_max=tsim.v_max), ch, prm)
+              for r in range(2)]
+    runs = {}
+    real = simulator.make_round
+    for dev in ("cpu", device):
+        it = iter(rounds)
+        seen = []
+        test = {k: v.to(dev) for k, v in ttest.items()}
+
+        def ev(p, seen=seen, test=test):
+            seen.append({k: v.detach().cpu().clone() for k, v in p.items()})
+            return lanegcn_ade(p, test)
+
+        simulator.make_round = lambda *a, it=it, dev=dev, **k: \
+            next(it).to(dev)
+        try:
+            hist = simulator.run_fl(COMPARE_SEED, params, lanegcn_loss,
+                                    tclients, tsim, eval_fn=ev,
+                                    eval_every=1, device=dev)
+        finally:
+            simulator.make_round = real
+        runs[str(dev)] = (hist, seen)
+    (hc, pc), (hg, pg) = runs["cpu"], runs[str(device)]
+    check(hc["n_success"] == hg["n_success"] and len(pc) == len(pg) == 2,
+          f"compare reference: run_fl sa n_success {hg['n_success']} on the "
+          f"card, {hc['n_success']} on the CPU")
+    rel = []
+    for a, b in zip(pg, pc):
+        err = torch.cat([(a[k] - b[k]).flatten() for k in b]).norm()
+        rel.append(float(err / torch.cat([b[k].flatten()
+                                          for k in b]).norm()))
+    check(max(rel) <= 1e-5, f"compare reference: run_fl parameters differ "
+          f"between card and CPU by {rel} of their norm, beyond 1e-5")
+    log("compare_reference", f"LaneGCN (D 64) on {TRAJ_PER_CLIENT} tracks, "
+        f"card vs CPU: forward max abs {fwd_err:.2e} (scale {scale:.3f}), "
+        f"ADE {ade_g:.6f} / {ade_c:.6f}; two blocked run_fl rounds under "
+        f"sa: n_success {hg['n_success']} on both, parameters {rel} of "
+        f"their norm (tolerance 1e-5), ADE {hg['metric']} / {hc['metric']}")
+    return dict(schedulers=sched_res, lanegcn_fwd_max_abs=fwd_err,
+                lanegcn_scale=scale, ade=[ade_g, ade_c],
+                run_fl_n_success=hg["n_success"], run_fl_param_rel=rel)
+
+
+def phase_stream_compare(device, setup):
+    """`run_fl(streaming=True)`, fused, for each of the four baselines at
+    fig10's setting (the CNN and data of `make_fl_setup`): a persistent
+    fleet of 40, carried queues, `ipm_warm_iters` STREAM_WARM_ITERS (no
+    baseline solves P4, so the warm budget must change nothing),
+    STREAM_COMPARE_ROUNDS rounds with eval every STREAM_EVAL_EVERY inside
+    the loop, each stage closed by a device synchronisation; `veds_score`
+    must run rounds x T times under `v2i_only` and never under the
+    others. Then `stream_rounds` over the same number of rounds under
+    `sa` and `v2i_only`: the largest SOV queue at the end, logged (the
+    reference's tests hold growth under SA's full-power transmissions and
+    stability under V2I-only at their own sizes)."""
+    import dataclasses
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import ScenarioParams
+    from repro_torch.core.streaming import (StreamConfig, stream_rounds,
+                                            warm_p4)
+    from repro_torch.fl.simulator import run_fl
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.models.cnn import cnn_loss
+    params, client_data, eval_fn, sim = setup
+    R = STREAM_COMPARE_ROUNDS
+    prm = VedsParams(alpha=sim.alpha, V=sim.V, Q=sim.q_bits, slot=0.1,
+                     ipm_warm_iters=STREAM_WARM_ITERS)
+    out = {}
+    for name in ("optimal", "v2i_only", "madca", "sa"):
+        check(not warm_p4(get_scheduler(name), prm), f"stream compare "
+              f"{name}: a baseline would thread the P4 table")
+        s = dataclasses.replace(sim, rounds=R, round_batch=1,
+                                streaming=True, carry_queues=True,
+                                n_fleet=2 * (sim.n_sov + sim.n_opv),
+                                ipm_warm_iters=STREAM_WARM_ITERS,
+                                scheduler=name)
+        records = []
+        hook = _stage_timer(records)
+        torch.cuda.synchronize()
+        veds_dt_score.launches = 0
+        t0 = time.perf_counter()
+        hook.start()
+        hist = run_fl(STREAM_SEED, params, cnn_loss, client_data, s,
+                      eval_fn=eval_fn, eval_every=STREAM_EVAL_EVERY,
+                      device=device, stage_hook=hook)
+        wall = time.perf_counter() - t0
+        launches = veds_dt_score.launches
+        want = R * s.n_slots if name == "v2i_only" else 0
+        sched_ms = [r["schedule_ms"] for r in records]
+        med = {k: _median([r[k] for r in records[1:]])
+               for k in ("scenario_ms", "schedule_ms", "train_ms")}
+        log("stream_compare", f"{name}: run_fl(streaming=True) {R} rounds, "
+            f"wall {wall:.3f} s; schedule ms a round "
+            f"{[round(x, 2) for x in sched_ms]}; median of rounds 1.. "
+            + ", ".join(f"{k[:-3]} {v:.2f} ms" for k, v in med.items())
+            + f"; history {hist}; veds_score launches {launches} (expected "
+            f"{want})")
+        check(len(records) == R, f"stream compare {name}: {len(records)} "
+              f"rounds timed, expected {R}")
+        check(launches == want, f"stream compare {name}: veds_score "
+              f"launched {launches} times, expected {want}")
+        check(hist["dispatches"] == 1 and hist["scheduled_rounds"] == R
+              and all(math.isfinite(m) and 0.0 <= m <= 1.0
+                      for m in hist["metric"])
+              and all(0 <= n <= sim.n_sov for n in hist["n_success"]),
+              f"stream compare {name}: history {hist}")
+        out[name] = dict(schedule_ms=sched_ms, median=med, wall_s=wall,
+                         history=hist, launches={"veds_score": launches})
+
+    sc = ScenarioParams(n_sov=sim.n_sov, n_opv=sim.n_opv,
+                        n_slots=sim.n_slots, batch_size=sim.batch_size)
+    cfg = StreamConfig(n_rounds=R, batch=1, carry_queues=True,
+                       n_fleet=2 * (sim.n_sov + sim.n_opv))
+    queues = {}
+    for name in ("sa", "v2i_only"):
+        res = stream_rounds(STREAM_SEED, get_scheduler(name), sc,
+                            ManhattanParams(v_max=sim.v_max),
+                            ChannelParams(), prm, cfg, device=device)
+        per_round = res.outputs.carry.qs.amax(dim=(1, 2)).tolist()
+        queues[name] = dict(max_sov_queue_end=float(res.fleet.queue.max()),
+                            max_sov_queue_per_round=per_round)
+    log("stream_compare", f"stream_rounds {R} rounds, persistent fleet of "
+        f"{cfg.n_fleet}: largest SOV queue at the end sa "
+        f"{queues['sa']['max_sov_queue_end']:.4e} J, v2i_only "
+        f"{queues['v2i_only']['max_sov_queue_end']:.4e} J (logged, not "
+        f"checked); per round sa "
+        f"{[f'{q:.3e}' for q in queues['sa']['max_sov_queue_per_round']]}, "
+        f"v2i_only "
+        f"{[f'{q:.3e}' for q in queues['v2i_only']['max_sov_queue_per_round']]}")
+    out["queues"] = queues
+    return out
 
 
 def phase_stream_vfl(device, cfg, rounds: int, batch: int, seq: int,
@@ -1731,8 +2125,10 @@ def main(argv=None) -> int:
             log("build", f"{entry}: {line.strip()}")
 
     kernels = phase_kernels({"main": (ROUND_BATCH, 10), "vfl": (1, 4),
-                             "stream": (1, 10), "large": (1 << 22,)},
-                            device, graphed=("main", "vfl", "stream"))
+                             "stream": (1, 10), "v2i_only": (1, 10),
+                             "large": (1 << 22,)},
+                            device, graphed=("main", "vfl", "stream",
+                                             "v2i_only"))
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
@@ -1740,6 +2136,9 @@ def main(argv=None) -> int:
     ref = phase_reference(device)
     stream = phase_stream(device, setup)
     stream_ref = phase_stream_reference(device)
+    compare = phase_compare(device, setup)
+    compare_ref = phase_compare_reference(device)
+    stream_compare = phase_stream_compare(device, setup)
     del setup
     free()
     vfl = phase_vfl(device, vfl_config("qwen3-32b", VFL_REPS), VFL_WARMUP,
@@ -1782,6 +2181,12 @@ def main(argv=None) -> int:
             out["run_fl"] = main_res["launches"][name]
             out["stream_run_fl"] = stream["warm"]["launches"][name]
             out["stream_run_fl_cold"] = stream["cold"]["launches"][name]
+            for task in ("cifar", "traj"):
+                for sched in ("veds", "v2i_only"):
+                    out[f"compare_{task}_{sched}"] = compare[task][
+                        "schedulers"][sched]["launches"][name]
+            out["stream_compare_v2i_only"] = stream_compare["v2i_only"][
+                "launches"][name]
         return out
 
     def timed(r, **extra):
@@ -1816,7 +2221,12 @@ def main(argv=None) -> int:
                                    shape=kernels["stream"]["shape"],
                                    graph_ms=kernels["stream"]["graph_ms"],
                                    graph_floor_ms=kernels["stream"][
-                                       "graph_floor_ms"]))}, {
+                                       "graph_floor_ms"]),
+                v2i_only_shape=timed(kernels["v2i_only"],
+                                     shape=kernels["v2i_only"]["shape"],
+                                     graph_ms=kernels["v2i_only"]["graph_ms"],
+                                     graph_floor_ms=kernels["v2i_only"][
+                                         "graph_floor_ms"]))}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_sm90.cu",
@@ -1857,6 +2267,8 @@ def main(argv=None) -> int:
         build_s=build_s, kernels=kernels, llm_kernels=llm_kernels,
         ssd_kernels=ssd_kernels, main=main_res, stages=stages,
         reference=ref, stream=stream, stream_reference=stream_ref,
+        compare=compare, compare_reference=compare_ref,
+        stream_compare=stream_compare,
         stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2, sensitivity=sensitivity,
         vfl_reference=vfl_ref), indent=1, default=str))
     log("device", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} "

@@ -9,6 +9,7 @@ queues track cumulative energy-budget violation.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -46,6 +47,13 @@ def sigmoid_weight(zeta: torch.Tensor, prm: VedsParams) -> torch.Tensor:
     return prm.alpha * s * (1.0 - s) / prm.Q
 
 
+def psi(prm: VedsParams) -> float:
+    """psi(alpha) = sigma'(0) / sigma'(Q), Theorem 2's bound factor."""
+    s0 = 1.0 / (1.0 + math.exp(prm.alpha))
+    sq = 0.5
+    return (s0 * (1 - s0)) / (sq * (1 - sq))
+
+
 def update_queue_sov(q: torch.Tensor, e_cm: torch.Tensor,
                      e_cons: torch.Tensor, e_cp: torch.Tensor,
                      T) -> torch.Tensor:
@@ -63,3 +71,14 @@ def update_zeta(zeta: torch.Tensor, z: torch.Tensor,
                 prm: VedsParams) -> torch.Tensor:
     """Eq. (17): delivered bits, saturated at Q."""
     return torch.clamp_max(zeta + z, prm.Q)
+
+
+def relax_queue(q: torch.Tensor, e_net: torch.Tensor) -> torch.Tensor:
+    """T zero-transmission steps of (19)/(20) in closed form.
+
+    With e_cm = 0 every slot, iterating q <- max(q - e_net / T, 0) for T
+    slots collapses to max(q - e_net, 0) when e_net >= 0 (monotone
+    descent, one clip) and to q - e_net when e_net < 0 (monotone ascent,
+    the max never binds). Both are `max(q - e_net, 0)` since q >= 0.
+    """
+    return torch.clamp_min(q - e_net, 0.0)

@@ -12,7 +12,7 @@ warm-start table, from round to round (`RolloutCarry`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator, Optional
+from typing import Any, Iterator, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -185,3 +185,25 @@ class RoundOutputs:
         if not self.batched:
             return self
         return map_tensors(lambda x: x[b], self)
+
+
+@runtime_checkable
+class Scheduler(Protocol):
+    """A named round scheduler. Implementations are frozen dataclasses, so
+    they hash and compare by their configuration.
+
+    `carry` is the optional queue state at round start; every output
+    reports the round-end queues in `.carry` regardless, so streaming
+    rollouts can thread them and single-round callers can ignore them.
+    """
+
+    name: str
+
+    def solve_round(self, rnd, prm, ch,
+                    carry: Optional[SchedulerCarry] = None
+                    ) -> RoundOutputs:
+        ...
+
+    def __call__(self, rnd, prm, ch,
+                 carry: Optional[SchedulerCarry] = None) -> RoundOutputs:
+        ...

@@ -1,22 +1,28 @@
 """Deterministic synthetic data (offline substitutes).
 
 Port of `cifar_like_dataset`, `partition_labels`, `pad_client_shards_np`,
-`pad_client_shards` and `lm_batch` of `repro/data/synthetic.py`. CIFAR-like: 10-class 32x32x3 images = class
-prototype plus noise, so a small CNN genuinely learns. LM batches: token
-streams that follow a noisy +step pattern, so next-token prediction has
-signal. Draws come from `torch.Generator`s, so the data differ from the
-reference's for the same seed; `lm_batch` is split into a draws step and
-a deterministic step that the tests feed with the reference's draws. The
-partition is numpy, the same as the reference's.
+`pad_client_shards`, `make_trajectory_batch` and `lm_batch` of
+`repro/data/synthetic.py`. CIFAR-like: 10-class 32x32x3 images = class
+prototype plus noise, so a small CNN genuinely learns. Trajectories:
+kinematic tracks with random curvature and speed profile, with lane nodes
+scattered along the future path (the Argoverse-like task of LaneGCN). LM
+batches: token streams that follow a noisy +step pattern, so next-token
+prediction has signal. Draws come from `torch.Generator`s, so the data
+differ from the reference's for the same seed; `make_trajectory_batch`
+and `lm_batch` are split into a draws step and a deterministic step that
+the tests feed with the reference's draws. The partition is numpy, the
+same as the reference's.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.lanegcn import FUT, HIST
 
 
 def cifar_like_dataset(gen: torch.Generator, n: int, noise: float = 0.6,
@@ -107,6 +113,78 @@ def pad_client_shards(client_data, device=None
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# Argoverse-like trajectories
+# ---------------------------------------------------------------------------
+
+def trajectory_batch_draws(gen: torch.Generator, b: int,
+                           num_map_nodes: int = 64
+                           ) -> Dict[str, torch.Tensor]:
+    """The random draws of `make_trajectory_batch`, on `gen`'s device:
+    per track a speed in [3, 15) m/s, an initial heading in [0, 2 pi), a
+    turn rate (0.05 N(0, 1) rad a step) and an acceleration (0.05 N(0, 1)),
+    and per lane node a lateral offset (2 N(0, 1) m, [b, M, 2])."""
+    device = gen.device
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((b, 1), generator=gen,
+                                           device=device)
+
+    return {
+        "speed": uniform(3.0, 15.0),
+        "heading0": uniform(0.0, 2 * math.pi),
+        "curls": torch.randn((b, 1), generator=gen, device=device) * 0.05,
+        "accel": torch.randn((b, 1), generator=gen, device=device) * 0.05,
+        "off": torch.randn((b, num_map_nodes, 2), generator=gen,
+                           device=device) * 2.0,
+    }
+
+
+def map_node_index(num_map_nodes: int, device=None) -> torch.Tensor:
+    """The future steps the lane nodes are centred on: `num_map_nodes`
+    evenly spaced points of [0, FUT - 1] in fp32, truncated (the
+    reference's `linspace(...).astype(int32)`)."""
+    return torch.linspace(0, FUT - 1, num_map_nodes,
+                          device=device).to(torch.int64)
+
+
+def trajectory_batch_from_draws(draws: Dict[str, torch.Tensor]
+                                ) -> Dict[str, torch.Tensor]:
+    """The deterministic step: hist [b, 20, 2], fut [b, 30, 2],
+    map_feats [b, M, 4] (scaled node positions and directions) and
+    map_adj [b, M, M] (1 where two nodes lie within 5 m)."""
+    device = draws["speed"].device
+    dt = 0.1
+    t = torch.arange(HIST + FUT, dtype=torch.float32,
+                     device=device)[None, :]
+    heading = draws["heading0"] + draws["curls"] * t
+    v = torch.clamp_min(draws["speed"] + draws["accel"] * t, 0.5)
+    dx = torch.stack([v * torch.cos(heading), v * torch.sin(heading)],
+                     -1) * dt
+    pos = torch.cumsum(dx, dim=1)
+    pos = pos - pos[:, HIST - 1:HIST]              # t = 0 at 0
+    hist, fut = pos[:, :HIST], pos[:, HIST:]
+    # map: lane nodes sampled along the future path + lateral offsets
+    off = draws["off"]
+    nodes = fut[:, map_node_index(off.shape[1], device)] + off
+    dirs = torch.cat([nodes[:, 1:] - nodes[:, :-1],
+                      nodes[:, -1:] - nodes[:, -2:-1]], dim=1)
+    map_feats = torch.cat([nodes * 0.05, dirs], dim=-1)
+    d2 = torch.sum((nodes[:, :, None] - nodes[:, None]) ** 2, -1)
+    adj = (d2 < 25.0).to(torch.float32)
+    return {"hist": hist, "fut": fut, "map_feats": map_feats,
+            "map_adj": adj}
+
+
+def make_trajectory_batch(gen: torch.Generator, b: int,
+                          num_map_nodes: int = 64
+                          ) -> Dict[str, torch.Tensor]:
+    """Kinematic trajectories with random curvature and speed profile,
+    on `gen`'s device."""
+    return trajectory_batch_from_draws(
+        trajectory_batch_draws(gen, b, num_map_nodes))
 
 
 # ---------------------------------------------------------------------------

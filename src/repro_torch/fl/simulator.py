@@ -1,11 +1,13 @@
 """Single-host VFL simulator for the paper-scale experiments (Figs 10-12).
 
-Port of `repro/fl/simulator.py`. 40 clients hold data partitions; each
-round, S of them are the SOVs (vehicles in coverage) and U others relay
-as OPVs. One local SGD step per round (eq. 2), success decided by the
-scheduler, aggregation by (11). For one local step, FedAvg of models ==
-FedSGD of gradients, so the clients' gradients are one vmapped gradient
-call over the stacked minibatches.
+Port of `repro/fl/simulator.py`, with any of the five schedulers (VEDS
+and the Section VI benchmarks) and any model whose loss takes a dict of
+tensors (the CIFAR CNN of Figs. 10/11, LaneGCN of Fig. 12). 40 clients
+hold data partitions; each round, S of them are the SOVs (vehicles in
+coverage) and U others relay as OPVs. One local SGD step per round (eq.
+2), success decided by the scheduler, aggregation by (11). For one local
+step, FedAvg of models == FedSGD of gradients, so the clients' gradients
+are one vmapped gradient call over the stacked minibatches.
 
 Blocked path (`streaming=False`): every round draws an independent fleet
 from its own generator and the queues start at zero. With
@@ -100,12 +102,18 @@ def run_fl(seed: int, params: Dict[str, torch.Tensor], loss_fn: Callable,
     `ClientShards`; `params` a dict of tensors. Runs on `device` (CUDA by
     default; raises if absent).
 
+    `sim.scheduler` names any of the five schedulers of
+    `repro_torch.core.baselines.SCHEDULERS` (VEDS and the four Section VI
+    benchmarks: optimal, v2i_only, madca, sa), on every path.
+
     Returns history: round, time, n_success, eval metric, plus
     `scheduled_rounds`, the number of rounds scheduled (== sim.rounds).
     The fused streaming path also reports `dispatches`: the loop segments
-    the run took (1 with eval inside the loop or without eval), and calls
-    `stage_hook(name)`, if given, after every stage of every round
-    (`fused_rollout`'s "scenario", "schedule", "train", "eval").
+    the run took (1 with eval inside the loop or without eval). The
+    blocked and fused paths call `stage_hook(name)`, if given, after every
+    stage of every round: "scenario", "schedule", "train" and "eval" (on
+    the blocked path a block's rounds share its "scenario" and
+    "schedule", which come with its first round).
     """
     device = resolve_device(device)
     mob = ManhattanParams(v_max=sim.v_max)
@@ -150,6 +158,9 @@ def run_fl(seed: int, params: Dict[str, torch.Tensor], loss_fn: Callable,
         rng = None
     else:
         rng = np.random.default_rng(sim.seed)
+    # stages are timed on the blocked path only: the host-gather path
+    # schedules the whole run before it trains
+    hook = (None if sim.streaming else stage_hook) or (lambda name: None)
 
     def round_step(r, mask, n_success, sel_r, mb_u_r, params):
         nonlocal sim_time
@@ -179,12 +190,14 @@ def run_fl(seed: int, params: Dict[str, torch.Tensor], loss_fn: Callable,
             torch.tensor(weights, dtype=torch.float32, device=device),
             lr=sim.lr)
         sim_time += sim.n_slots * prm.slot
+        hook("train")
         if eval_fn is not None and (r % eval_every == 0 or
                                     r == sim.rounds - 1):
             history["round"].append(r)
             history["time"].append(sim_time)
             history["n_success"].append(n_success)
             history["metric"].append(float(eval_fn(params)))
+        hook("eval")
         return params
 
     if sim.streaming:
@@ -200,8 +213,10 @@ def run_fl(seed: int, params: Dict[str, torch.Tensor], loss_fn: Callable,
         n_block = min(B, sim.rounds - r0)
         rounds = [make_round(round_generator(seed, r, device), sc, mob, ch,
                              prm) for r in range(r0, r0 + n_block)]
+        hook("scenario")
         out = sched.solve_round(
             RoundInputs.stack(rounds) if B > 1 else rounds[0], prm, ch)
+        hook("schedule")
         history["scheduled_rounds"] += n_block
         for j in range(n_block):
             cell = out.cell(j) if B > 1 else out

@@ -2,8 +2,9 @@
 
 Port of `repro/launch/train.py`: trains a reduced variant (the smoke
 config) of an architecture with the full paper pipeline, Manhattan
-mobility -> 3GPP channels -> VEDS scheduling -> local SGD -> masked
-aggregation, on synthetic LM data. Runs on CUDA unless `--device cpu`:
+mobility -> 3GPP channels -> scheduling (`--scheduler`: VEDS or any of
+the Section VI benchmarks) -> local SGD -> masked aggregation, on
+synthetic LM data. Runs on CUDA unless `--device cpu`:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --rounds 2 --vehicles 4 --batch-per-vehicle 2 --seq 64

@@ -2,8 +2,10 @@
 (`veds_score`, `flash_attention`, `fedavg_agg`, `ssd_scan`; the last two
 in their fp32 CUDA-core and bf16 tensor-core variants) against their plain
 PyTorch versions on the card, the VEDS round's CUDA graph of the slot
-step (cold and with the warm P4 table) against the same step run
-eagerly, and the streaming `run_fl` on the card against the CPU. Marked
+step (cold, with the warm P4 table, and without COT for `v2i_only`)
+against the same step run eagerly, the streaming `run_fl`, the five
+Section VI schedulers and LaneGCN's forward on the card against the CPU.
+Marked
 `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
 runs on a machine without the reference package's toolchain:
@@ -335,6 +337,103 @@ def test_veds_score_launches_count_one_per_slot_of_streaming_rounds():
                         ChannelParams(), VedsParams(ipm_warm_iters=10), cfg)
     assert res.outputs.success.is_cuda
     assert veds_dt_score.launches == before + 3 * 10
+
+
+# ---------------------------------------------------------------------------
+# the Section VI schedulers and LaneGCN
+# ---------------------------------------------------------------------------
+
+def _hetero_round(B=3, seed=5, device="cuda"):
+    """fig10's sizes (S = U = 10, T = 60), B heterogeneous cells with
+    padded vehicles, made on the CPU and moved to `device`."""
+    from repro_torch.core.scenario import make_round_batch
+    sc = ScenarioParams(n_sov=10, n_opv=10, n_slots=60)
+    return make_round_batch(seed, sc, ManhattanParams(), ChannelParams(),
+                            VedsParams(), B, hetero_fleet=True,
+                            device="cpu").to(device)
+
+
+@pytest.mark.cuda
+def test_v2i_only_slot_graph_equals_eager_step():
+    """`v2i_only` (VEDS without COT) from its slot graph equals its eager
+    loop bit for bit on a heterogeneous fig10 batch with a carry, and
+    launches `veds_score` once a slot."""
+    require_cuda()
+    from repro_torch.core.baselines import get_scheduler
+    rnd = _hetero_round()
+    prm, ch = VedsParams(), ChannelParams()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    c = SchedulerCarry(qs=0.02 * torch.rand((3, 10), generator=gen,
+                                            device="cuda"),
+                       qu=0.02 * torch.rand((3, 10), generator=gen,
+                                            device="cuda"))
+    before = veds_dt_score.launches
+    graphed = get_scheduler("v2i_only").solve_round(rnd, prm, ch, c)
+    assert veds_dt_score.launches == before + 60
+    eager = port_veds._veds_round(rnd, prm, ch, enable_cot=False, carry=c,
+                                  graphed=False)
+    _assert_rounds_equal(graphed, eager)
+    assert not graphed.n_cot_slots.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sched", ["madca", "optimal", "sa", "v2i_only",
+                                   "veds"])
+def test_scheduler_round_on_card_matches_cpu(sched):
+    """One fig10 round of three heterogeneous cells with a carry, on the
+    card and on the CPU: masks, `n_success` and slot counts identical,
+    delivered bits, energies and queues within rtol 1e-4."""
+    require_cuda()
+    from repro_torch.core.baselines import get_scheduler
+    rnd = _hetero_round(device="cpu")
+    rng = np.random.default_rng(2)
+    qs = torch.from_numpy(rng.uniform(0, 0.02, (3, 10)).astype(np.float32))
+    qu = torch.from_numpy(rng.uniform(0, 0.02, (3, 10)).astype(np.float32))
+    prm, ch = VedsParams(), ChannelParams()
+    cpu = get_scheduler(sched).solve_round(rnd, prm, ch,
+                                           SchedulerCarry(qs=qs, qu=qu))
+    card = get_scheduler(sched).solve_round(
+        rnd.to("cuda"), prm, ch, SchedulerCarry(qs=qs.cuda(), qu=qu.cuda()))
+    assert card.success.is_cuda
+    for k in ("success", "n_success", "n_cot_slots", "n_dt_slots"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    for k in ("zeta", "energy_sov", "energy_opv"):
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=1e-4,
+                                   atol=1e-9)
+    for k in ("qs", "qu"):
+        torch.testing.assert_close(getattr(card.carry, k).cpu(),
+                                   getattr(cpu.carry, k), rtol=1e-4,
+                                   atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_lanegcn_forward_on_card_matches_cpu():
+    """LaneGCN at its full width (D 64) on one batch of 128 tracks and 64
+    lane nodes: forward and ADE on the card within rtol 1e-5 of the CPU's
+    (TF32 off), the forward's entries within 1e-5 of its scale."""
+    require_cuda()
+    from repro_torch.data.synthetic import make_trajectory_batch
+    from repro_torch.models.lanegcn import (init_lanegcn, lanegcn_ade,
+                                            lanegcn_apply)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = init_lanegcn(torch.Generator().manual_seed(0))
+        batch = make_trajectory_batch(torch.Generator().manual_seed(1), 128)
+        gp = {k: v.cuda() for k, v in params.items()}
+        gb = {k: v.cuda() for k, v in batch.items()}
+        out, gout = lanegcn_apply(params, batch), lanegcn_apply(gp, gb)
+        scale = float(out.abs().max())
+        torch.testing.assert_close(gout.cpu(), out, rtol=1e-5,
+                                   atol=1e-5 * scale)
+        torch.testing.assert_close(lanegcn_ade(gp, gb).cpu(),
+                                   lanegcn_ade(params, batch), rtol=1e-5,
+                                   atol=0)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
 
 
 # ---------------------------------------------------------------------------

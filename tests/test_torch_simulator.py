@@ -124,13 +124,36 @@ def test_run_fl_needs_cuda_unless_asked_for_cpu(monkeypatch):
         run_fl(0, {}, cnn_loss, _clients(), FLSimConfig(**CFG))
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(streaming=True, scheduler="sa"), "not ported"),
-    (dict(streaming=True, fused=False, scheduler="optimal"), "not ported"),
-    (dict(scheduler="madca"), "not ported")])
-def test_run_fl_refuses_paths_of_later_slices(change, match):
-    """The streaming paths run (`tests/test_torch_fused.py`); what is
-    still refused, blocked or streaming, is a baseline scheduler."""
-    with pytest.raises(NotImplementedError, match=match):
-        run_fl(0, {}, cnn_loss, _clients(),
-               FLSimConfig(**dict(CFG, **change)), device="cpu")
+@pytest.mark.parametrize("change", [
+    dict(streaming=True, scheduler="sa"),
+    dict(streaming=True, fused=False, scheduler="optimal"),
+    dict(scheduler="madca")])
+def test_run_fl_refuses_paths_of_later_slices(change):
+    """The configurations an earlier slice refused (the test keeps its
+    name) now run: streaming `sa` (fused), host-gather `optimal` and
+    blocked `madca`, one round each on the CPU, with one evaluation."""
+    x, y = _eval_batch()
+    fixed = {"x": tt(x), "y": tt(y, torch.int64)}
+    params = {k: v.detach() for k, v in init_cnn(
+        torch.Generator().manual_seed(3)).named_parameters()}
+    hist = run_fl(0, params, cnn_loss, _clients(),
+                  FLSimConfig(**dict(CFG, rounds=1, **change)),
+                  eval_fn=lambda p: cnn_loss(p, fixed), device="cpu")
+    assert hist["round"] == [0] and hist["scheduled_rounds"] == 1
+    assert 0 <= hist["n_success"][0] <= CFG["n_sov"]
+    assert np.isfinite(hist["metric"]).all()
+
+
+def test_blocked_run_fl_calls_the_stage_hook():
+    """The blocked path reports its stages as the fused one does: a
+    block's "scenario" and "schedule" with its first round, then every
+    round's "train" and "eval" (eval rounds or not)."""
+    names = []
+    run_fl(0, {k: v.detach() for k, v in init_cnn(
+        torch.Generator().manual_seed(3)).named_parameters()},
+        cnn_loss, _clients(), FLSimConfig(**dict(CFG, rounds=3,
+                                                 round_batch=2,
+                                                 scheduler="sa")),
+        device="cpu", stage_hook=names.append)
+    assert names == ["scenario", "schedule", "train", "eval", "train",
+                     "eval", "scenario", "schedule", "train", "eval"]

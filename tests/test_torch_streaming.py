@@ -410,9 +410,9 @@ def _stream_both(sc, jsc, R, B, prm_kw, sched="veds", **cfg_kw):
     fd, rds = RD.stream_persistent(KEY, jsc, JMOB, B, R)
     fleet = scn.init_fleet(fd, sc, MOB, B,
                            energy_horizon=cfg_kw.get("energy_horizon"))
-    s = get_scheduler(sched) if sched == "veds" else sched
-    out = stream_rounds(0, s, sc, MOB, CH, VedsParams(**prm_kw), cfg, fleet,
-                        keys=rds, device="cpu")
+    out = stream_rounds(0, get_scheduler(sched), sc, MOB, CH,
+                        VedsParams(**prm_kw), cfg, fleet, keys=rds,
+                        device="cpu")
     return out, ref
 
 
@@ -536,6 +536,77 @@ def test_warm_budget_is_ignored_without_cot():
                          VedsParams(ipm_warm_iters=4), cfg, fleet)
     assert torch.equal(base.outputs.success, warm.outputs.success)
     assert torch.equal(warm.fleet.p4_tab, fleet.p4_tab)
+
+
+@pytest.mark.parametrize("sched", ["madca", "optimal", "sa", "v2i_only"])
+def test_stream_baseline_matches_reference(sched):
+    """Each baseline through a persistent stream with carried queues and
+    batteries, 3 rounds of 2 cells, on the reference's draws: decisions
+    identical, floats, queues and batteries within rtol 1e-4; no P4
+    table is touched."""
+    out, ref = _stream_both(SC_TIGHT, JSC_TIGHT, 3, 2, {}, sched=sched,
+                            carry_queues=True, energy_horizon=8.0)
+    for k in DECISIONS:
+        np.testing.assert_array_equal(tn(out.outputs[k]),
+                                      np.asarray(ref.outputs[k]), err_msg=k)
+    for k in FLOATS:
+        np.testing.assert_allclose(tn(out.outputs[k]),
+                                   np.asarray(ref.outputs[k]), rtol=1e-4,
+                                   atol=1e-9, err_msg=k)
+    for k in ("queue", "energy"):
+        np.testing.assert_allclose(tn(getattr(out.fleet, k)),
+                                   np.asarray(getattr(ref.fleet, k)),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
+    assert torch.equal(out.fleet.p4_tab, p4_seed_table(
+        out.fleet.p4_tab.shape, CH.p_max, device="cpu"))
+    assert not out.outputs.n_cot_slots.any()
+
+
+@pytest.mark.parametrize("sched", ["madca", "optimal", "sa", "v2i_only"])
+def test_warm_solver_ignored_by_non_cot_schedulers(sched):
+    """ipm_warm_iters > 0 with a scheduler that never solves P4 is a
+    no-op: identical rollouts, untouched table
+    (`tests/test_streaming.py:469`, port side)."""
+    s = get_scheduler(sched)
+    prm_w = dataclasses.replace(PRM, ipm_warm_iters=4)
+    assert not warm_p4(s, prm_w)
+    fleet = scn.init_fleet(32, SC, MOB, 1, n_fleet=8, device="cpu")
+    cfg = StreamConfig(n_rounds=2, batch=1, carry_queues=True)
+    base = stream_rounds(1, s, SC, MOB, CH, PRM, cfg, fleet)
+    warm = stream_rounds(1, s, SC, MOB, CH, prm_w, cfg, fleet)
+    for k in DECISIONS + FLOATS:
+        assert torch.equal(base.outputs[k], warm.outputs[k]), k
+    assert torch.equal(warm.fleet.p4_tab, fleet.p4_tab)
+    assert torch.equal(warm.fleet.queue, base.fleet.queue)
+
+
+def test_queues_grow_under_infeasible_budget():
+    """SA spends kappa * p_max per scheduled slot against a budget orders
+    of magnitude smaller: the carried queues strictly increase round over
+    round (`tests/test_streaming.py:493`, port side)."""
+    sc = dataclasses.replace(SC, e_min=1e-4, e_max=2e-4)
+    cfg = StreamConfig(n_rounds=6, batch=1, fresh_fleet=True,
+                       carry_queues=True)
+    res = stream_rounds(2, get_scheduler("sa"), sc, MOB, CH, PRM, cfg,
+                        device="cpu")
+    q = tn(res.outputs.carry.qs).mean(axis=(1, 2))           # [R]
+    assert (np.diff(q) > 0).all(), q
+    assert q[-1] > 5 * q[0]
+
+
+def test_queues_stable_under_feasible_budget():
+    """With budgets far above anything a round can spend (T kappa p_max
+    << e_min), `v2i_only`'s carried queues stay near zero with no
+    round-over-round build-up (`tests/test_streaming.py:507`, port
+    side)."""
+    sc = dataclasses.replace(SC, e_min=0.5, e_max=1.0)
+    cfg = StreamConfig(n_rounds=6, batch=1, fresh_fleet=True,
+                       carry_queues=True)
+    res = stream_rounds(2, get_scheduler("v2i_only"), sc, MOB, CH, PRM,
+                        cfg, device="cpu")
+    q = tn(res.outputs.carry.qs)                             # [R,1,S]
+    assert q.max() < 1e-3, q.max()
+    assert q[-1].max() <= q[0].max() + 1e-6
 
 
 @pytest.mark.parametrize("B", [1, 3])

@@ -28,7 +28,8 @@ from repro.core.veds import solve_slot as j_solve_slot
 from repro.core.veds import veds_round as j_veds_round
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.core import veds as port_veds
-from repro_torch.core.baselines import VedsScheduler, get_scheduler
+from repro_torch.core.baselines import (SCHEDULERS, VedsScheduler,
+                                        get_scheduler)
 from repro_torch.core.lyapunov import VedsParams, sigmoid_weight
 from repro_torch.core.scheduler import (SchedulerCarry, init_queues,
                                         masked_e_cp)
@@ -161,12 +162,17 @@ def test_init_queues_and_masked_e_cp(rounds3):
 
 
 def test_scheduler_registry_has_veds_only():
+    """The registry now holds the reference's five schedulers (the test
+    keeps the name of the slice that held VEDS only); an unknown name
+    raises a KeyError that names them."""
     s = get_scheduler("veds")
     assert isinstance(s, VedsScheduler) and s.name == "veds"
-    for name in ("optimal", "v2i_only", "madca", "sa"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_scheduler(name)
-    with pytest.raises(KeyError):
+    assert sorted(SCHEDULERS) == ["madca", "optimal", "sa", "v2i_only",
+                                  "veds"]
+    for name in SCHEDULERS:
+        assert get_scheduler(name).name == name
+    assert get_scheduler("v2i_only").enable_cot is False
+    with pytest.raises(KeyError, match="have \\['madca', 'optimal'"):
         get_scheduler("nope")
 
 

@@ -240,12 +240,23 @@ def test_train_main_runs_on_cpu_with_finite_losses(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--devices", "8"], "one card"),
     (["--ckpt", "x.npz"], "checkpoint"),
-    (["--scheduler", "sa"], "not ported"),
     (["--arch", "xlstm-1.3b"], "xLSTM"),
 ])
 def test_train_main_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train_mod.main(["--device", "cpu", "--rounds", "1"] + argv)
+
+
+def test_train_main_runs_a_baseline_scheduler(capsys):
+    """`--scheduler sa`, which an earlier slice refused, runs one round
+    of the smoke config: every name `--scheduler` offers runs."""
+    assert train_mod.main(["--device", "cpu", "--rounds", "1",
+                           "--vehicles", "4", "--batch-per-vehicle", "2",
+                           "--seq", "32", "--scheduler", "sa"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", out)]
+    assert len(losses) == 1 and np.isfinite(losses).all()
+    assert re.search(r"succ=[0-4]/4", out)
 
 
 def test_train_needs_cuda_unless_asked_for_cpu(monkeypatch):

@@ -135,3 +135,22 @@ def stream_persistent(key, sc, mob, B, R, n_fleet=None):
     return (init_fleet(jax.random.fold_in(key, 0xF1EE7), sc, mob, B,
                        n_fleet),
             [fleet_round(k, sc, B, N) for k in jax.random.split(key, R)])
+
+
+def trajectory_batch(key, b, num_map_nodes=64):
+    """The draws of `make_trajectory_batch(key, b, num_map_nodes)`
+    (k1..k5 = split(key, 5): speed k1, heading k2, turn rate k3, map
+    offsets k4, acceleration k5)."""
+    return _t(_trajectory_batch(key, b, num_map_nodes))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _trajectory_batch(key, b, num_map_nodes):
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    return {
+        "speed": jax.random.uniform(k1, (b, 1), minval=3.0, maxval=15.0),
+        "heading0": jax.random.uniform(k2, (b, 1), minval=0.0,
+                                       maxval=2 * jax.numpy.pi),
+        "curls": jax.random.normal(k3, (b, 1)) * 0.05,
+        "accel": jax.random.normal(k5, (b, 1)) * 0.05,
+        "off": jax.random.normal(k4, (b, num_map_nodes, 2)) * 2.0}
