@@ -35,6 +35,12 @@ with its kernel launches counted from 0:
   151936, bf16) cut to 2 repetitions, 4 vehicles with 4 sequences of
   1024 tokens each, at `launch/train.py`'s lr 0.5, and its whole-run
   streaming step (`make_train_step(stream=...)`, 2 rounds);
+- the same loop at granite-moe-1b-a400m's full width and depth (24 x
+  (attention of 16 query and 8 KV heads of 64, MoE of 32 experts top-8
+  with expert d_ff 512), d_model 1024, vocab 49155, bf16; 1.385 B
+  parameters) at `GRANITE_LR`, with the share of bf16 entries its round
+  0 changes; one MoE block at that width run twice, forward and
+  backward, bit for bit, and its combine timed beside `index_add_`;
 - the same loop at zamba2-2.7b's full width and depth (9 x (5 Mamba2,
   the weight-tied attention of 32 heads of 80 and MLP), d_model 2560,
   80 SSM heads of 64, N 64, chunk 128, vocab 32000, bf16), the path of
@@ -43,7 +49,8 @@ with its kernel launches counted from 0:
   default of 0.5), with the share of bf16 parameter
   entries that its round 0 changes; then one round of each smoke config
   in fp32 on the card against the CPU (zamba2's with 2 repetitions, so
-  that the tied block is used twice).
+  that the tied block is used twice; granite's, llama4-scout's and the
+  dense starcoder2's, codeqwen's and minitron's too).
 
 The VFL rounds' masks must be those recorded before the bf16 kernels
 moved to the tensor cores (the schedule does not depend on the kernels);
@@ -99,6 +106,14 @@ VFL_WARMUP, VFL_ROUNDS, VFL_LR, VFL_SLOTS = 1, 3, 0.5, 50
 # parameter entries (PERF.md section 4: the reference's init makes
 # zamba2's gradients explode, and lr 1e-5 and above give NaN)
 ZAMBA2_REPS, ZAMBA2_LR, ZAMBA2_MIN_CHANGED = 9, 1e-6, 0.1
+# granite-moe-1b-a400m on the same VFL path at full width and full depth
+# (24 x (attn, moe)), at the largest power of ten at which all 4 rounds
+# keep a finite eval loss: at the reference's init its gradients reach
+# ~1e16 (no qk-norm; they grow about tenfold a repetition, on the
+# reference's side as on the port's), and 1e-14 and above give NaN
+# (PERF.md section 4). No power of ten also changes ZAMBA2_MIN_CHANGED of
+# the bf16 entries in round 0; the share is logged and must be positive.
+GRANITE_REPS, GRANITE_LR = 24, 1e-15
 # the C entry point each dtype must reach: bf16 the tensor-core kernels,
 # fp32 the CUDA-core ones
 FLASH_ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16_sm90",
@@ -111,6 +126,10 @@ SSD_ENTRY = {torch.bfloat16: "ssd_scan_fwd_bf16_sm90",
 RECORDED_MASKS = {
     "qwen3-32b": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]],
     "zamba2-2.7b": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]],
+    # Q = min(8 x param bytes, 2e7) is capped for every model here, so the
+    # schedule is the same
+    "granite-moe-1b-a400m": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1],
+                             [0, 1, 1, 1]],
 }
 # the streaming path (`run_fl(streaming=True)`): rounds with the warm P4
 # table (benchmarks/fig4_speed.py warm_ipm_sweep's budget, at most half
@@ -1409,7 +1428,9 @@ def flash_bound_ms(q, k, causal: bool, window, q_offset: int):
 
 def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                       zamba2_shape=(4, 1024, 32, 80),
-                      fedavg_l=151936 * 5120):
+                      granite_shape=(4, 1024, 16, 8, 64),
+                      fedavg_l=151936 * 5120,
+                      fedavg_granite_l=GRANITE_REPS * 32 * 1024 * 512):
     """flash_attention and fedavg_agg against their plain versions on the
     card, at the VFL path's shapes and at the edge cases; timed at the
     main-path shapes beside their bounds and, for attention, PyTorch's
@@ -1429,11 +1450,14 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
 
     B, T, H, KV, D = main_shape
     zb, zt, zh, zd = zamba2_shape
+    gb, gt, gh, gkv, gd = granite_shape
     cases = {
         "main": (B, T, T, H, KV, D, torch.bfloat16, True, None, 0),
         # zamba2's shared attention: 32 heads of 80 (3 output columns a
         # lane, the third only for lanes < 16)
         "zamba2": (zb, zt, zt, zh, zh, zd, torch.bfloat16, True, None, 0),
+        # granite's attention: 16 query heads of 64 on 8 KV heads, causal
+        "granite": (gb, gt, gt, gh, gkv, gd, torch.bfloat16, True, None, 0),
         "fp32_d80": (2, 200, 260, 4, 2, 80, torch.float32, False, 90, 0),
         "window": (2, 512, 512, 16, 2, 128, torch.bfloat16, True, 128, 0),
         "full_s_ne_t": (2, 256, 384, 8, 2, 64, torch.bfloat16, False, None,
@@ -1470,7 +1494,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                  rel_err=err / scale, out_max_abs=scale,
                  lse_max_abs_err=lse_err, tolerance=f"atol=rtol={tol}",
                  entry=entry)
-        if label in ("main", "zamba2"):
+        if label in ("main", "zamba2", "granite"):
             r.update(zip(("smem_bytes", "ctas_per_sm"),
                          sm90_resources("flash_attention", d)))
             # 20 calls a sample: the wrapper's host time before the first
@@ -1528,6 +1552,8 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
     V = VFL_VEHICLES
     fcases = {
         "main": (V, fedavg_l, torch.bfloat16, False),
+        # granite's largest leaf: an expert weight of all 24 layers
+        "granite": (V, fedavg_granite_l, torch.bfloat16, False),
         "ragged": (V, 1_000_003, torch.bfloat16, False),
         "all_failed": (V, 1 << 20, torch.bfloat16, True),
         "fp32": (V, 1 << 22, torch.float32, False),
@@ -1553,7 +1579,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                  sum_w=float(w.sum()), max_abs_err=err,
                  tolerance=f"atol=rtol={tol}")
         del ref
-        if label == "main":
+        if label in ("main", "granite"):
             r["ms"] = time_ms(lambda: fedavg_agg(x, w, old), 5, samples=7,
                               warmup=2)
             r["plain_ms"] = time_ms(lambda: fedavg_agg_plain(x, w, old), 1,
@@ -1573,7 +1599,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
             f"atol=rtol={tol})" + (
                 f" kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                f"{nbytes / 1e9:.3f} GB)" if label == "main" else ""))
+                f"{nbytes / 1e9:.3f} GB)" if "ms" in r else ""))
         del x, old, out
     torch.cuda.empty_cache()
     return res
@@ -1761,7 +1787,9 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     decl = engine.model_decl(cfg, "head")
     log(phase, f"{cfg.name} pattern {cfg.pattern} x n_rep {cfg.n_rep} "
         f"d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads}x"
-        f"{cfg.head_dim} d_ff {cfg.d_ff} ssm N {cfg.ssm_state} heads "
+        f"{cfg.head_dim} d_ff {cfg.d_ff} experts {cfg.num_experts} top-"
+        f"{cfg.experts_per_tok} expert d_ff {cfg.moe_d_ff} ssm N "
+        f"{cfg.ssm_state} heads "
         f"{cfg.ssm_heads}x{cfg.ssm_head_dim} chunk {cfg.ssm_chunk} vocab "
         f"{cfg.vocab_size} {cfg.param_dtype}: {param_count(decl)} params, "
         f"{param_bytes(decl) / 1e9:.3f} GB; {cfg.num_vehicles} vehicles x "
@@ -1848,6 +1876,90 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
                 expected_launches=want, lr=lr, graph_captures=captures,
                 timed_wall_s=[r["wall_s"] for r in timed],
                 history_len=len(hist))
+
+
+def phase_moe(device, cfg, batch: int, seq: int, seed: int = 31):
+    """One MoE sub-block of `cfg` at full width (bf16, its init as
+    `engine.model_decl` casts it) on one vehicle's batch of `batch` x
+    `seq` tokens: forward and backward of sum(y * ct) + aux, twice from
+    the same inputs; the output, aux and every gradient must be equal bit
+    for bit (the combine and the dispatch's backward sum each token's
+    slots in expert order, with no atomics). Times the block's forward
+    and backward, and the combine (`_sum_rows` of the gated expert
+    outputs over each token's kept slots) beside the `index_add_`
+    scatter-add that the reference's `.at[].add` would be in PyTorch, on
+    the block's own slots."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import engine
+    from repro_torch.models.module import (materialize, tree_leaves,
+                                           tree_map, tree_unflatten)
+    one = cfg.replace(n_rep=1)
+    params = materialize(torch.Generator(device=device).manual_seed(seed),
+                         engine.model_decl(one, "head"))
+    p = tree_map(lambda a: a[0], params["blocks"][cfg.pattern.index("moe")])
+    del params
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device=device).to(cfg.dtype)
+    ct = torch.randn(x.shape, generator=g, device=device).to(cfg.dtype)
+
+    def run():
+        leaves = [a.detach().clone().requires_grad_() for a in tree_leaves(p)]
+        xx = x.clone().requires_grad_()
+        y, aux = B.moe_apply(tree_unflatten(p, leaves), xx, cfg)
+        grads = torch.autograd.grad((y.float() * ct.float()).sum() + aux,
+                                    leaves + [xx])
+        return [y, aux, *grads]
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    def paths(tree, pre=""):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                yield from paths(tree[key], f"{pre}{key}.")
+        else:
+            yield pre[:-1]
+    names = ["y", "aux"] + [f"d_{q}" for q in paths(p)] + ["d_x"]
+    equal = {n: bool(torch.equal(a, b)) for n, a, b in
+             zip(names, first, second)}
+    finite = all(bool(torch.isfinite(a).all()) for a in first)
+    h, gate, eidx, _ = B.moe_route(p, x, cfg)
+    tok_idx, slot_valid, gates_ec, pos, valid = B.moe_plan(gate, eidx, cfg)
+    G, n, k = eidx.shape
+    E = cfg.num_experts
+    C = tok_idx.shape[1] // E
+    dropped = int(G * n * k - valid.sum())
+    del first, second
+    block_ms = time_ms(run, 1, samples=5, warmup=1)
+    yb = torch.randn((G, E * C, cfg.d_model), generator=g,
+                     device=device).to(cfg.dtype) * gates_ec[..., None].to(
+                         cfg.dtype)
+    combine_ms = time_ms(lambda: B._sum_rows(yb, pos, valid), 20,
+                         samples=7, warmup=2)
+    rows = (torch.arange(G, device=device)[:, None] * n + tok_idx).reshape(-1)
+    flat = yb.reshape(G * E * C, cfg.d_model)
+
+    def scatter():
+        return torch.zeros((G * n, cfg.d_model), dtype=yb.dtype,
+                           device=device).index_add_(0, rows, flat)
+    index_add_ms = time_ms(scatter, 20, samples=7, warmup=2)
+    err = float((scatter().reshape(G, n, -1).float()
+                 - B._sum_rows(yb, pos, valid).float()).abs().max())
+    log("moe", f"{cfg.name} MoE block ({E} experts top-{k}, expert d_ff "
+        f"{cfg.moe_d_ff}, d_model {cfg.d_model}, {cfg.param_dtype}) on "
+        f"{batch} x {seq} tokens: G {G} groups of {n}, capacity {C}, "
+        f"{dropped} of {G * n * k} (token, choice) pairs dropped; two "
+        f"forward+backward runs equal bit for bit: {equal}; block fwd+bwd "
+        f"{block_ms:.3f} ms; combine {combine_ms:.4f} ms beside "
+        f"index_add_ {index_add_ms:.4f} ms (max abs difference "
+        f"{err:.3e}: bf16 sums in another order)")
+    check(finite, f"{cfg.name} MoE block: output or gradient not finite")
+    check(all(equal.values()), f"{cfg.name} MoE block: two identical runs "
+          f"differ: {equal}")
+    return dict(bitwise_equal=equal, groups=G, capacity=C, dropped=dropped,
+                pairs=G * n * k, block_fwd_bwd_ms=block_ms,
+                combine_ms=combine_ms, index_add_ms=index_add_ms,
+                combine_vs_index_add_max_abs=err)
 
 
 def round0_changed_share(device, cfg, batch: int, seq: int, lr: float,
@@ -2162,19 +2274,41 @@ def main(argv=None) -> int:
     check(share >= ZAMBA2_MIN_CHANGED, f"zamba2 round 0 changed "
           f"{share:.4f} of the bf16 entries, below {ZAMBA2_MIN_CHANGED}")
     free()
+    gcfg = vfl_config("granite-moe-1b-a400m", GRANITE_REPS)
+    granite = phase_vfl(device, gcfg, VFL_WARMUP, VFL_ROUNDS, VFL_BATCH,
+                        VFL_SEQ, GRANITE_LR,
+                        RECORDED_MASKS["granite-moe-1b-a400m"])
+    free()
+    share = round0_changed_share(device, gcfg, VFL_BATCH, VFL_SEQ,
+                                 GRANITE_LR, granite["rounds"][0]["mask"])
+    granite["changed_bf16_round0"] = share
+    log("vfl granite-moe-1b-a400m", f"lr {GRANITE_LR:g}: round 0 changed "
+        f"{share:.4f} of the bf16 parameter entries")
+    check(share > 0, "granite round 0 changed no bf16 entry")
+    free()
+    moe = phase_moe(device, gcfg, VFL_BATCH, VFL_SEQ)
+    free()
     sensitivity = {
         "qwen3-32b": forward_sensitivity(
             device, vfl_config("qwen3-32b", VFL_REPS), VFL_SEQ),
-        "zamba2-2.7b": forward_sensitivity(device, zcfg, VFL_SEQ)}
+        "zamba2-2.7b": forward_sensitivity(device, zcfg, VFL_SEQ),
+        "granite-moe-1b-a400m": forward_sensitivity(device, gcfg, VFL_SEQ)}
     free()
     vfl_ref = {"qwen3-32b": phase_vfl_reference(device, "qwen3-32b", 2,
                                                 atol=2e-4),
                "zamba2-2.7b": phase_vfl_reference(device, "zamba2-2.7b", 2,
                                                   update_rtol=1e-1)}
+    # the configurations without qk-norm, held as their CPU tests hold
+    # them (tests/torch_ref_vfl.py MODEL_TOL)
+    for arch in ("granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+                 "starcoder2-15b", "codeqwen1.5-7b", "minitron-4b"):
+        vfl_ref[arch] = phase_vfl_reference(device, arch, 2,
+                                            update_rtol=2e-2)
 
     def by_path(name):
         out = {"vfl_qwen3": vfl["launches"][name],
-               "vfl_zamba2": zamba2["launches"][name]}
+               "vfl_zamba2": zamba2["launches"][name],
+               "vfl_granite": granite["launches"][name]}
         if name in stream_vfl["launches"]:
             out["stream_vfl_qwen3"] = stream_vfl["launches"][name]
         if name == "veds_score":
@@ -2240,7 +2374,11 @@ def main(argv=None) -> int:
         **timed(fa["zamba2"], shape={"q": fa["zamba2"]["shape_q"],
                                      "kv": fa["zamba2"]["shape_kv"]}),
         "qwen3_shape": timed(fa["main"], shape={"q": fa["main"]["shape_q"],
-                                                "kv": fa["main"]["shape_kv"]})
+                                                "kv": fa["main"]["shape_kv"]}),
+        "granite_shape": timed(fa["granite"],
+                               shape={"q": fa["granite"]["shape_q"],
+                                      "kv": fa["granite"]["shape_kv"]},
+                               entry=fa["granite"]["entry"])
     }, {
         "name": "fedavg_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/fedavg_agg/csrc/fedavg_agg.cu",
@@ -2248,7 +2386,9 @@ def main(argv=None) -> int:
         "launches": zamba2["launches"]["fedavg_agg"],
         "launches_by_path": by_path("fedavg_agg"),
         "max_abs_err": max_err(fd),
-        **timed(fd["main"], shape=fd["main"]["shape"])}, {
+        **timed(fd["main"], shape=fd["main"]["shape"]),
+        "granite_shape": timed(fd["granite"], shape=fd["granite"]["shape"])
+    }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_sm90.cu",
         "variant": "bf16 (the main path): mma.sync + cp.async, "
@@ -2269,7 +2409,8 @@ def main(argv=None) -> int:
         reference=ref, stream=stream, stream_reference=stream_ref,
         compare=compare, compare_reference=compare_ref,
         stream_compare=stream_compare,
-        stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2, sensitivity=sensitivity,
+        stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
+        vfl_granite=granite, moe=moe, sensitivity=sensitivity,
         vfl_reference=vfl_ref), indent=1, default=str))
     log("device", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included")

@@ -23,3 +23,16 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """`x` as a 0-dim float32 tensor on `like`'s device, filled there
+    (no copy from the host, so a CUDA graph may capture it); a tensor
+    passes through. Decision paths divide by this, never by a Python
+    number: PyTorch's CUDA division by a Python number multiplies by its
+    rounded reciprocal, which can land an ulp away from the correctly
+    rounded quotient that the CPU and the reference compute; division
+    by a tensor is correctly rounded on both."""
+    if torch.is_tensor(x):
+        return x
+    return torch.full((), x, dtype=torch.float32, device=like.device)

@@ -21,6 +21,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import device_scalar
+
 
 @dataclasses.dataclass(frozen=True)
 class ChannelParams:
@@ -99,7 +101,7 @@ def channel_gain(gen: torch.Generator, d: torch.Tensor, prm: ChannelParams,
 
 def snr(p: torch.Tensor, gain: torch.Tensor,
         prm: ChannelParams) -> torch.Tensor:
-    return p * gain / prm.noise_power
+    return p * gain / device_scalar(prm.noise_power, gain)
 
 
 def rate_dt(p: torch.Tensor, gain: torch.Tensor,
@@ -113,6 +115,6 @@ def rate_cot(p_m, g_m, p_n, g_n, prm: ChannelParams) -> torch.Tensor:
 
     p_n, g_n: arrays over OPVs (zero power => excluded).
     """
-    s = p_m * g_m / prm.noise_power + torch.sum(
-        p_n * g_n / prm.noise_power, dim=-1)
+    noise = device_scalar(prm.noise_power, g_m)
+    s = p_m * g_m / noise + torch.sum(p_n * g_n / noise, dim=-1)
     return prm.bandwidth * torch.log2(1.0 + s)

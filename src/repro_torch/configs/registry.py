@@ -1,8 +1,10 @@
 """Architecture registry: --arch <id> resolution for launch/train.
 
 Port of `repro/configs/registry.py`. `ARCH_IDS` is the reference's tuple;
-`qwen3-32b` (dense, GQA) and `zamba2-2.7b` (hybrid: Mamba2 and a
-weight-tied attention block) are ported so far. Every other id raises
+the dense `qwen3-32b`, `starcoder2-15b`, `codeqwen1.5-7b` and
+`minitron-4b`, the hybrid `zamba2-2.7b` (Mamba2 and a weight-tied
+attention block) and the MoE `granite-moe-1b-a400m` and
+`llama4-scout-17b-a16e` are ported so far. Every other id raises
 `NotImplementedError` naming the slice of the port that brings its
 blocks.
 """
@@ -10,7 +12,9 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs import qwen3_32b, zamba2_2p7b
+from repro_torch.configs import (codeqwen_7b, granite_moe_1b,
+                                 llama4_scout, minitron_4b, qwen3_32b,
+                                 starcoder2_15b, zamba2_2p7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS: Tuple[str, ...] = (
@@ -18,19 +22,16 @@ ARCH_IDS: Tuple[str, ...] = (
     "minitron-4b", "llama-3.2-vision-90b", "granite-moe-1b-a400m",
     "whisper-small", "codeqwen1.5-7b", "llama4-scout-17b-a16e")
 
-_PORTED = {qwen3_32b.ID: qwen3_32b, zamba2_2p7b.ID: zamba2_2p7b}
+_PORTED = {m.ID: m for m in (qwen3_32b, zamba2_2p7b, starcoder2_15b,
+                              codeqwen_7b, minitron_4b, granite_moe_1b,
+                              llama4_scout)}
 
 # what each unported architecture still needs (ROADMAP.md queue 1)
 _WAITS_FOR = {
     "xlstm-1.3b": "the xLSTM blocks (mlstm/slstm, queue 1 item 9)",
-    "starcoder2-15b": "the rest of the LLM zoo (queue 1 item 9)",
-    "minitron-4b": "row-parallel attention (queue 1 item 9)",
     "llama-3.2-vision-90b": "the vlm projector and cross-attention "
                             "sources (queue 1 item 9)",
-    "granite-moe-1b-a400m": "the MoE blocks (queue 1 item 9)",
     "whisper-small": "the encoder (queue 1 item 9)",
-    "codeqwen1.5-7b": "the rest of the LLM zoo (queue 1 item 9)",
-    "llama4-scout-17b-a16e": "the MoE blocks (queue 1 item 9)",
 }
 
 

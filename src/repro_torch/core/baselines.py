@@ -38,8 +38,8 @@ import torch
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.core import lyapunov as lyp
 from repro_torch.core.scheduler import (RoundOutputs, Scheduler,
-                                        SchedulerCarry, init_queues,
-                                        masked_e_cp, unbatch)
+                                        SchedulerCarry, divisors,
+                                        init_queues, masked_e_cp, unbatch)
 from repro_torch.core.veds import RoundInputs, _slot_start, veds_round
 
 
@@ -84,15 +84,14 @@ def _take_m(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, m[:, None])[:, 0]
 
 
-def _divisors(rb: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams):
-    """The slot length and the noise power as 0-dim tensors on the
-    round's device. A CUDA division by a Python number multiplies by its
-    rounded reciprocal instead; by a tensor it divides, correctly
-    rounded, as the CPU does, so that a budget spent to its last joule
-    leaves the same residue on both."""
-    dev = rb.g_sr.device
-    return (torch.full((), prm.slot, device=dev),
-            torch.full((), ch.noise_power, device=dev))
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """log2 of a float32 tensor, taken in float64 and rounded once to
+    float32: the correctly rounded value unless the exact one lies within
+    2^-29 of an ulp of a rounding boundary. CUDA's float32 log2 and the
+    CPU's are each within an ulp but not always the same one, and a rate
+    an ulp apart moves a delivered-bits total to its threshold on one
+    side only; through float64 the card and the CPU agree to the bit."""
+    return torch.log2(x.to(torch.float64)).to(x.dtype)
 
 
 def _add_m(x: torch.Tensor, m: torch.Tensor,
@@ -109,7 +108,7 @@ def madca_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
     B, T, S = rb.g_sr.shape
     valid = _valid_sov(rb)
     starts = _slot_start(torch.arange(T, device=rb.g_sr.device), prm.slot)
-    slot, noise = _divisors(rb, prm, ch)
+    div = divisors(rb, prm, ch)
     qs, qu0 = init_queues(rb, carry)
 
     zeta = torch.zeros((B, S), device=rb.g_sr.device)
@@ -124,15 +123,16 @@ def madca_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
         m = torch.argmax(score, dim=-1)                     # [B], first max
         any_e = _take_m(score, m) > 0
         # success-probability greedy: full power while the budget lasts
-        p = torch.clamp_max(_take_m(e_left, m) / slot, ch.p_max)
+        p = torch.clamp_max(_take_m(e_left, m) / div["slot"], ch.p_max)
         p = torch.where(any_e, p, 0.0)
-        rate = ch.bandwidth * torch.log2(1.0 + p * _take_m(g, m) / noise)
+        rate = ch.bandwidth * _log2(1.0 + p * _take_m(g, m) / div["noise"])
         z = prm.slot * rate
         zeta = _add_m(zeta, m, torch.where(any_e, z, 0.0))
         e_cm_vec = _add_m(torch.zeros_like(zeta), m,
                           torch.where(any_e, prm.slot * p, 0.0))
         e_left = e_left - e_cm_vec
-        qs = lyp.update_queue_sov(qs, e_cm_vec, rb.e_sov, rb.e_cp, float(T))
+        qs = lyp.update_queue_sov(qs, e_cm_vec, rb.e_sov, rb.e_cp,
+                                  div["T"])
         e_cm.append(e_cm_vec.sum(-1))
 
     success = (zeta >= prm.Q) & valid
@@ -158,7 +158,7 @@ def sa_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
                           dim=-1, stable=True)
     n_real = torch.clamp_min(valid.sum(-1), 1)              # [B]
     starts = _slot_start(torch.arange(T, device=rb.g_sr.device), prm.slot)
-    _, noise = _divisors(rb, prm, ch)
+    div = divisors(rb, prm, ch)
     qs, qu0 = init_queues(rb, carry)
 
     zeta = torch.zeros((B, S), device=rb.g_sr.device)
@@ -169,13 +169,14 @@ def sa_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
         g = _take_m(rb.g_sr[:, t], m)
         ok = (_take_m(rb.t_cp, m) <= starts[t]) \
             & (_take_m(zeta, m) < prm.Q) & (g > 0) & _take_m(valid, m)
-        rate = ch.bandwidth * torch.log2(1.0 + ch.p_max * g / noise)
+        rate = ch.bandwidth * _log2(1.0 + ch.p_max * g / div["noise"])
         zeta = _add_m(zeta, m, torch.where(ok, prm.slot * rate, 0.0))
         # the transmit energy goes to the vehicle actually scheduled
         e_cm_vec = _add_m(torch.zeros_like(zeta), m,
                           prm.slot * ch.p_max * ok)
         e_vec = e_vec + e_cm_vec
-        qs = lyp.update_queue_sov(qs, e_cm_vec, rb.e_sov, rb.e_cp, float(T))
+        qs = lyp.update_queue_sov(qs, e_cm_vec, rb.e_sov, rb.e_cp,
+                                  div["T"])
         oks.append(ok)
 
     success = (zeta >= prm.Q) & valid

@@ -4,7 +4,10 @@ Port of `repro/core/lyapunov.py`. The stepwise indicator
 1{sum_t z_m(t) >= Q} is approximated by the shifted sigmoid
 sigma(z) = 1 / (1 + exp(-alpha (z - Q) / Q)); the per-slot scheduling
 weight is its derivative at zeta_m(t) (bits already delivered). Virtual
-queues track cumulative energy-budget violation.
+queues track cumulative energy-budget violation. Every division by Q
+or T is by a 0-dim tensor on the operands' device (`device_scalar`),
+correctly rounded on the card as on the CPU; a caller in a CUDA graph
+passes the tensors in, made once.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch import device_scalar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,14 +42,19 @@ class VedsParams:
     #                          near/far tiers (0 disables the split)
 
 
-def sigmoid_shifted(z: torch.Tensor, prm: VedsParams) -> torch.Tensor:
-    return torch.sigmoid(prm.alpha * (z - prm.Q) / prm.Q)
+def sigmoid_shifted(z: torch.Tensor, prm: VedsParams,
+                    Q=None) -> torch.Tensor:
+    """`Q`: prm.Q as a 0-dim tensor on z's device (made here if None)."""
+    Q = device_scalar(prm.Q if Q is None else Q, z)
+    return torch.sigmoid(prm.alpha * (z - prm.Q) / Q)
 
 
-def sigmoid_weight(zeta: torch.Tensor, prm: VedsParams) -> torch.Tensor:
+def sigmoid_weight(zeta: torch.Tensor, prm: VedsParams,
+                   Q=None) -> torch.Tensor:
     """d sigma / d zeta at the delivered-bits state (eq. below (17))."""
-    s = sigmoid_shifted(zeta, prm)
-    return prm.alpha * s * (1.0 - s) / prm.Q
+    Q = device_scalar(prm.Q if Q is None else Q, zeta)
+    s = sigmoid_shifted(zeta, prm, Q)
+    return prm.alpha * s * (1.0 - s) / Q
 
 
 def psi(prm: VedsParams) -> float:
@@ -57,14 +67,15 @@ def psi(prm: VedsParams) -> float:
 def update_queue_sov(q: torch.Tensor, e_cm: torch.Tensor,
                      e_cons: torch.Tensor, e_cp: torch.Tensor,
                      T) -> torch.Tensor:
-    """Eq. (19)."""
-    return torch.clamp_min(q + e_cm - (e_cons - e_cp) / T, 0.0)
+    """Eq. (19). `T`: the slot count, a number or a 0-dim tensor."""
+    return torch.clamp_min(q + e_cm - (e_cons - e_cp) / device_scalar(T, q),
+                           0.0)
 
 
 def update_queue_opv(q: torch.Tensor, e_cm: torch.Tensor,
                      e_cons: torch.Tensor, T) -> torch.Tensor:
-    """Eq. (20)."""
-    return torch.clamp_min(q + e_cm - e_cons / T, 0.0)
+    """Eq. (20). `T`: the slot count, a number or a 0-dim tensor."""
+    return torch.clamp_min(q + e_cm - e_cons / device_scalar(T, q), 0.0)
 
 
 def update_zeta(zeta: torch.Tensor, z: torch.Tensor,

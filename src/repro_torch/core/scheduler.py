@@ -12,9 +12,13 @@ warm-start table, from round to round (`RolloutCarry`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator, Optional, Protocol, runtime_checkable
+import math
+from typing import (Any, Dict, Iterator, Optional, Protocol,
+                    runtime_checkable)
 
 import torch
+
+from repro_torch import device_scalar
 
 
 def map_tensors(fn, obj):
@@ -127,6 +131,20 @@ def init_queues(rnd, carry: Optional[SchedulerCarry]):
     carry = carry if carry is not None else SchedulerCarry.zeros(rnd)
     return (torch.broadcast_to(carry.qs, rnd.e_sov.shape),
             torch.broadcast_to(carry.qu, rnd.e_opv.shape))
+
+
+def divisors(rb, prm, ch) -> Dict[str, torch.Tensor]:
+    """The scalars a batched round `rb` divides by, as 0-dim float32
+    tensors on its device: the slot count "T", the model size "Q", the
+    slot length "slot", the noise power "noise" and "ln2". A CUDA
+    division by a Python number multiplies by its rounded reciprocal; by
+    a tensor it divides, correctly rounded, as the CPU does, so that a
+    decision (a budget spent to its last joule, a tie of objectives)
+    comes out the same on both. Made once a round (once a round shape
+    in the VEDS slot graph)."""
+    vals = {"T": float(rb.g_sr.shape[-2]), "Q": prm.Q, "slot": prm.slot,
+            "noise": ch.noise_power, "ln2": math.log(2.0)}
+    return {k: device_scalar(v, rb.g_sr) for k, v in vals.items()}
 
 
 def masked_e_cp(rnd) -> torch.Tensor:

@@ -37,12 +37,11 @@ import torch
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.core import lyapunov as lyp
 from repro_torch.core.scheduler import (RoundOutputs, SchedulerCarry,
-                                        init_queues, map_tensors,
+                                        divisors, init_queues, map_tensors,
                                         masked_e_cp, unbatch)
 from repro_torch.core.solver import solve_p4
 from repro_torch.kernels.veds_score.ops import veds_dt_score
 
-LN2 = 0.6931471805599453
 NEG = -1e30
 
 
@@ -101,7 +100,8 @@ def _dt_candidates(w, qs, g_sr, eligible, prm: lyp.VedsParams,
 
 
 def _cot_candidates(w, qs, qu, g_sr, g_or, g_so, eligible,
-                    prm: lyp.VedsParams, ch: ChannelParams, p_init=None):
+                    prm: lyp.VedsParams, ch: ChannelParams, div,
+                    p_init=None):
     """P4 for every (cell b, SOV m, prefix size i). Proposition 2: only
     prefixes of OPVs sorted by h_{m,n} descending need be enumerated.
 
@@ -110,7 +110,8 @@ def _cot_candidates(w, qs, qu, g_sr, g_or, g_so, eligible,
     round's optimum with the `prm.ipm_warm_iters` budget (None = cold,
     the full `prm.ipm_iters`). Returns y [B,S,U], p_m [B,S,U],
     p_opv [B,S,U,U] (in *sorted* OPV order), order [B,S,U], z [B,S,U] and
-    p_all [B,S,U,1+U] (this slot's warm-start table).
+    p_all [B,S,U,1+U] (this slot's warm-start table). `div`: the
+    round's `divisors`.
     """
     B, S = g_sr.shape
     U = g_or.shape[-1]
@@ -119,8 +120,8 @@ def _cot_candidates(w, qs, qu, g_sr, g_or, g_so, eligible,
     g_or_sorted = torch.gather(g_or[:, None, :].expand(B, S, U), -1, order)
     qu_sorted = torch.gather(qu[:, None, :].expand(B, S, U), -1, order)
 
-    noise = ch.noise_power
-    cw = prm.V * w * (prm.slot / 2.0) * ch.bandwidth / LN2         # [B,S]
+    noise = div["noise"]
+    cw = prm.V * w * (prm.slot / 2.0) * ch.bandwidth / div["ln2"]  # [B,S]
 
     ar = torch.arange(U, device=g_sr.device)
     prefix = ar[:, None] >= ar[None, :]                          # [i,j] j<=i
@@ -216,7 +217,8 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
     on `rnd`'s device, as the reference's traced slot index: nothing here
     reads a value back to the host, so the step can be captured into a
     CUDA graph. `rnd` must be batched; state holds zeta [B,S], qs [B,S],
-    qu [B,U] and the slot count T (a Python float). An optional
+    qu [B,U] and the round's `divisors` (0-dim tensors: the slot count
+    "T", "Q", "slot", "noise", "ln2"). An optional
     state["p4"] [B,S,U,1+U] threads the P4 warm-start table from slot to
     slot: each slot's candidate solves start from the previous slot's
     optima and write their own back.
@@ -230,7 +232,7 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
     at_t = t.reshape(1)
     g_sr, g_or, g_so = (x.index_select(1, at_t).squeeze(1)
                         for x in (rnd.g_sr, rnd.g_or, rnd.g_so))
-    w = lyp.sigmoid_weight(zeta, prm)
+    w = lyp.sigmoid_weight(zeta, prm, state["Q"])
     t_now = _slot_start(t, prm.slot)
     eligible = (rnd.t_cp <= t_now) & (zeta < prm.Q)
     if rnd.valid_sov is not None:
@@ -239,7 +241,7 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
     y_dt, p_dt, z_dt = _dt_candidates(w, qs, g_sr, eligible, prm, ch)
     if enable_cot:
         y_cot, pm_cot, po_cot, order, z_cot, p_all = _cot_candidates(
-            w, qs, qu, g_sr, g_or, g_so, eligible, prm, ch,
+            w, qs, qu, g_sr, g_or, g_so, eligible, prm, ch, state,
             state["p4"] if warm else None)
     else:
         y_cot = torch.full((B, S, U), NEG, device=g_sr.device)
@@ -254,11 +256,11 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
         y_dt, p_dt, z_dt, y_cot, pm_cot, po_cot, order, z_cot, prm)
 
     new_state = {
+        **state,
         "zeta": lyp.update_zeta(zeta, z_vec, prm),
         "qs": lyp.update_queue_sov(qs, e_sov_vec, rnd.e_sov, rnd.e_cp,
                                    state["T"]),
         "qu": lyp.update_queue_opv(qu, e_opv_vec, rnd.e_opv, state["T"]),
-        "T": state["T"],
     }
     if warm:
         new_state["p4"] = p_all
@@ -429,7 +431,7 @@ def _veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
     U = rb.g_or.shape[-1]
     qs0, qu0 = init_queues(rb, carry)
     state = {"zeta": torch.zeros((B, S), device=rb.g_sr.device),
-             "qs": qs0, "qu": qu0, "T": float(T)}
+             "qs": qs0, "qu": qu0, **divisors(rb, prm, ch)}
     if (enable_cot and prm.ipm_warm_iters > 0 and carry is not None
             and carry.p4 is not None):
         state["p4"] = torch.broadcast_to(carry.p4, (B, S, U, U + 1))

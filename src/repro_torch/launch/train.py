@@ -9,9 +9,13 @@ synthetic LM data. Runs on CUDA unless `--device cpu`:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --rounds 2 --vehicles 4 --batch-per-vehicle 2 --seq 64
 
-`train` is the loop itself, for any `ModelConfig` (`chip_smoke.py`
-drives it at qwen3-32b's full width). One card only (`--devices 1`);
-checkpoints (`--ckpt`) come with a later slice and raise.
+`--arch` takes every registered id whose blocks are ported: qwen3-32b,
+zamba2-2.7b, granite-moe-1b-a400m, llama4-scout-17b-a16e,
+starcoder2-15b, codeqwen1.5-7b and minitron-4b. `train` is the loop
+itself, for any `ModelConfig` (`chip_smoke.py` drives it at qwen3-32b's
+full width and at zamba2-2.7b's and granite-moe-1b-a400m's full width
+and depth). One card only (`--devices 1`); checkpoints (`--ckpt`) come
+with a later slice and raise.
 """
 from __future__ import annotations
 

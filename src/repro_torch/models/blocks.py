@@ -1,11 +1,11 @@
 """Sub-block implementations for the unified decoder engine.
 
-Port of the attention, MLP and Mamba2 parts of `repro/models/blocks.py`:
-`<kind>_decl(cfg, tp)` gives the parameter declarations and
-`<kind>_apply(p, x, ...)` the training/prefill forward (residual
-included). On one device every sharding constraint is a no-op and the
-TP mode is always "head" (`sharding/policy.py`); the "row" mode and the
-sequence-sharded core need a model mesh axis and raise. MoE, mLSTM,
+Port of the attention, MLP, MoE and Mamba2 parts of
+`repro/models/blocks.py`: `<kind>_decl(cfg, tp)` gives the parameter
+declarations and `<kind>_apply(p, x, ...)` the training/prefill forward
+(residual included). On one device every sharding constraint is a no-op
+and the TP mode is always "head" (`sharding/policy.py`); the "row" mode
+and the sequence-sharded core need a model mesh axis and raise. mLSTM,
 sLSTM, the decode caches and every `*_decode` come with later slices.
 """
 from __future__ import annotations
@@ -102,6 +102,205 @@ def mlp_decl(cfg: ModelConfig, tp: str):
 
 def mlp_apply(p, x, cfg: ModelConfig, **_):
     return x + L.mlp(p["mlp"], L.rmsnorm(p["ln"], x), act=cfg.act)
+
+
+# ===========================================================================
+# MoE (token-choice top-k, sort-based fixed-capacity grouped matmul)
+# ===========================================================================
+
+def moe_decl(cfg: ModelConfig, tp: str):
+    d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p = {
+        "ln": L.rmsnorm_decl(d),
+        "router": declare((d, E), ("embed", None), init="normal",
+                          scale=0.02, dtype=torch.float32),
+        "w_gate": declare((E, d, f), ("experts", "embed", "expert_mlp")),
+        "w_up": declare((E, d, f), ("experts", "embed", "expert_mlp")),
+        "w_down": declare((E, f, d), ("experts", "expert_mlp", "embed")),
+    }
+    if cfg.shared_expert:
+        p["shared"] = L.mlp_decl(d, cfg.moe_d_ff, gated=True)
+    return p
+
+
+def _router(p, h, cfg: ModelConfig):
+    """Top-k routing of h [..., d]: (gate [..., k] f32, eidx [..., k]
+    int64, the load-balance aux loss). `engine.model_decl` casts the
+    fp32-declared router to the params' dtype; the reference's einsum of
+    float32 h with it promotes it back to float32, as this cast does."""
+    logits = torch.einsum("...d,de->...e", h.to(torch.float32),
+                          p["router"].to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    # `jax.lax.top_k`: descending, the lower index first on ties. A
+    # stable descending sort guarantees that order; `torch.topk` leaves
+    # the order of ties unspecified.
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_tok
+    gate, eidx = vals[..., :k], idx[..., :k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    # switch-style load-balance aux loss
+    me = probs.mean(dim=tuple(range(probs.ndim - 1)))
+    flat = eidx.reshape(-1)
+    ce = torch.zeros_like(me).index_add_(
+        0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
+                            dtype=me.dtype, device=me.device))
+    aux = cfg.num_experts * torch.sum(me * ce)
+    return gate, eidx, aux
+
+
+def _gcd(a: int, b: int) -> int:
+    while b:
+        a, b = b, a % b
+    return a
+
+
+def _take_rows(src, idx):
+    """src [G, M, d] gathered at idx [G, P] -> [G, P, d]."""
+    return torch.gather(src, 1, idx[..., None].expand(*idx.shape,
+                                                      src.shape[-1]))
+
+
+def _sum_rows(src, pos, valid):
+    """out[g, t] = sum over r of src[g, pos[g, t, r]] where valid[g, t, r],
+    added one r after the other: src [G, P, d], pos/valid [G, n, k] ->
+    [G, n, d] in src's dtype. No atomics, so the bits do not depend on
+    the launch."""
+    out = torch.zeros((*pos.shape[:2], src.shape[-1]), dtype=src.dtype,
+                      device=src.device)
+    for r in range(pos.shape[-1]):
+        out = out + torch.where(valid[..., r, None],
+                                _take_rows(src, pos[..., r]), 0.0)
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """xb = ht gathered at the expert slots' tokens `tok_idx` [G, E*C].
+    The backward sums each token's gradient over its valid slots in
+    slot order (`_sum_rows`), not by an atomic scatter-add: the slots
+    past an expert's capacity carry gate 0, so their gradient is zero and
+    they are left out."""
+
+    @staticmethod
+    def forward(ctx, ht, tok_idx, pos, valid):
+        ctx.save_for_backward(pos, valid)
+        return _take_rows(ht, tok_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, valid = ctx.saved_tensors
+        return _sum_rows(g, pos, valid), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """out[g, t] = the sum of token t's gated expert outputs yb [G, E*C, d]
+    over its valid slots `pos` [G, n, k], in slot order, that is in
+    expert order after the stable sort: the order in which the
+    reference's scatter-add applies its updates (its gate-0 slots add
+    zeros). The backward hands each valid slot its token's gradient
+    (`slot_valid` [G, E*C]), a gather: every valid slot has one token."""
+
+    @staticmethod
+    def forward(ctx, yb, tok_idx, slot_valid, pos, valid):
+        ctx.save_for_backward(tok_idx, slot_valid)
+        return _sum_rows(yb, pos, valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        tok_idx, slot_valid = ctx.saved_tensors
+        return (torch.where(slot_valid[..., None], _take_rows(g, tok_idx),
+                            0.0), None, None, None, None)
+
+
+def moe_route(p, x, cfg: ModelConfig, groups: int = 16):
+    """The router half of `moe_apply`: (h [B,T,d], gate [G,n,k],
+    eidx [G,n,k], aux), with the tokens in G = gcd(B, groups) groups of
+    n = B*T/G, as the reference groups them."""
+    B, T, d = x.shape
+    h = L.rmsnorm(p["ln"], x)
+    G = _gcd(B, groups)
+    gate, eidx, aux = _router(p, h.reshape(G, (B * T) // G, d), cfg)
+    return h, gate, eidx, aux
+
+
+def moe_plan(gate, eidx, cfg: ModelConfig):
+    """The fixed-capacity dispatch of routing gate/eidx [G, n, k]. Per
+    group the (token, choice) pairs are sorted stably by expert; expert e
+    takes the first C = max(1, int(n * k * capacity_factor) // E) of its
+    pairs into its C slots. The slots past its count carry gate 0 with
+    their index clipped to n*k - 1, as the reference's (they gather a
+    real token and multiply it by 0). Returns
+      tok_idx [G, E*C]     each slot's token,
+      slot_valid [G, E*C]  whether the slot holds one of its expert's pairs,
+      gates_ec [G, E*C]    its gate (0 where not valid),
+      pos, valid [G, n, k] each token's kept slots in ascending order,
+                           which is expert order (the dropped ones last,
+                           not valid)."""
+    G, n, k = eidx.shape
+    E = cfg.num_experts
+    dev = eidx.device
+    C = max(1, int(n * k * cfg.capacity_factor) // E)
+    flat_e = eidx.reshape(G, n * k)
+    flat_g = gate.reshape(G, n * k)
+    flat_tok = torch.arange(n, device=dev).repeat_interleave(k) \
+        .expand(G, n * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)  # per-group sort
+    se = torch.gather(flat_e, 1, order)
+    sg = torch.gather(flat_g, 1, order)
+    stok = torch.gather(flat_tok, 1, order)
+    experts = torch.arange(E, device=dev).expand(G, E).contiguous()
+    first = torch.searchsorted(se, experts)
+    counts = torch.searchsorted(se, experts, right=True) - first
+    ar_c = torch.arange(C, device=dev)
+    slots = first[:, :, None] + ar_c                            # [G,E,C]
+    slot_valid = (ar_c < counts[:, :, None]).reshape(G, E * C)
+    slots = torch.clamp(slots, 0, n * k - 1).reshape(G, E * C)
+    tok_idx = torch.gather(stok, 1, slots)                      # [G,E*C]
+    gates_ec = torch.where(slot_valid, torch.gather(sg, 1, slots), 0.0)
+    # each pair's slot: its rank c within its expert, kept if c < C
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n * k, device=dev).expand(G, n * k))
+    c = rank - torch.gather(first, 1, flat_e)
+    pos = torch.where(c < C, flat_e * C + c, E * C).reshape(G, n, k)
+    pos = torch.sort(pos, dim=-1).values
+    valid = pos < E * C
+    return tok_idx, slot_valid, gates_ec, torch.clamp_max(pos, E * C - 1), \
+        valid
+
+
+def moe_experts(p, x, h, gate, eidx, cfg: ModelConfig):
+    """The dispatch half of `moe_apply`, given the routing (`moe_plan`):
+    x + the experts' gated outputs (+ the shared expert). Each token's
+    outputs are summed in expert order (`_Combine`)."""
+    B, T, d = x.shape
+    G, n, k = eidx.shape
+    E = cfg.num_experts
+    tok_idx, slot_valid, gates_ec, pos, valid = moe_plan(gate, eidx, cfg)
+    C = tok_idx.shape[1] // E
+    xb = _Dispatch.apply(h.reshape(G, n, d), tok_idx, pos, valid) \
+        .reshape(G, E, C, d)
+    gh = F.silu(torch.einsum("gecd,edf->gecf", xb,
+                             p["w_gate"].to(x.dtype)))
+    uh = torch.einsum("gecd,edf->gecf", xb, p["w_up"].to(x.dtype))
+    yb = torch.einsum("gecf,efd->gecd", gh * uh, p["w_down"].to(x.dtype))
+    yb = yb * gates_ec.reshape(G, E, C, 1).to(yb.dtype)
+    out = _Combine.apply(yb.reshape(G, E * C, d), tok_idx, slot_valid, pos,
+                         valid).reshape(B, T, d)
+    if "shared" in p:
+        out = out + L.mlp(p["shared"], h, act="silu")
+    return x + out
+
+
+def moe_apply(p, x, cfg: ModelConfig, groups: int = 16, **_):
+    """Group-local sort-based dispatch, per-group capacity dropping,
+    standard token-choice top-k. Returns (x + MoE(x), aux)."""
+    h, gate, eidx, aux = moe_route(p, x, cfg, groups)
+    return moe_experts(p, x, h, gate, eidx, cfg), aux
+
+
+def moe_decode(*args, **kwargs):
+    raise NotImplementedError(
+        "moe_decode: MoE decode is not ported yet (ROADMAP queue 1 item 9: "
+        "decode and caches)")
 
 
 # ===========================================================================

@@ -13,9 +13,11 @@ loop indexes repetition r of every leaf. `cfg.remat` wraps each
 sub-block in `torch.utils.checkpoint` (non-reentrant), as the reference
 wraps it in `jax.checkpoint`. `llm_params_from_jax` carries the
 reference's parameters across. The weight-tied "shared" trees (zamba2)
-are used by every repetition, so their gradients sum over the uses. The
-encoder, the vlm projector, the MoE and xLSTM sub-blocks and decoding
-come with later slices and raise.
+are used by every repetition, so their gradients sum over the uses.
+`forward`'s aux is the sum of every MoE sub-block's load-balance loss
+over the positions and repetitions, in the reference's order. The
+encoder, the vlm projector, the xLSTM sub-blocks and decoding come with
+later slices and raise.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ _DECLS = {
     "attn_swa": lambda cfg, tp: B.attn_decl(cfg, tp),
     "cross": lambda cfg, tp: B.attn_decl(cfg, tp, cross=True),
     "mlp": B.mlp_decl,
+    "moe": B.moe_decl,
     "mamba": B.mamba_decl,
 }
 
@@ -46,7 +49,7 @@ def _ported(kind: str, table):
     if kind not in table:
         raise NotImplementedError(
             f"sub-block kind {kind!r} is not ported yet (ROADMAP queue 1 "
-            f"item 9: moe, mlstm and slstm)")
+            f"item 9: mlstm and slstm)")
     return table[kind]
 
 
@@ -138,6 +141,7 @@ _APPLY = {
     "attn_swa": functools.partial(B.attn_apply, kind="attn_swa"),
     "cross": functools.partial(B.attn_apply, kind="cross"),
     "mlp": B.mlp_apply,
+    "moe": B.moe_apply,         # returns (x, aux)
     "mamba": B.mamba_apply,
 }
 
@@ -174,7 +178,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
         for i, kind in enumerate(cfg.pattern):
             p = params["shared"].get(str(i)) or tree_map(
                 lambda a: a[r], params["blocks"][i])
-            x = apply_one(kind, p, x)
+            if kind == "moe":
+                x, a = apply_one(kind, p, x)
+                aux = aux + a
+            else:
+                x = apply_one(kind, p, x)
     x = L.rmsnorm(params["final_norm"], x)
     if last_logit_only:
         x = x[:, -1:]

@@ -4,7 +4,8 @@ in their fp32 CUDA-core and bf16 tensor-core variants) against their plain
 PyTorch versions on the card, the VEDS round's CUDA graph of the slot
 step (cold, with the warm P4 table, and without COT for `v2i_only`)
 against the same step run eagerly, the streaming `run_fl`, the five
-Section VI schedulers and LaneGCN's forward on the card against the CPU.
+Section VI schedulers (their queues bit for bit) and LaneGCN's forward on
+the card against the CPU, and the MoE block's bitwise determinism.
 Marked
 `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
@@ -404,6 +405,94 @@ def test_scheduler_round_on_card_matches_cpu(sched):
         torch.testing.assert_close(getattr(card.carry, k).cpu(),
                                    getattr(cpu.carry, k), rtol=1e-4,
                                    atol=1e-9)
+
+
+def _round_on_card_and_cpu(sched, seed):
+    """One round of `sched` on a fig10 batch (three heterogeneous cells,
+    a non-zero carry), on the card and on the CPU."""
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.scenario import make_round_batch
+    sc = ScenarioParams(n_sov=10, n_opv=10, n_slots=60)
+    prm, ch = VedsParams(), ChannelParams()
+    rnd = make_round_batch(seed, sc, ManhattanParams(), ch, prm, 3,
+                           hetero_fleet=True, device="cpu")
+    rng = np.random.default_rng(seed)
+    qs = torch.from_numpy(rng.uniform(0, 0.02, (3, 10)).astype(np.float32))
+    qu = torch.from_numpy(rng.uniform(0, 0.02, (3, 10)).astype(np.float32))
+    cpu = get_scheduler(sched).solve_round(rnd, prm, ch,
+                                           SchedulerCarry(qs=qs, qu=qu))
+    card = get_scheduler(sched).solve_round(
+        rnd.to("cuda"), prm, ch, SchedulerCarry(qs=qs.cuda(), qu=qu.cuda()))
+    for k in ("success", "n_success", "n_cot_slots", "n_dt_slots"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    return [(name, a.cpu(), b) for name, a, b in (
+        ("zeta", card.zeta, cpu.zeta), ("qs", card.carry.qs, cpu.carry.qs),
+        ("qu", card.carry.qu, cpu.carry.qu))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sched", ["madca", "optimal", "sa", "v2i_only"])
+@pytest.mark.parametrize("seed", [5, 6, 7, 8])
+def test_scheduler_queues_on_card_equal_cpu_bit_for_bit(sched, seed):
+    """After one round, the virtual energy queues qs and qu and the
+    delivered bits zeta are the CPU's bit for bit: every division on the
+    decision path is by a 0-dim device tensor (`repro_torch.device_scalar`,
+    `core/scheduler.py divisors`) and `madca`'s and `sa`'s rates take
+    their log2 in float64 (`core/baselines.py _log2`), each correctly
+    rounded on both."""
+    require_cuda()
+    for name, a, b in _round_on_card_and_cpu(sched, seed):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6, 7, 8])
+def test_veds_queues_on_card_within_ulps_of_cpu(seed):
+    """VEDS's decisions are the CPU's, and its queues and delivered bits
+    lie within 4 ulp of the CPU's (measured: up to 2): its cooperative
+    powers come from the P4 solves, whose batched linear solves
+    (`torch.linalg.solve_ex`: cuSOLVER on the card, LAPACK on the CPU)
+    and sums round in other orders, so they are not bit for bit."""
+    require_cuda()
+    for name, a, b in _round_on_card_and_cpu("veds", seed):
+        ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()
+                ).abs().max()
+        assert int(ulps) <= 4, (name, int(ulps))
+
+
+@pytest.mark.cuda
+def test_moe_apply_is_bitwise_deterministic_on_card():
+    """One MoE sub-block at granite-moe-1b-a400m's width (32 experts
+    top-8, expert d_ff 512, d_model 1024, bf16) on 2 x 512 tokens:
+    forward and backward twice from the same inputs give the same bits
+    (the combine and the dispatch's backward add each token's slots in
+    expert order; no atomics)."""
+    require_cuda()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import blocks as B
+    from repro_torch.models import engine
+    from repro_torch.models.module import (materialize, tree_leaves,
+                                           tree_map, tree_unflatten)
+    cfg = get_config("granite-moe-1b-a400m").replace(n_rep=1)
+    params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                         engine.model_decl(cfg, "head"))
+    p = tree_map(lambda a: a[0], params["blocks"][1])
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, 512, 1024), generator=g, device="cuda").bfloat16()
+    ct = torch.randn(x.shape, generator=g, device="cuda").bfloat16()
+
+    def run():
+        leaves = [a.detach().clone().requires_grad_() for a in tree_leaves(p)]
+        xx = x.clone().requires_grad_()
+        y, aux = B.moe_apply(tree_unflatten(p, leaves), xx, cfg)
+        return [y, aux, *torch.autograd.grad(
+            (y.float() * ct.float()).sum() + aux, leaves + [xx])]
+
+    first, second = run(), run()
+    assert len(first) == 8
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

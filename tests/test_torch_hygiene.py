@@ -4,6 +4,7 @@ entry points refuse to fall back to the CPU silently, and `chip_smoke.py`
 refuses to run without a card."""
 import ast
 import dataclasses
+import importlib
 import os
 import subprocess
 import sys
@@ -109,14 +110,41 @@ def test_zamba2_configs_match_reference_value_for_value(which):
     assert got == ours
 
 
+@pytest.mark.parametrize("name", ["granite_moe_1b", "llama4_scout",
+                                  "starcoder2_15b", "codeqwen_7b",
+                                  "minitron_4b"])
+@pytest.mark.parametrize("which", ["config", "smoke_config"])
+def test_zoo_configs_match_reference_value_for_value(name, which):
+    """The MoE and dense configurations registered with the MoE slice:
+    each module's configs equal the reference's field for field, and the
+    registry hands them out."""
+    ours = importlib.import_module(f"repro_torch.configs.{name}")
+    ref = importlib.import_module(f"repro.configs.{name}")
+    assert ours.ID == ref.ID
+    got, want = getattr(ours, which)(), getattr(ref, which)()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (get_config if which == "config" else get_smoke_config)(
+        ours.ID) == got
+
+
 def test_registry_names_every_reference_arch_and_ports_qwen3_and_zamba2():
+    """The ported set: qwen3-32b, zamba2-2.7b, the MoE granite and
+    llama4-scout and the dense starcoder2, codeqwen and minitron; the
+    three that wait for blocks of later slices (xLSTM, the encoder, the
+    vlm projector) raise, naming what they wait for."""
     assert ARCH_IDS == J_ARCH_IDS
-    for arch in ARCH_IDS:
-        if arch in (qwen.ID, zamba2.ID):
-            continue
+    ported = {qwen.ID, zamba2.ID, "granite-moe-1b-a400m",
+              "llama4-scout-17b-a16e", "starcoder2-15b", "codeqwen1.5-7b",
+              "minitron-4b"}
+    waits = {"xlstm-1.3b": "xLSTM", "whisper-small": "encoder",
+             "llama-3.2-vision-90b": "vlm projector"}
+    assert set(ARCH_IDS) == ported | set(waits)
+    for arch in ported:
+        assert get_config(arch).name == get_smoke_config(arch).name == arch
+    for arch, what in waits.items():
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(NotImplementedError, match=what):
             get_smoke_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt-2")

@@ -1,0 +1,466 @@
+"""The port's MoE path (`models/blocks.py`: `_router`, `moe_route`,
+`moe_experts`, `moe_apply`; the engine's aux sum; the VFL round and
+`launch/train.py`) against the reference, at granite-moe-1b-a400m's
+smoke config (d_model 256, 4 query and 2 KV heads of 64, 4 experts
+top-2, expert d_ff 128, capacity factor 1.25, 2 repetitions of (attn,
+moe), vocab 512) and llama4-scout's (4 experts top-1 plus the shared expert), in fp32 with one
+torch intra-op thread.
+
+Weights are the reference's own init (`materialize` of its declaration,
+unchanged) carried over with `llm_params_from_jax`; activations and
+tokens are numpy draws fed to both sides. The router is split from the
+dispatch as the port's other random paths are split into draws and a
+deterministic step: `moe_experts` is fed the reference's own `gate` and
+`eidx`, so a routing decision is never compared through a rounding.
+Tolerances:
+
+- the router: `eidx` identical; `gate` and the aux loss within 1e-6;
+- one MoE sub-block: the output within 1e-5 absolute (scale 6-13;
+  measured up to 7.2e-6), on the reference's routing and with the
+  router in the loop; each gradient of a scalar loss within 1e-5 of its
+  largest entry;
+- the whole model is ill-conditioned at this init, as zamba2's is
+  (`tests/test_torch_zamba2.py`): granite has no qk-norm, and the
+  reference's `scaled` init takes fan_in = H = 4 for `wq [d, H, Dh]`
+  (ROADMAP queue 3), so its attention scores reach the hundreds. With
+  every parameter moved by half an ulp (x (1 +- 6e-8)) the reference's
+  own logits move by 5.4e-3 and 1.3e-2 (seeds 3 and 6), and its VFL
+  update by up to 4.8e-3 of a leaf's norm; the port lands 1.4e-3 and
+  2.1e-3 from its logits and 5.1e-3 and 3.6e-3 from its update. Across
+  the five configurations this slice registers, the reference moved by
+  up to 1.3e-2 (logits) and 1.04e-2 (update), and the port landed up to
+  6.0e-3 and 6.7e-3 away. The port is held within 2e-2 on both, about
+  twice the reference's own worst move: tighter than zamba2's 1e-1, far
+  looser than qwen3's 2e-4 (which has qk-norm). The aux loss, a sum of
+  the blocks' router losses on identical routing, within 1e-6.
+"""
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as j_get_config
+from repro.configs.registry import get_smoke_config as j_get_smoke_config
+from repro.fl.vfl import lm_loss as j_lm_loss
+from repro.models import blocks as jB
+from repro.models import engine as jengine
+from repro.models import layers as jL
+from repro.models.module import Declared as JDeclared
+from repro.models.module import materialize as j_materialize
+from repro.models.module import param_count as j_param_count
+from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.fl import vfl
+from repro_torch.kernels.fedavg_agg import ops as fedavg_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch import train as train_mod
+from repro_torch.models import blocks as B
+from repro_torch.models import engine
+from repro_torch.models.module import (param_count, tree_leaves, tree_map,
+                                       tree_unflatten)
+from torch_port_util import tn, tt
+from torch_ref_vfl import MODEL_TOL, vfl_round_against_reference
+
+GRANITE, SCOUT = "granite-moe-1b-a400m", "llama4-scout-17b-a16e"
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+V, SEQ = 4, 128
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, so that parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(arch, **kw):
+    return (j_get_smoke_config(arch).replace(**F32, **kw),
+            get_smoke_config(arch).replace(**F32, **kw))
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _port(tree):
+    return engine.llm_params_from_jax(jax.tree.map(np.asarray, tree), "cpu")
+
+
+def _block(arch, seed=1):
+    jcfg, cfg = _cfgs(arch)
+    jp = j_materialize(jax.random.key(seed), jB.moe_decl(jcfg, "head"))
+    return jcfg, cfg, jp, _port(jp)
+
+
+def _ref_routing(jp, x, jcfg):
+    """The reference's own routing of x [B, T, d], grouped as
+    `moe_apply` groups it."""
+    b, t, d = x.shape
+    G = jB._gcd(b, 16)
+    h = jL.rmsnorm(jp["ln"], jnp.asarray(x))
+    return jB._router(jp, h.reshape(G, b * t // G, d), jcfg)
+
+
+def _dropped(eidx, jcfg):
+    """The (token, choice) pairs past their expert's capacity."""
+    G, n, k = eidx.shape
+    C = max(1, int(n * k * jcfg.capacity_factor) // jcfg.num_experts)
+    return int(sum(np.clip(np.bincount(np.asarray(eidx[g]).ravel(),
+                                       minlength=jcfg.num_experts) - C,
+                           0, None).sum() for g in range(G)))
+
+
+# ---------------------------------------------------------------------------
+# the router and the block
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", [GRANITE, SCOUT])
+@pytest.mark.parametrize("b,t", [(2, 64), (3, 16)])
+def test_router_matches_reference(arch, b, t):
+    jcfg, cfg, jp, p = _block(arch)
+    x = _x((b, t, jcfg.d_model), 2)
+    rg, re_, ra = _ref_routing(jp, x, jcfg)
+    h, gate, eidx, aux = B.moe_route(p, tt(x), cfg)
+    assert tuple(eidx.shape) == rg.shape == (jB._gcd(b, 16), b * t //
+                                             jB._gcd(b, 16),
+                                             jcfg.experts_per_tok)
+    np.testing.assert_array_equal(tn(eidx), np.asarray(re_))
+    np.testing.assert_allclose(tn(gate), np.asarray(rg), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(float(aux), float(ra), atol=1e-6, rtol=0)
+
+
+def test_router_breaks_ties_toward_the_lower_expert_as_top_k_does():
+    """Experts 1 and 3 share one router column and 0 and 2 another, so
+    every token's probabilities tie in pairs: `jax.lax.top_k` takes the
+    lower index of a tie first, and so must the port."""
+    jcfg, cfg, jp, p = _block(GRANITE)
+    r = np.asarray(jp["router"]).copy()
+    r[:, 2], r[:, 3] = r[:, 0], r[:, 1]
+    jp = dict(jp, router=jnp.asarray(r))
+    x = _x((2, 16, jcfg.d_model), 3)
+    rg, re_, _ = _ref_routing(jp, x, jcfg)
+    _, gate, eidx, _ = B.moe_route(dict(p, router=tt(r)), tt(x), cfg)
+    assert (np.asarray(re_)[..., 0] < np.asarray(re_)[..., 1]).all()
+    np.testing.assert_array_equal(tn(eidx), np.asarray(re_))
+    np.testing.assert_allclose(tn(gate), np.asarray(rg), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("arch", [GRANITE, SCOUT])
+@pytest.mark.parametrize("b,t,drops", [(2, 64, False), (4, 8, True),
+                                       (3, 16, False), (1, 12, None)])
+def test_moe_apply_matches_reference(arch, b, t, drops):
+    """The dispatch fed the reference's own gate and eidx, then the whole
+    block with the port's router, against the reference's `moe_apply`
+    within 1e-5 absolute. B = 4 x 8 tokens leaves capacity C = 5 (top-2
+    of 4 experts) or 2 (top-1) per group of 8 tokens, and tokens are
+    dropped there; B = 3 puts every token in one group (G = 1)."""
+    jcfg, cfg, jp, p = _block(arch)
+    x = _x((b, t, jcfg.d_model), 5)
+    ry, raux = jB.moe_apply(jp, jnp.asarray(x), jcfg)
+    rg, re_, _ = _ref_routing(jp, x, jcfg)
+    if drops is not None:
+        assert (_dropped(re_, jcfg) > 0) == drops
+    if b == 3:
+        assert rg.shape[0] == 1
+    h = B.moe_route(p, tt(x), cfg)[0]
+    y = B.moe_experts(p, tt(x), h, tt(rg), tt(re_).long(), cfg)
+    np.testing.assert_allclose(tn(y), np.asarray(ry), atol=1e-5, rtol=0)
+    y2, aux = B.moe_apply(p, tt(x), cfg)
+    np.testing.assert_allclose(tn(y2), np.asarray(ry), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(aux), float(raux), atol=1e-6, rtol=0)
+
+
+def test_moe_apply_drops_tokens_past_capacity_as_the_reference():
+    """Granite's top-2 routing at B = 4 x 8: the count of dropped pairs is
+    positive, and a token whose every choice was dropped leaves the block
+    as it came in (the residual only), on both sides."""
+    jcfg, cfg, jp, p = _block(GRANITE)
+    x = _x((4, 8, jcfg.d_model), 5)
+    rg, re_, _ = _ref_routing(jp, x, jcfg)
+    assert _dropped(re_, jcfg) > 0
+    ry, _ = jB.moe_apply(jp, jnp.asarray(x), jcfg.replace(
+        capacity_factor=1e-9))
+    y, _ = B.moe_apply(p, tt(x), cfg.replace(capacity_factor=1e-9))
+    # C = 1: each group's first pair of each expert is kept, the rest
+    # pass through
+    np.testing.assert_allclose(tn(y), np.asarray(ry), atol=1e-5, rtol=0)
+    kept = (np.abs(np.asarray(ry) - x).max(-1) > 0).sum()
+    assert 0 < kept <= 4 * jcfg.num_experts
+
+
+@pytest.mark.parametrize("arch", [GRANITE, SCOUT])
+def test_moe_apply_gradients_match_jax_grad(arch):
+    """A scalar loss, sum(y * ct) + aux, through `moe_apply` at B = 4 x 8
+    (tokens dropped), differentiated with respect to every leaf and to x:
+    each gradient within 1e-5 of its largest entry. One exception, in
+    the reference's formula: under top-1 (llama4-scout) the gate is
+    p / p = 1, which passes no gradient in exact arithmetic, so the
+    router's gradient through the output is only the rounding residual
+    of that division on either side (2.7e-5 in the reference, 9.3e-6 in
+    the port, against 0.185 from the aux loss); that leaf is held within
+    2e-4 of its largest entry."""
+    jcfg, cfg, jp, p = _block(arch)
+    x = _x((4, 8, jcfg.d_model), 6)
+    ct = _x((4, 8, jcfg.d_model), 7)
+
+    def ref_loss(jp, x):
+        y, aux = jB.moe_apply(jp, x, jcfg)
+        return jnp.sum(y * ct) + aux
+    rp, rx = jax.grad(ref_loss, argnums=(0, 1))(jp, jnp.asarray(x))
+    leaves = [a.detach().clone().requires_grad_() for a in tree_leaves(p)]
+    xt = tt(x).requires_grad_()
+    y, aux = B.moe_apply(tree_unflatten(p, leaves), xt, cfg)
+    got = torch.autograd.grad((y * tt(ct)).sum() + aux, leaves + [xt])
+    want = jax.tree.leaves(rp) + [rx]
+    assert len(got) == len(want) == (6 + 3 * (arch == SCOUT))
+    router = [k for k in sorted(p)].index("router")
+    for i, (g, r) in enumerate(zip(got, want)):
+        r = np.asarray(r)
+        assert np.abs(r).max() > 0
+        rel = 2e-4 if (arch == SCOUT and i == router) else 1e-5
+        np.testing.assert_allclose(tn(g), r, atol=rel * np.abs(r).max(),
+                                   rtol=0)
+
+
+def test_moe_decode_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="decode and caches"):
+        B.moe_decode()
+
+
+# ---------------------------------------------------------------------------
+# declarations, parameters and the engine
+# ---------------------------------------------------------------------------
+
+def _decl_summary(tree, is_port):
+    if is_port:
+        return [(d.shape, d.axes, d.init, d.scale, str(d.dtype).split(".")[-1])
+                for d in tree_leaves(tree)]
+    return [(d.shape, d.axes, d.init, d.scale, str(d.dtype))
+            for d in jax.tree.leaves(tree, is_leaf=lambda x:
+                                     isinstance(x, JDeclared))]
+
+
+@pytest.mark.parametrize("arch,full,n_leaves,count", [
+    (GRANITE, False, 13, None), (GRANITE, True, 13, 1_385_219_072),
+    (SCOUT, False, 16, None)])
+def test_moe_model_decl_matches_reference(arch, full, n_leaves, count):
+    """Same leaves in the same order (the fp32-declared router cast to
+    the params' dtype, as every `normal` leaf), hence the same count; at
+    full width and depth granite has 13 leaves and ~1.385 B parameters."""
+    jcfg = (j_get_config if full else j_get_smoke_config)(arch)
+    cfg = (get_config if full else get_smoke_config)(arch)
+    jd, d = jengine.model_decl(jcfg, "head"), engine.model_decl(cfg, "head")
+    assert _decl_summary(d, True) == _decl_summary(jd, False)
+    assert len(tree_leaves(d)) == n_leaves
+    assert param_count(d) == j_param_count(jd)
+    if count is not None:
+        assert param_count(d) == count
+
+
+def test_llm_params_from_jax_carries_the_moe_tree():
+    """The [n_rep, E, d, f] experts, the router and llama4-scout's shared
+    expert, in the smoke configs' own dtypes (bf16 weights), value for
+    value."""
+    for arch in (GRANITE, SCOUT):
+        jcfg = j_get_smoke_config(arch)
+        jp = j_materialize(jax.random.key(4), jengine.model_decl(jcfg,
+                                                                 "head"))
+        ours = _port(jp)
+        moe = ours["blocks"][1]
+        E, d, f = jcfg.num_experts, jcfg.d_model, jcfg.moe_d_ff
+        assert tuple(moe["w_gate"].shape) == (jcfg.n_rep, E, d, f)
+        assert tuple(moe["w_down"].shape) == (jcfg.n_rep, E, f, d)
+        assert tuple(moe["router"].shape) == (jcfg.n_rep, d, E)
+        assert ("shared" in moe) == (arch == SCOUT)
+        for a, b in zip(tree_leaves(ours), jax.tree.leaves(jp)):
+            assert str(a.dtype).split(".")[-1] == str(b.dtype)
+            np.testing.assert_array_equal(a.float().numpy(),
+                                          np.asarray(b, np.float32))
+
+
+@pytest.fixture(scope="module")
+def granite():
+    jcfg, cfg = _cfgs(GRANITE)
+    jp = j_materialize(jax.random.key(3), jengine.model_decl(jcfg, "head"))
+    toks = np.random.default_rng(26).integers(0, jcfg.vocab_size, (2, SEQ))
+    return jcfg, cfg, jp, toks
+
+
+def test_forward_logits_and_aux_match_reference(granite):
+    """Logits with and without remat within MODEL_TOL (module docstring),
+    the aux loss summed over the 2 x 1 MoE blocks within 1e-6; the
+    forward under no_grad takes no checkpoint."""
+    jcfg, cfg, jp, toks = granite
+    ref, raux = jengine.forward(jp, jnp.asarray(toks, jnp.int32), jcfg,
+                                tp="head")
+    params = _port(jp)
+    for remat in (True, False):
+        logits, aux = engine.forward(params, tt(toks),
+                                     cfg.replace(remat=remat), tp="head")
+        assert logits.dtype == torch.float32
+        assert tuple(logits.shape) == (2, SEQ, 512)
+        np.testing.assert_allclose(tn(logits), np.asarray(ref),
+                                   atol=MODEL_TOL, rtol=0)
+        np.testing.assert_allclose(float(aux), float(raux), atol=1e-6,
+                                   rtol=0)
+    assert float(raux) > 1.0
+
+
+def test_aux_is_the_sum_of_the_blocks_router_losses(granite):
+    """`forward`'s aux equals the sum of what each MoE block returns when
+    the blocks are run one by one, and enters `lm_loss` as 0.01 x aux."""
+    jcfg, cfg, jp, toks = granite
+    params = _port(jp)
+    from repro_torch.models import layers as L
+    x = L.embed(params["embed"], tt(toks)).to(cfg.dtype)
+    pos = L.rope_positions(SEQ)
+    total = torch.zeros(())
+    for r in range(cfg.n_rep):
+        p_attn = tree_map(lambda a: a[r], params["blocks"][0])
+        x = B.attn_apply(p_attn, x, cfg, tp="head", positions=pos)
+        x, a = B.moe_apply(tree_map(lambda a: a[r], params["blocks"][1]), x,
+                           cfg)
+        total = total + a
+    _, aux = engine.forward(params, tt(toks), cfg, tp="head")
+    assert torch.equal(aux, total)
+    batch = {"tokens": tt(toks), "labels": tt(np.roll(toks, -1, axis=1))}
+    logits, _ = engine.forward(params, batch["tokens"], cfg, tp="head")
+    ce = L.softmax_cross_entropy(logits, batch["labels"])
+    torch.testing.assert_close(vfl.lm_loss(params, batch, cfg, "head"),
+                               ce + 0.01 * aux, rtol=0, atol=0)
+
+
+def test_reference_init_is_ill_conditioned(granite):
+    """The reference fault behind MODEL_TOL: with every parameter moved by
+    half an ulp (x (1 +- 6e-8)), the reference's own granite logits move
+    by more than 2e-3, ten times qwen3's bound under the same nudge
+    (`tests/test_torch_zamba2.py`)."""
+    jcfg, cfg, jp, toks = granite
+    H = jcfg.num_heads
+    wq = np.asarray(jp["blocks"][0]["wq"])
+    np.testing.assert_allclose(wq.std(), 0.8796 / np.sqrt(H), rtol=0.02)
+    f = jax.jit(lambda p: jengine.forward(
+        p, jnp.asarray(toks, jnp.int32), jcfg, tp="head")[0])
+    rng = np.random.default_rng(0)
+    nudged = jax.tree.map(lambda x: x * (1 + 6e-8 * rng.choice(
+        [-1.0, 1.0], size=x.shape).astype(np.float32)), jp)
+    assert float(np.abs(np.asarray(f(nudged)) - np.asarray(f(jp))).max()) \
+        > 2e-3
+
+
+@pytest.mark.parametrize("n_rep,low,high", [(1, 5.0, 50.0),
+                                            (4, 1e4, 1e5)])
+def test_reference_gradients_grow_with_depth_and_the_port_follows(
+        n_rep, low, high):
+    """The reference's own largest gradient entry at its init grows by
+    about an order of magnitude a repetition of (attn, moe) at the smoke
+    width (16.5 at one, 3.1e4 at four; `tests/torch_grad_growth.py`
+    gives 10.2, 112.7 and 546 at full width and one to three), and the
+    port's follows it within 10%. At granite's full depth of 24 that
+    puts the gradients near 1e16 (PERF.md section 4), which is what sets
+    the lr of the chip's run."""
+    jcfg, cfg = _cfgs(GRANITE, n_rep=n_rep)
+    jp = j_materialize(jax.random.key(0), jengine.model_decl(jcfg, "head"))
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (1, 64))
+    labels = np.roll(toks, -1, axis=1)
+    ref = jax.grad(lambda p: j_lm_loss(
+        p, {"tokens": jnp.asarray(toks, jnp.int32),
+            "labels": jnp.asarray(labels, jnp.int32)}, jcfg, "head"))(jp)
+    ref_max = max(float(np.abs(np.asarray(x)).max())
+                  for x in jax.tree.leaves(ref))
+    params = _port(jp)
+    leaves = [x.clone().requires_grad_() for x in tree_leaves(params)]
+    loss = vfl.lm_loss(tree_unflatten(params, leaves),
+                       {"tokens": tt(toks), "labels": tt(labels)}, cfg,
+                       "head")
+    port_max = max(float(g.abs().max())
+                   for g in torch.autograd.grad(loss, leaves))
+    assert low < ref_max < high
+    assert abs(port_max - ref_max) <= 0.1 * ref_max
+
+
+def test_bf16_forward_is_finite_and_moe_apply_near_fp32():
+    """The smoke config as it ships (bf16): the whole model's logits and
+    aux are finite (the whole model is too ill-conditioned at this init
+    for bf16 to stay near fp32: module docstring), and one MoE block's
+    experts in bf16 stay within 5e-2 of their output's scale of the fp32
+    evaluation on the same bf16 weights, input and routing (the bf16
+    block's own; bf16 rounding of the normed input moves near-ties of
+    the router)."""
+    jcfg, cfg = j_get_smoke_config(GRANITE), get_smoke_config(GRANITE)
+    jp = j_materialize(jax.random.key(5), jengine.model_decl(jcfg, "head"))
+    params = _port(jp)
+    toks = tt(np.random.default_rng(27).integers(0, 512, (2, 64)))
+    logits, aux = engine.forward(params, toks, cfg, tp="head")
+    assert torch.isfinite(logits).all() and torch.isfinite(aux)
+    p = tree_map(lambda a: a[0], params["blocks"][1])
+    x = tt(_x((2, 64, jcfg.d_model), 8)).to(torch.bfloat16)
+    lo, aux = B.moe_apply(p, x, cfg)
+    h, gate, eidx, _ = B.moe_route(p, x, cfg)
+    hi = B.moe_experts(tree_map(lambda a: a.float(), p), x.float(),
+                       h.float(), gate, eidx, cfg.replace(**F32))
+    assert lo.dtype == torch.bfloat16 and aux.dtype == torch.float32
+    scale = float(hi.abs().max())
+    assert float((lo.float() - hi).abs().max()) <= 5e-2 * scale
+
+
+# ---------------------------------------------------------------------------
+# the VFL round and launch/train.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,n_leaves", [(GRANITE, 13), (SCOUT, 16)])
+def test_vfl_round_matches_reference(arch, n_leaves):
+    """Each leaf's update within MODEL_TOL of its norm (module
+    docstring): local SGD walks the MoE tree (experts, router, shared
+    expert) and `fedavg_agg_tree` aggregates every leaf."""
+    errs = vfl_round_against_reference(arch, 3)
+    assert len(errs) == n_leaves
+    assert max(errs) <= MODEL_TOL, errs
+
+
+def test_train_main_runs_granite_on_cpu_with_finite_losses(capsys):
+    assert train_mod.main(["--arch", GRANITE, "--device", "cpu",
+                           "--rounds", "2", "--vehicles", "4",
+                           "--batch-per-vehicle", "2", "--seq", "64"]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={GRANITE}" in out
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", out)]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+def test_train_granite_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_mod.main(["--arch", GRANITE, "--rounds", "1"])
+
+
+def test_train_loop_calls_each_kernel_as_the_chip_run_counts(monkeypatch):
+    """The counts that `chip_smoke.py` asserts for granite, checked here on
+    the plain versions (which the CPU runs in the kernels' place): per
+    round `flash_attention` runs (V x 2 + 1) times per attention
+    sub-block, and `fedavg_agg` once per leaf: embed, lm_head,
+    final_norm and 5 leaves each for the attention and the MoE
+    positions, 13."""
+    calls = {"flash": 0, "fedavg": 0}
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(flash_ops, "flash_attention_plain",
+                        count("flash", flash_ops.flash_attention_plain))
+    monkeypatch.setattr(fedavg_ops, "fedavg_agg_plain",
+                        count("fedavg", fedavg_ops.fedavg_agg_plain))
+    cfg = get_smoke_config(GRANITE).replace(num_vehicles=V, grad_accum=1)
+    hist = train_mod.train(cfg, rounds=1, batch_per_vehicle=2, seq=32,
+                           lr=0.5, device="cpu", log=lambda s: None)
+    assert np.isfinite(hist[0]["loss"])
+    assert calls["flash"] == cfg.n_rep * (V * 2 + 1)
+    assert calls["fedavg"] == 13

@@ -31,8 +31,8 @@ from repro_torch.core import veds as port_veds
 from repro_torch.core.baselines import (SCHEDULERS, VedsScheduler,
                                         get_scheduler)
 from repro_torch.core.lyapunov import VedsParams, sigmoid_weight
-from repro_torch.core.scheduler import (SchedulerCarry, init_queues,
-                                        masked_e_cp)
+from repro_torch.core.scheduler import (SchedulerCarry, divisors,
+                                        init_queues, masked_e_cp)
 from repro_torch.core.veds import (NEG, RoundInputs, _dt_candidates,
                                    _select_slot, _slot_start, solve_slot,
                                    veds_round)
@@ -242,9 +242,10 @@ def test_solve_slot_at_a_device_index_matches_reference(rounds3, t):
             jnp.asarray(t, jnp.int32),
             {"zeta": jnp.asarray(zeta), "qs": jnp.asarray(qs),
              "qu": jnp.asarray(qu), "T": jnp.asarray(T)})
+    rb = round_to_torch(jr)
     state, info = solve_slot(
         torch.tensor(t), {"zeta": tt(zeta), "qs": tt(qs), "qu": tt(qu),
-                          "T": T}, round_to_torch(jr), PRM, CH)
+                          **divisors(rb, PRM, CH)}, rb, PRM, CH)
     for k in ("m", "use_dt", "use_cot"):
         np.testing.assert_array_equal(tn(info[k]), np.asarray(ref_info[k]),
                                       err_msg=k)

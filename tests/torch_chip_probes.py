@@ -1,0 +1,190 @@
+"""Measurements on the card behind two decisions of the MoE slice, from
+the root of a checkout on a machine with one NVIDIA GPU (no jax needed):
+
+    python3 tests/torch_chip_probes.py grads      # granite's gradients at init
+    python3 tests/torch_chip_probes.py lr-sweep   # granite's lr, 0.5 .. 1e-20
+    python3 tests/torch_chip_probes.py bitwise    # schedulers, card vs CPU
+
+`grads`: granite-moe-1b-a400m at full width and depth (bf16, the init
+`launch/train.py` draws for seed 0), the LM loss's gradient on each
+vehicle's batch of rounds 0 and 1 (4 x 1024 tokens): the largest entry
+of each leaf, and vehicle 0's bf16 gradients beside their fp32
+evaluation on the same weights, norm-wise.
+
+`lr-sweep`: `chip_smoke.py phase_vfl` for granite (1 warm-up and 3
+rounds) at lr 0.5 (`launch/train.py`'s), then 10^-1, 10^-2, ... until
+every round's eval loss is finite,
+then the share of bf16 entries its round 0 changes
+(`round0_changed_share`). This is how `chip_smoke.GRANITE_LR` was set.
+
+`bitwise`: one round of each of the five schedulers on fig10 batches
+(three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
+the decisions, and how many entries of zeta, qs, qu and the energies
+differ and by how many ulps; then again with `madca`'s and `sa`'s log2
+taken in float32 (`torch.log2`) instead of `core/baselines.py _log2`.
+"""
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def _leaf_names(tree, pre=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_names(tree[k], f"{pre}{k}.")
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from _leaf_names(t, f"{pre}{i}.")
+    else:
+        yield pre[:-1]
+
+
+def grads(device) -> None:
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.fl.vfl import lm_loss
+    from repro_torch.launch.train import _generator
+    from repro_torch.models import engine
+    from repro_torch.models.module import (materialize, tree_leaves,
+                                           tree_map, tree_unflatten)
+    cfg = cs.vfl_config("granite-moe-1b-a400m", cs.GRANITE_REPS)
+    params = materialize(torch.Generator(device=device).manual_seed(0),
+                         engine.model_decl(cfg, "head"))
+    names = list(_leaf_names(params))
+
+    def grad(p, batch, c):
+        leaves = [a.detach().clone().requires_grad_() for a in tree_leaves(p)]
+        loss = lm_loss(tree_unflatten(p, leaves), batch, c, "head")
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    V, b, seq = cfg.num_vehicles, cs.VFL_BATCH, cs.VFL_SEQ
+    g0 = None
+    for r in (0, 1):
+        batch = lm_batch(_generator(0, 1, r, device), V * b, seq,
+                         cfg.vocab_size)
+        for v in range(V):
+            mb = {k: x[b * v: b * (v + 1)] for k, x in batch.items()}
+            loss, g = grad(params, mb, cfg)
+            big = [(n, float(x.float().abs().max())) for n, x in
+                   zip(names, g)]
+            bad = [n for n, x in zip(names, g) if not torch.isfinite(x).all()]
+            cs.log("grads", f"round {r} vehicle {v}: loss {loss:.4f}; "
+                   f"non-finite leaves {bad}; largest |grad| by leaf "
+                   + ", ".join(f"{n} {m:.2e}" for n, m in big))
+            if r == v == 0:
+                g0 = g
+            del g
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    batch = lm_batch(_generator(0, 1, 0, device), V * b, seq, cfg.vocab_size)
+    loss, g32 = grad(tree_map(lambda a: a.float(), params),
+                     {k: x[:b] for k, x in batch.items()}, c32)
+    cs.log("grads", f"round 0 vehicle 0 in fp32: loss {loss:.4f}; the bf16 "
+           f"gradient's distance from it, norm-wise, by leaf " + ", ".join(
+               f"{n} {float((a.float() - w).norm() / w.norm()):.2e}"
+               for n, a, w in zip(names, g0, g32)))
+
+
+def lr_sweep(device) -> None:
+    cfg = cs.vfl_config("granite-moe-1b-a400m", cs.GRANITE_REPS)
+    masks = cs.RECORDED_MASKS["granite-moe-1b-a400m"]
+    for lr in [0.5] + [10.0 ** -e for e in range(1, 21)]:
+        try:
+            res = cs.phase_vfl(device, cfg, cs.VFL_WARMUP, cs.VFL_ROUNDS,
+                               cs.VFL_BATCH, cs.VFL_SEQ, lr, masks)
+        except RuntimeError as err:
+            cs.log("lr-sweep", f"lr {lr:g}: {err}")
+            cs.free()
+            continue
+        share = cs.round0_changed_share(device, cfg, cs.VFL_BATCH,
+                                        cs.VFL_SEQ, lr,
+                                        res["rounds"][0]["mask"])
+        cs.log("lr-sweep", f"lr {lr:g}: every eval loss finite "
+               f"{[r['loss'] for r in res['rounds']]}; round 0 changed "
+               f"{share:.4f} of the bf16 entries")
+        return
+
+
+def bitwise(device) -> None:
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core import baselines
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import ScenarioParams, make_round_batch
+    from repro_torch.core.scheduler import SchedulerCarry
+    sc = ScenarioParams(n_sov=10, n_opv=10, n_slots=60)
+    prm, ch = VedsParams(), ChannelParams()
+
+    def ulps(a, b):
+        return int((a.view(torch.int32).long()
+                    - b.view(torch.int32).long()).abs().max())
+
+    def run(tag):
+        for seed in (5, 6, 7, 8):
+            rnd = make_round_batch(seed, sc, ManhattanParams(), ch, prm, 3,
+                                   hetero_fleet=True, device="cpu")
+            rng = np.random.default_rng(seed)
+            qs, qu = (torch.from_numpy(rng.uniform(0, 0.02, (3, 10)).astype(
+                np.float32)) for _ in range(2))
+            for name in cs.COMPARE_SCHEDULERS:
+                s = baselines.get_scheduler(name)
+                cpu = s.solve_round(rnd, prm, ch, SchedulerCarry(qs=qs, qu=qu))
+                card = s.solve_round(rnd.to(device), prm, ch, SchedulerCarry(
+                    qs=qs.to(device), qu=qu.to(device)))
+                same = all(torch.equal(card[k].cpu(), cpu[k]) for k in
+                           ("success", "n_success", "n_cot_slots",
+                            "n_dt_slots"))
+                parts = []
+                for k, a, b in (
+                        ("zeta", card.zeta, cpu.zeta),
+                        ("qs", card.carry.qs, cpu.carry.qs),
+                        ("qu", card.carry.qu, cpu.carry.qu),
+                        ("energy_sov", card.energy_sov, cpu.energy_sov),
+                        ("energy_opv", card.energy_opv, cpu.energy_opv)):
+                    a = a.cpu()
+                    n = int((a != b).sum())
+                    parts.append(f"{k} {n}"
+                                 + (f" (up to {ulps(a, b)} ulp)" if n else ""))
+                cs.log("bitwise", f"[{tag}] seed {seed} {name}: decisions "
+                       f"equal {same}; entries that differ: "
+                       + ", ".join(parts))
+
+    run("log2 in float64")
+    kept = baselines._log2
+    baselines._log2 = torch.log2
+    try:
+        run("log2 in float32")
+    finally:
+        baselines._log2 = kept
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise}
+    if not argv or argv[0] not in probes:
+        print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("torch_chip_probes: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    os.chdir(ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.build import load_library
+    load_library()
+    cs.log("device", cs.smi_line())
+    probes[argv[0]](torch.device("cuda"))
+    cs.log("device", cs.smi_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
