@@ -50,7 +50,21 @@ with its kernel launches counted from 0:
   entries that its round 0 changes; then one round of each smoke config
   in fp32 on the card against the CPU (zamba2's with 2 repetitions, so
   that the tied block is used twice; granite's, llama4-scout's and the
-  dense starcoder2's, codeqwen's and minitron's too).
+  dense starcoder2's, codeqwen's and minitron's too);
+- the same loop at xlstm-1.3b's full width and depth (6 x (7 mLSTM + 1
+  sLSTM), d_model 2048, 4 heads, mLSTM head dim 1024 and chunk 128,
+  vocab 50304, bf16; 2.12 B parameters) at `XLSTM_LR`, with one mLSTM and
+  one sLSTM sub-block timed beside the rounds' local SGD; and at
+  whisper-small's (12 bidirectional encoder layers over 1536 frames, 12 x
+  (attention, cross-attention onto the encoded frames, MLP), d_model 768,
+  12 heads of 64, vocab 51865, bf16; 279 M parameters), whose batches
+  carry `src` [b, 1536, 768] (`data/synthetic.py` `src_lm_batch`), at
+  `WHISPER_LR`; then the card against the CPU for the xlstm, whisper
+  (one encoder layer and one repetition, where the round is well
+  conditioned at the init) and llama-3.2-vision smoke configs, the last
+  two with `src`. `flash_attention` is also held
+  and timed at whisper's encoder, cross and self shapes and at
+  llama-3.2-vision's cross shape, beside SDPA under the same mask.
 
 The VFL rounds' masks must be those recorded before the bf16 kernels
 moved to the tensor cores (the schedule does not depend on the kernels);
@@ -71,6 +85,7 @@ exits non-zero, as it does without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -114,6 +129,19 @@ ZAMBA2_REPS, ZAMBA2_LR, ZAMBA2_MIN_CHANGED = 9, 1e-6, 0.1
 # (PERF.md section 4). No power of ten also changes ZAMBA2_MIN_CHANGED of
 # the bf16 entries in round 0; the share is logged and must be positive.
 GRANITE_REPS, GRANITE_LR = 24, 1e-15
+# xlstm-1.3b (6 x (7 mLSTM + 1 sLSTM)) and whisper-small (12 encoder
+# layers, 12 x (attn, cross, mlp)) on the same VFL path at full width and
+# full depth, each at the largest power of ten up to launch/train.py's 0.5
+# at which all 4 rounds keep a finite eval loss (`tests/torch_chip_probes.py
+# lr-sweep`; PERF.md section 6, PR 23): at the reference's init their
+# largest gradients reach ~1e15 (xlstm) and ~1e24 (whisper's encoder), so
+# 1e-15 and 1e-21 give NaN; the share of bf16 entries round 0 changes is
+# logged and must be positive
+XLSTM_REPS, XLSTM_LR = 6, 1e-16
+WHISPER_REPS, WHISPER_LR = 12, 1e-22
+# the flash_attention cases of phase_kernels_llm timed beside their bounds
+TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
+               "whisper_cross", "whisper_self", "vlm_cross")
 # the C entry point each dtype must reach: bf16 the tensor-core kernels,
 # fp32 the CUDA-core ones
 FLASH_ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16_sm90",
@@ -130,6 +158,9 @@ RECORDED_MASKS = {
     # schedule is the same
     "granite-moe-1b-a400m": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1],
                              [0, 1, 1, 1]],
+    "xlstm-1.3b": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]],
+    "whisper-small": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1],
+                      [0, 1, 1, 1]],
 }
 # the streaming path (`run_fl(streaming=True)`): rounds with the warm P4
 # table (benchmarks/fig4_speed.py warm_ipm_sweep's budget, at most half
@@ -233,11 +264,11 @@ def flash_used_beside_library(args, kw, out, ref):
     bf16, as both do, leaves absolute errors past the bound's 2e-2 at
     entries whose terms cancel (PERF.md section 6). Returns the share and
     the library's."""
-    check(kw.get("causal", True) and kw.get("window") is None
-          and not kw.get("q_offset"), f"flash_attention call {kw}: the "
-          f"library yardstick covers causal attention without a window")
+    check(kw.get("window") is None and not kw.get("q_offset"),
+          f"flash_attention call {kw}: the library yardstick covers causal "
+          f"and full attention without a window")
     lib = torch.nn.functional.scaled_dot_product_attention(
-        *(x.transpose(1, 2) for x in args), is_causal=True,
+        *(x.transpose(1, 2) for x in args), is_causal=kw.get("causal", True),
         enable_gqa=True).transpose(1, 2)
     lib_used = flash_used(lib, None, ref[0], None)
     return flash_used(*out, *ref, allow=max(1.0, 1.25 * lib_used)), lib_used
@@ -1429,13 +1460,19 @@ def flash_bound_ms(q, k, causal: bool, window, q_offset: int):
 def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                       zamba2_shape=(4, 1024, 32, 80),
                       granite_shape=(4, 1024, 16, 8, 64),
+                      whisper_shape=(4, 1024, 1536, 12, 64),
+                      vlm_cross_shape=(4, 1024, 2048, 64, 8, 128),
                       fedavg_l=151936 * 5120,
-                      fedavg_granite_l=GRANITE_REPS * 32 * 1024 * 512):
+                      fedavg_granite_l=GRANITE_REPS * 32 * 1024 * 512,
+                      fedavg_xlstm_l=50304 * 2048):
     """flash_attention and fedavg_agg against their plain versions on the
-    card, at the VFL path's shapes and at the edge cases; timed at the
-    main-path shapes beside their bounds and, for attention, PyTorch's
-    scaled_dot_product_attention. The attention Function's gradients are
-    held against autograd through the plain version at a small shape."""
+    card, at the VFL paths' shapes and at the edge cases; timed at the
+    paths' shapes beside their bounds and, for attention, PyTorch's
+    scaled_dot_product_attention under the case's own mask (whisper's
+    encoder and its cross-attention, and llama-3.2-vision's cross
+    attention, attend to every key). The attention Function's gradients
+    are held against autograd through the plain version at a small
+    shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.fedavg_agg.ops import (fedavg_agg,
                                                     fedavg_agg_plain)
@@ -1451,6 +1488,8 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
     B, T, H, KV, D = main_shape
     zb, zt, zh, zd = zamba2_shape
     gb, gt, gh, gkv, gd = granite_shape
+    wb, wt, ws, wh, wd = whisper_shape
+    vb, vt, vs, vh, vkv, vd = vlm_cross_shape
     cases = {
         "main": (B, T, T, H, KV, D, torch.bfloat16, True, None, 0),
         # zamba2's shared attention: 32 heads of 80 (3 output columns a
@@ -1458,6 +1497,19 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
         "zamba2": (zb, zt, zt, zh, zh, zd, torch.bfloat16, True, None, 0),
         # granite's attention: 16 query heads of 64 on 8 KV heads, causal
         "granite": (gb, gt, gt, gh, gkv, gd, torch.bfloat16, True, None, 0),
+        # whisper-small: the encoder over its 1536 frames, bidirectional;
+        # the decoder's cross-attention of 1024 tokens onto them; its
+        # causal self-attention
+        "whisper_encoder": (wb, ws, ws, wh, wh, wd, torch.bfloat16, False,
+                            None, 0),
+        "whisper_cross": (wb, wt, ws, wh, wh, wd, torch.bfloat16, False,
+                          None, 0),
+        "whisper_self": (wb, wt, wt, wh, wh, wd, torch.bfloat16, True, None,
+                         0),
+        # llama-3.2-vision's cross-attention (64 query and 8 KV heads of
+        # 128) onto its 2048 projected patches
+        "vlm_cross": (vb, vt, vs, vh, vkv, vd, torch.bfloat16, False, None,
+                      0),
         "fp32_d80": (2, 200, 260, 4, 2, 80, torch.float32, False, 90, 0),
         "window": (2, 512, 512, 16, 2, 128, torch.bfloat16, True, 128, 0),
         "full_s_ne_t": (2, 256, 384, 8, 2, 64, torch.bfloat16, False, None,
@@ -1494,7 +1546,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                  rel_err=err / scale, out_max_abs=scale,
                  lse_max_abs_err=lse_err, tolerance=f"atol=rtol={tol}",
                  entry=entry)
-        if label in ("main", "zamba2", "granite"):
+        if label in TIMED_FLASH:
             r.update(zip(("smem_bytes", "ctas_per_sm"),
                          sm90_resources("flash_attention", d)))
             # 20 calls a sample: the wrapper's host time before the first
@@ -1509,12 +1561,12 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             try:
                 lib = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
                 r["library_err"] = float(
                     (lib.transpose(1, 2).float() - ref.float()).abs().max())
                 r["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True), 20,
+                        qt, kt, vt, is_causal=causal, enable_gqa=True), 20,
                     samples=7, warmup=2)
             except RuntimeError as e:      # the yardstick only
                 r["library_ms"], r["library_error"] = None, str(e)[:200]
@@ -1554,6 +1606,8 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
         "main": (V, fedavg_l, torch.bfloat16, False),
         # granite's largest leaf: an expert weight of all 24 layers
         "granite": (V, fedavg_granite_l, torch.bfloat16, False),
+        # xlstm's largest leaf: the embedding (and lm_head), [50304, 2048]
+        "xlstm": (V, fedavg_xlstm_l, torch.bfloat16, False),
         "ragged": (V, 1_000_003, torch.bfloat16, False),
         "all_failed": (V, 1 << 20, torch.bfloat16, True),
         "fp32": (V, 1 << 22, torch.float32, False),
@@ -1579,7 +1633,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                  sum_w=float(w.sum()), max_abs_err=err,
                  tolerance=f"atol=rtol={tol}")
         del ref
-        if label in ("main", "granite"):
+        if label in ("main", "granite", "xlstm"):
             r["ms"] = time_ms(lambda: fedavg_agg(x, w, old), 5, samples=7,
                               warmup=2)
             r["plain_ms"] = time_ms(lambda: fedavg_agg_plain(x, w, old), 1,
@@ -1773,7 +1827,9 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     per round the wall time, its stages (each closed by a device
     synchronisation), the schedule's outcome, the eval loss and the peak
     memory; then the launch counts against those the code implies, and
-    the masks against `masks` (an entry of RECORDED_MASKS) where given."""
+    the masks against `masks` (an entry of RECORDED_MASKS) where given.
+    A model that reads `src` gets its batches from `src_lm_batch`."""
+    from repro_torch.data.synthetic import src_lm_batch
     from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_fwd
@@ -1790,7 +1846,9 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
         f"{cfg.head_dim} d_ff {cfg.d_ff} experts {cfg.num_experts} top-"
         f"{cfg.experts_per_tok} expert d_ff {cfg.moe_d_ff} ssm N "
         f"{cfg.ssm_state} heads "
-        f"{cfg.ssm_heads}x{cfg.ssm_head_dim} chunk {cfg.ssm_chunk} vocab "
+        f"{cfg.ssm_heads}x{cfg.ssm_head_dim} chunk {cfg.ssm_chunk} encoder "
+        f"layers {cfg.encoder_layers} src {cfg.num_src_tokens}x"
+        f"{cfg.src_dim} vocab "
         f"{cfg.vocab_size} {cfg.param_dtype}: {param_count(decl)} params, "
         f"{param_bytes(decl) / 1e9:.3f} GB; {cfg.num_vehicles} vehicles x "
         f"{batch} x {seq} tokens")
@@ -1816,10 +1874,11 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     veds_dt_score.launches = 0
     captures = _SlotGraph.captures
     mark[0] = time.perf_counter()
-    hist = train(cfg, rounds=warmup + rounds, batch_per_vehicle=batch,
-                 seq=seq, lr=lr, seed=0, device=device,
-                 log=lambda m: log(phase, m), stage_hook=hook,
-                 on_round=on_round)
+    with round0_share() as changed:
+        hist = train(cfg, rounds=warmup + rounds, batch_per_vehicle=batch,
+                     seq=seq, lr=lr, seed=0, device=device,
+                     log=lambda m: log(phase, m), stage_hook=hook,
+                     on_round=on_round, batch_fn=src_lm_batch(cfg))
     captures = _SlotGraph.captures - captures
     launches = {"flash_attention": flash_attention_fwd.launches,
                 "fedavg_agg": fedavg_agg.launches,
@@ -1848,11 +1907,13 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     n_attn = reps * sum(k in ("attn", "attn_swa", "cross")
                         for k in cfg.pattern)
     n_mamba = reps * cfg.pattern.count("mamba")
+    n_enc = cfg.encoder_layers
     want = {
         # each attention (Mamba2) sub-block per vehicle: forward, and
-        # again when remat recomputes it in the backward; plus the eval
-        # forward
-        "flash_attention": n * (V * n_attn * 2 + n_attn),
+        # again when remat recomputes it in the backward; each encoder
+        # layer's attention once (the encoder is not checkpointed); plus
+        # the eval forward
+        "flash_attention": n * (V * (n_attn * 2 + n_enc) + n_attn + n_enc),
         "ssd_scan": n * (V * n_mamba * 2 + n_mamba),
         # one launch per parameter leaf per round (the device decides
         # between the mean and `old`, so the count does not depend on the
@@ -1871,11 +1932,15 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
         got = [rec["mask"] for rec in per_round]
         check(got == masks, f"masks {got} are not the recorded {masks}")
         log(phase, "masks as recorded")
+    share = changed["share"]
+    log(phase, f"lr {lr:g}: round 0 changed {share:.4f} of the bf16 "
+        f"parameter entries")
+    check(share > 0, f"{cfg.name} round 0 changed no bf16 entry")
     timed = per_round[warmup:]
     return dict(setup_ms=setup_ms, rounds=per_round, launches=launches,
                 expected_launches=want, lr=lr, graph_captures=captures,
                 timed_wall_s=[r["wall_s"] for r in timed],
-                history_len=len(hist))
+                history_len=len(hist), changed_bf16_round0=share)
 
 
 def phase_moe(device, cfg, batch: int, seq: int, seed: int = 31):
@@ -1962,54 +2027,97 @@ def phase_moe(device, cfg, batch: int, seq: int, seed: int = 31):
                 combine_vs_index_add_max_abs=err)
 
 
-def round0_changed_share(device, cfg, batch: int, seq: int, lr: float,
-                         mask, seed: int = 0) -> float:
-    """The share of bf16 parameter entries that round 0 of `train(cfg,
-    ..., lr=lr, seed=seed)` changes. `train` returns no parameters, so
-    its round 0 is replayed from the same parts and draws: the initial
-    parameters `materialize`d from the seed, round 0's scenario and
-    batch, and one step of `make_train_step` with VEDS inline; its
-    success mask must be `mask`, the one `train` logged for round 0.
-    Run outside the counted window."""
-    from repro_torch.channel.mobility import ManhattanParams
-    from repro_torch.channel.v2x import ChannelParams
-    from repro_torch.core.baselines import get_scheduler
-    from repro_torch.core.lyapunov import VedsParams
-    from repro_torch.core.scenario import (ScenarioParams, make_round,
-                                           round_generator)
-    from repro_torch.data.synthetic import lm_batch
-    from repro_torch.fl.vfl import make_train_step
-    from repro_torch.launch.train import _generator
+def phase_xlstm_blocks(device, cfg, batch: int, seq: int, vfl_res):
+    """One mLSTM and the sLSTM sub-block of `cfg` at full width (bf16, the
+    init as `engine.model_decl` casts it) on one vehicle's batch of
+    `batch` x `seq` tokens: the forward alone and forward + backward of
+    sum(y * ct), timed with CUDA events. Under remat local SGD runs each
+    sub-block's forward, then its forward again and its backward, so a
+    round's local SGD spends about V x n_rep x (fwd + fwd_bwd) in each
+    kind (7 mLSTM positions, 1 sLSTM); that estimate is set beside the
+    timed rounds' median `local_sgd` of `vfl_res` (`phase_vfl`)."""
+    from repro_torch.models import blocks as B
     from repro_torch.models import engine
-    from repro_torch.models.module import (materialize, param_bytes,
-                                           tree_leaves, tree_map)
-    V = cfg.num_vehicles
-    decl = engine.model_decl(cfg, "head")
-    init = materialize(torch.Generator(device=device).manual_seed(seed),
-                       decl)
-    ch = ChannelParams()
-    prm = VedsParams(Q=min(8.0 * param_bytes(decl), 2e7), slot=0.1)
-    sc = ScenarioParams(n_sov=V, n_opv=8, n_slots=VFL_SLOTS)
-    rnd = make_round(round_generator(seed, 0, device), sc, ManhattanParams(),
-                     ch, prm)
-    b = lm_batch(_generator(seed, 1, 0, device), V * batch, seq,
-                 cfg.vocab_size)
-    step = make_train_step(cfg, None, "head", lr=lr, inline_scheduler=True,
-                           veds_prm=prm, ch_prm=ch,
-                           sched=get_scheduler("veds"))
-    new_v, stats = step(
-        tree_map(lambda x: x.unsqueeze(0).expand(V, *x.shape), init),
-        {k: x.reshape(V, batch, *x.shape[1:]) for k, x in b.items()}, rnd,
-        torch.ones((V,), device=device))
-    check([int(m) for m in stats["mask"].tolist()] == list(mask),
-          f"round-0 replay: mask {stats['mask'].tolist()} is not train's "
-          f"{mask}")
-    n = changed = 0
-    for a, x in zip(tree_leaves(init), tree_leaves(new_v)):
-        if a.dtype == torch.bfloat16:
-            n += a.numel()
-            changed += int((a != x[0]).sum())
-    return changed / n
+    from repro_torch.models.module import (materialize, tree_leaves,
+                                           tree_map, tree_unflatten)
+    one = cfg.replace(n_rep=1)
+    params = materialize(torch.Generator(device=device).manual_seed(41),
+                         engine.model_decl(one, "head"))
+    g = torch.Generator(device=device).manual_seed(42)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device=device).to(cfg.dtype)
+    ct = torch.randn(x.shape, generator=g, device=device).to(cfg.dtype)
+    res = {}
+    for kind, apply in (("mlstm", B.mlstm_apply), ("slstm", B.slstm_apply)):
+        p = tree_map(lambda a: a[0], params["blocks"][cfg.pattern.index(kind)])
+
+        def fwd():
+            return apply(p, x, cfg)
+
+        def fwd_bwd():
+            leaves = [a.detach().requires_grad_() for a in tree_leaves(p)]
+            xx = x.detach().requires_grad_()
+            y = apply(tree_unflatten(p, leaves), xx, cfg)
+            return torch.autograd.grad((y.float() * ct.float()).sum(),
+                                       leaves + [xx])
+
+        finite = all(bool(torch.isfinite(a).all()) for a in fwd_bwd())
+        check(finite, f"{cfg.name} {kind} block: output or gradient not "
+              f"finite")
+        with torch.no_grad():
+            f_ms = time_ms(fwd, 1, samples=3, warmup=1)
+        fb_ms = time_ms(fwd_bwd, 1, samples=3, warmup=1)
+        n = cfg.n_rep * cfg.pattern.count(kind)
+        res[kind] = dict(fwd_ms=f_ms, fwd_bwd_ms=fb_ms, per_round=n,
+                         local_sgd_est_ms=cfg.num_vehicles * n
+                         * (f_ms + fb_ms))
+    del params
+    sgd = statistics.median(r["local_sgd_ms"]
+                            for r in vfl_res["rounds"][VFL_WARMUP:])
+    for kind, r in res.items():
+        r["share_of_local_sgd"] = r["local_sgd_est_ms"] / sgd
+        log("xlstm", f"{cfg.name} {kind} sub-block (d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads, {cfg.param_dtype}) on {batch} x {seq} "
+            f"tokens: forward {r['fwd_ms']:.2f} ms, forward + backward "
+            f"{r['fwd_bwd_ms']:.2f} ms; {r['per_round']} a vehicle's model "
+            f"x {cfg.num_vehicles} vehicles x (fwd + fwd_bwd) = "
+            f"{r['local_sgd_est_ms']:.1f} ms, {r['share_of_local_sgd']:.3f} "
+            f"of the timed rounds' median local_sgd {sgd:.1f} ms")
+    res["local_sgd_median_ms"] = sgd
+    return res
+
+
+@contextlib.contextmanager
+def round0_share():
+    """Inside the block, the first step of `launch/train.py`'s `train`
+    records in the yielded dict, under "share", the share of the bf16
+    parameter entries of vehicle 0's model that its round changes: the
+    step's `make_train_step` is wrapped to compare its parameters before
+    and after (the old ones are not written in place). The comparison
+    runs after round 0's aggregate, in its eval stage."""
+    import repro_torch.launch.train as tr
+    from repro_torch.models.module import tree_leaves
+    make, out = tr.make_train_step, {}
+
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+
+        def first_recorded(params_v, *rest):
+            new_v, stats = step(params_v, *rest)
+            if "share" not in out:
+                n = changed = 0
+                for a, x in zip(tree_leaves(params_v), tree_leaves(new_v)):
+                    if a.dtype == torch.bfloat16:
+                        n += a[0].numel()
+                        changed += int((a[0] != x[0]).sum())
+                out["share"] = changed / n
+            return new_v, stats
+        return first_recorded
+    tr.make_train_step = wrapped
+    try:
+        yield out
+    finally:
+        tr.make_train_step = make
 
 
 def forward_sensitivity(device, cfg, seq: int, seed: int = 0):
@@ -2029,15 +2137,15 @@ def forward_sensitivity(device, cfg, seq: int, seed: int = 0):
     counted window."""
     import repro_torch.kernels.flash_attention.ops as fa
     import repro_torch.kernels.ssd_scan.ops as ss
-    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.data.synthetic import lm_batch, src_lm_batch
     from repro_torch.fl.vfl import lm_loss
     from repro_torch.launch.train import EVAL_STREAM, _generator
     from repro_torch.models import engine
     from repro_torch.models.module import materialize, tree_map
     params = materialize(torch.Generator(device=device).manual_seed(seed),
                          engine.model_decl(cfg, "head"))
-    batch = lm_batch(_generator(seed, EVAL_STREAM, 0, device), 8, seq,
-                     cfg.vocab_size)
+    batch = (src_lm_batch(cfg) or lm_batch)(
+        _generator(seed, EVAL_STREAM, 0, device), 8, seq, cfg.vocab_size)
     g = torch.Generator(device=device).manual_seed(seed + 1)
 
     def one_ulp(x):
@@ -2085,8 +2193,10 @@ def forward_sensitivity(device, cfg, seq: int, seed: int = 0):
             for mod, attr, kernel, _, _ in swap.values():
                 setattr(mod, attr, kernel)
 
-    runs = ["flash_attention"] + (["ssd_scan"] if "mamba" in cfg.pattern
-                                  else [])
+    attends = cfg.encoder_layers or any(
+        k in ("attn", "attn_swa", "cross") for k in cfg.pattern)
+    runs = (["flash_attention"] if attends else []) + (
+        ["ssd_scan"] if "mamba" in cfg.pattern else [])
     with torch.no_grad():
         plain = loss({})
         routes = {"all kernels": loss({n: held(n) for n in runs})}
@@ -2103,11 +2213,12 @@ def forward_sensitivity(device, cfg, seq: int, seed: int = 0):
         + "; one ulp of every bf16 weight "
         + ", ".join(f"{x - plain:+.5f}" for x in ulp)
         + f" (limit {SENS_ULP_FACTOR:g} x the largest = {limit:.5f}); "
-        "each kernel call on the model's inputs used at most "
-        + ", ".join(f"{used[n]:.3f} ({calls[n]} calls of {n}"
-                    + (f"; the library's used up to {lib[n]:.3f} of the "
-                       f"bound" if lib[n] else "") + ")" for n in runs)
-        + " of its allowance")
+        + ("each kernel call on the model's inputs used at most "
+           + ", ".join(f"{used[n]:.3f} ({calls[n]} calls of {n}"
+                       + (f"; the library's used up to {lib[n]:.3f} of the "
+                          f"bound" if lib[n] else "") + ")" for n in runs)
+           + " of its allowance" if runs else
+           "the model's forward runs no kernel"))
     check(all(math.isfinite(x) for x in [plain, *routes.values(), *ulp]),
           f"{cfg.name}: eval loss at init not finite")
     for n in runs:
@@ -2124,39 +2235,42 @@ def forward_sensitivity(device, cfg, seq: int, seed: int = 0):
 
 
 def phase_vfl_reference(device, arch: str, reps: int, *, atol=None,
-                        update_rtol=None, seq: int = 128, batch: int = 4):
-    """One VFL round of `arch`'s smoke config with `reps` repetitions in
-    fp32 on the card and on the CPU, from the same weights (the init as
-    it is), batch, mask and weights, held to the CPU tests' tolerance
-    against the reference: the aggregate within `atol` absolute, or each
-    leaf's update (aggregate less the old parameters) within
-    `update_rtol` of its norm. The latter is zamba2's: at its init the
-    tied attention's scores reach ~900 and the whole model amplifies
-    one-ulp differences to a few 1e-2 of a gradient
+                        update_rtol=None, seq: int = 128, batch: int = 4,
+                        **replace):
+    """One VFL round of `arch`'s smoke config with `reps` repetitions
+    (and `replace`, e.g. a cut encoder) in fp32 on the card and on the
+    CPU, from the same weights (the init as it is), batch (with `src` =
+    0.1 * N(0, 1) for the audio and vlm families), mask and weights, held
+    to the CPU tests' tolerance against the reference: the aggregate
+    within `atol` absolute, or each leaf's update (aggregate less the old
+    parameters) within `update_rtol` of its norm. The latter is zamba2's:
+    at its init the tied attention's scores reach ~900 and the whole
+    model amplifies one-ulp differences to a few 1e-2 of a gradient
     (`tests/test_torch_zamba2.py`'s docstring). To show that scale where
     it sets the tolerance, the CPU round then runs a second time with
     every weight moved by half an ulp (x (1 +- 6e-8)), and that change of
     the update is logged beside the card's."""
     from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.data.synthetic import lm_batch, src_lm_batch
     from repro_torch.fl.vfl import make_vfl_round
     from repro_torch.models import engine
     from repro_torch.models.module import materialize, tree_leaves, tree_map
     V = VFL_VEHICLES
     cfg = get_smoke_config(arch).replace(
         n_rep=reps, num_vehicles=V, grad_accum=1, param_dtype="float32",
-        compute_dtype="float32")
+        compute_dtype="float32", **replace)
     params = materialize(torch.Generator().manual_seed(21),
                          engine.model_decl(cfg, "head"))
-    b = lm_batch(torch.Generator().manual_seed(22), V * batch, seq,
-                 cfg.vocab_size)
+    b = (src_lm_batch(cfg) or lm_batch)(torch.Generator().manual_seed(22),
+                                        V * batch, seq, cfg.vocab_size)
     mask, w = torch.tensor([1.0, 0.0, 1.0, 1.0]), torch.tensor(
         [1.0, 1.0, 2.0, 1.0])
 
     def run(dev, weights=params):
         p = tree_map(lambda x: x.to(dev).unsqueeze(0).expand(V, *x.shape),
                      weights)
-        bv = {k: x.to(dev).reshape(V, batch, seq) for k, x in b.items()}
+        bv = {k: x.to(dev).reshape(V, batch, *x.shape[1:])
+              for k, x in b.items()}
         out = make_vfl_round(cfg, None, "head", lr=0.1)(
             p, bv, mask.to(dev), w.to(dev))
         return [x[0].cpu() for x in tree_leaves(out)]
@@ -2188,12 +2302,22 @@ def phase_vfl_reference(device, arch: str, reps: int, *, atol=None,
         nudged = tree_map(lambda x: x * (1.0 + 6e-8 * (2.0 * torch.randint(
             0, 2, x.shape, generator=g) - 1.0)), params)
         res["cpu_half_ulp_update_rel"] = update_err(run("cpu", nudged))
+        # a tolerance of the update's norm tells a right update from a
+        # wrong one (a zero update reads 1) only where the CPU's own
+        # half-ulp move is well below 1
+        check(res["cpu_half_ulp_update_rel"] < 0.1, f"VFL round {arch}: "
+              f"the CPU's own update moves by "
+              f"{res['cpu_half_ulp_update_rel']:.3e} of its norm under a "
+              f"half-ulp change of the weights; the config is too "
+              f"ill-conditioned at its init to hold the card to it")
         note = (f"; the CPU's own update moves by "
                 f"{res['cpu_half_ulp_update_rel']:.3e} of its norm when "
                 f"every weight moves by half an ulp")
     log("vfl_reference", f"one VFL round of the {arch} smoke config "
-        f"(n_rep {reps}, fp32, V={V}, mask {mask.tolist()}, weights "
-        f"{w.tolist()}): card vs CPU aggregate max abs {err:.3e}, update "
+        f"(n_rep {reps}{''.join(f', {k} {v}' for k, v in replace.items())}"
+        f", fp32, V={V}, mask {mask.tolist()}, weights {w.tolist()}"
+        f"{', src ' + str(list(b['src'].shape)) if 'src' in b else ''}"
+        f"): card vs CPU aggregate max abs {err:.3e}, update "
         f"{upd:.3e} of its norm (tolerance {tol}; the round moved the "
         f"params by up to {moved:.3e}){note}")
     return res
@@ -2264,13 +2388,7 @@ def main(argv=None) -> int:
     zcfg = vfl_config("zamba2-2.7b", ZAMBA2_REPS)
     zamba2 = phase_vfl(device, zcfg, VFL_WARMUP, VFL_ROUNDS, VFL_BATCH,
                        VFL_SEQ, ZAMBA2_LR, RECORDED_MASKS["zamba2-2.7b"])
-    free()
-    share = round0_changed_share(device, zcfg, VFL_BATCH, VFL_SEQ, ZAMBA2_LR,
-                                 zamba2["rounds"][0]["mask"])
-    zamba2["changed_bf16_round0"] = share
-    log("vfl zamba2-2.7b", f"lr {ZAMBA2_LR:g}: round 0 changed {share:.4f} "
-        f"of the bf16 parameter entries (at least {ZAMBA2_MIN_CHANGED} "
-        f"required)")
+    share = zamba2["changed_bf16_round0"]
     check(share >= ZAMBA2_MIN_CHANGED, f"zamba2 round 0 changed "
           f"{share:.4f} of the bf16 entries, below {ZAMBA2_MIN_CHANGED}")
     free()
@@ -2279,20 +2397,30 @@ def main(argv=None) -> int:
                         VFL_SEQ, GRANITE_LR,
                         RECORDED_MASKS["granite-moe-1b-a400m"])
     free()
-    share = round0_changed_share(device, gcfg, VFL_BATCH, VFL_SEQ,
-                                 GRANITE_LR, granite["rounds"][0]["mask"])
-    granite["changed_bf16_round0"] = share
-    log("vfl granite-moe-1b-a400m", f"lr {GRANITE_LR:g}: round 0 changed "
-        f"{share:.4f} of the bf16 parameter entries")
-    check(share > 0, "granite round 0 changed no bf16 entry")
-    free()
     moe = phase_moe(device, gcfg, VFL_BATCH, VFL_SEQ)
     free()
+    # the last two families at full width and depth: xLSTM, and whisper's
+    # encoder with the cross-attention fed from it
+    new_vfl = {}
+    for arch, reps, lr in (("xlstm-1.3b", XLSTM_REPS, XLSTM_LR),
+                           ("whisper-small", WHISPER_REPS, WHISPER_LR)):
+        cfg = vfl_config(arch, reps)
+        res = phase_vfl(device, cfg, VFL_WARMUP, VFL_ROUNDS, VFL_BATCH,
+                        VFL_SEQ, lr, RECORDED_MASKS[arch])
+        free()
+        if arch == "xlstm-1.3b":
+            res["blocks"] = phase_xlstm_blocks(device, cfg, VFL_BATCH,
+                                               VFL_SEQ, res)
+            free()
+        new_vfl[arch] = (cfg, res)
+    xlstm, whisper = new_vfl["xlstm-1.3b"][1], new_vfl["whisper-small"][1]
     sensitivity = {
         "qwen3-32b": forward_sensitivity(
             device, vfl_config("qwen3-32b", VFL_REPS), VFL_SEQ),
         "zamba2-2.7b": forward_sensitivity(device, zcfg, VFL_SEQ),
-        "granite-moe-1b-a400m": forward_sensitivity(device, gcfg, VFL_SEQ)}
+        "granite-moe-1b-a400m": forward_sensitivity(device, gcfg, VFL_SEQ),
+        **{arch: forward_sensitivity(device, cfg, VFL_SEQ)
+           for arch, (cfg, _) in new_vfl.items()}}
     free()
     vfl_ref = {"qwen3-32b": phase_vfl_reference(device, "qwen3-32b", 2,
                                                 atol=2e-4),
@@ -2304,11 +2432,23 @@ def main(argv=None) -> int:
                  "starcoder2-15b", "codeqwen1.5-7b", "minitron-4b"):
         vfl_ref[arch] = phase_vfl_reference(device, arch, 2,
                                             update_rtol=2e-2)
+    # the last three families, whisper's and llama-3.2-vision's with src;
+    # whisper at one encoder layer and one repetition, where the
+    # reference's round is well conditioned at its init, as its CPU test
+    # holds it (tests/test_torch_encdec.py)
+    vfl_ref["xlstm-1.3b"] = phase_vfl_reference(device, "xlstm-1.3b", 1,
+                                                update_rtol=2e-2)
+    vfl_ref["whisper-small"] = phase_vfl_reference(
+        device, "whisper-small", 1, update_rtol=2e-2, encoder_layers=1)
+    vfl_ref["llama-3.2-vision-90b"] = phase_vfl_reference(
+        device, "llama-3.2-vision-90b", 1, update_rtol=2e-2)
 
     def by_path(name):
         out = {"vfl_qwen3": vfl["launches"][name],
                "vfl_zamba2": zamba2["launches"][name],
-               "vfl_granite": granite["launches"][name]}
+               "vfl_granite": granite["launches"][name],
+               "vfl_xlstm": xlstm["launches"][name],
+               "vfl_whisper": whisper["launches"][name]}
         if name in stream_vfl["launches"]:
             out["stream_vfl_qwen3"] = stream_vfl["launches"][name]
         if name == "veds_score":
@@ -2375,10 +2515,12 @@ def main(argv=None) -> int:
                                      "kv": fa["zamba2"]["shape_kv"]}),
         "qwen3_shape": timed(fa["main"], shape={"q": fa["main"]["shape_q"],
                                                 "kv": fa["main"]["shape_kv"]}),
-        "granite_shape": timed(fa["granite"],
-                               shape={"q": fa["granite"]["shape_q"],
-                                      "kv": fa["granite"]["shape_kv"]},
-                               entry=fa["granite"]["entry"])
+        **{f"{label}_shape": timed(fa[label],
+                                   shape={"q": fa[label]["shape_q"],
+                                          "kv": fa[label]["shape_kv"]},
+                                   causal=fa[label]["causal"],
+                                   entry=fa[label]["entry"])
+           for label in TIMED_FLASH if label not in ("main", "zamba2")}
     }, {
         "name": "fedavg_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/fedavg_agg/csrc/fedavg_agg.cu",
@@ -2387,7 +2529,8 @@ def main(argv=None) -> int:
         "launches_by_path": by_path("fedavg_agg"),
         "max_abs_err": max_err(fd),
         **timed(fd["main"], shape=fd["main"]["shape"]),
-        "granite_shape": timed(fd["granite"], shape=fd["granite"]["shape"])
+        "granite_shape": timed(fd["granite"], shape=fd["granite"]["shape"]),
+        "xlstm_shape": timed(fd["xlstm"], shape=fd["xlstm"]["shape"])
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_sm90.cu",
@@ -2410,7 +2553,8 @@ def main(argv=None) -> int:
         compare=compare, compare_reference=compare_ref,
         stream_compare=stream_compare,
         stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
-        vfl_granite=granite, moe=moe, sensitivity=sensitivity,
+        vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,
+        sensitivity=sensitivity,
         vfl_reference=vfl_ref), indent=1, default=str))
     log("device", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included")

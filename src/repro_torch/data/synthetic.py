@@ -2,10 +2,11 @@
 
 Port of `cifar_like_dataset`, `partition_labels`, `pad_client_shards_np`,
 `pad_client_shards`, `make_trajectory_batch` and `lm_batch` of
-`repro/data/synthetic.py`. CIFAR-like: 10-class 32x32x3 images = class
-prototype plus noise, so a small CNN genuinely learns. Trajectories:
-kinematic tracks with random curvature and speed profile, with lane nodes
-scattered along the future path (the Argoverse-like task of LaneGCN). LM
+`repro/data/synthetic.py`, and `src_lm_batch`, `lm_batch` with the
+`src` entry that whisper's and llama-3.2-vision's cross-attention
+reads. CIFAR-like: 10-class 32x32x3 images = class prototype plus
+noise, so a small CNN genuinely learns. Trajectories: kinematic tracks
+with random curvature and speed profile, with lane nodes scattered along the future path (the Argoverse-like task of LaneGCN). LM
 batches: token streams that follow a noisy +step pattern, so next-token
 prediction has signal. Draws come from `torch.Generator`s, so the data
 differ from the reference's for the same seed; `make_trajectory_batch`
@@ -222,3 +223,24 @@ def lm_batch(gen: torch.Generator, b: int, t: int,
     """Structured token stream: tokens follow a noisy +step pattern so the
     next-token task has learnable signal."""
     return lm_batch_from_draws(lm_batch_draws(gen, b, t, vocab), t, vocab)
+
+
+def src_lm_batch(cfg):
+    """The batch maker of a model whose cross-attention reads `src`
+    (whisper's frames, llama-3.2-vision's patches): `lm_batch` with
+    src = 0.1 * N(0, 1) [b, num_src_tokens, src_dim] in the compute dtype,
+    drawn from the same generator (the shape and scale of the reference's
+    tests/test_arch_smoke.py); None for the other families, which take
+    `lm_batch` as it is. It has `lm_batch`'s signature, as `train`'s
+    `batch_fn` takes it."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+
+    def make(gen: torch.Generator, b: int, t: int,
+             vocab: int) -> Dict[str, torch.Tensor]:
+        out = lm_batch(gen, b, t, vocab)
+        out["src"] = 0.1 * torch.randn(
+            (b, cfg.num_src_tokens, cfg.src_dim), generator=gen,
+            device=gen.device).to(cfg.dtype)
+        return out
+    return make

@@ -9,20 +9,25 @@ synthetic LM data. Runs on CUDA unless `--device cpu`:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --rounds 2 --vehicles 4 --batch-per-vehicle 2 --seq 64
 
-`--arch` takes every registered id whose blocks are ported: qwen3-32b,
-zamba2-2.7b, granite-moe-1b-a400m, llama4-scout-17b-a16e,
-starcoder2-15b, codeqwen1.5-7b and minitron-4b. `train` is the loop
-itself, for any `ModelConfig` (`chip_smoke.py` drives it at qwen3-32b's
-full width and at zamba2-2.7b's and granite-moe-1b-a400m's full width
-and depth). One card only (`--devices 1`); checkpoints (`--ckpt`) come
-with a later slice and raise.
+`--arch` takes every registered id whose model trains on token batches
+alone: qwen3-32b, zamba2-2.7b, xlstm-1.3b, granite-moe-1b-a400m,
+llama4-scout-17b-a16e, starcoder2-15b, codeqwen1.5-7b and minitron-4b.
+whisper-small and llama-3.2-vision-90b attend to a `src` batch entry
+(frame or patch embeddings) that the driver's LM batches do not carry,
+as the reference's do not; they are refused up front. `train` is the
+loop itself, for any `ModelConfig`; its `batch_fn` may add `src`
+(`chip_smoke.py` drives it at qwen3-32b's full width and at
+zamba2-2.7b's, granite-moe-1b-a400m's, xlstm-1.3b's and
+whisper-small's full width and depth). One card only (`--devices 1`,
+ROADMAP queue 1 item 7); checkpoints (`--ckpt`) raise (ROADMAP queue 1
+item 9: checkpointing).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -57,15 +62,27 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
           seq: int, lr: float, scheduler: str = "veds", seed: int = 0,
           device=None, log: Callable[[str], None] = print,
           stage_hook: Optional[Callable[[str], None]] = None,
-          on_round: Optional[Callable[[dict], None]] = None) -> List[dict]:
+          on_round: Optional[Callable[[dict], None]] = None,
+          batch_fn: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
+          ) -> List[dict]:
     """`rounds` VFL rounds of `cfg` over `cfg.num_vehicles` vehicles:
     per round a scenario, the scheduler's success mask, local SGD and
     the masked aggregation, then the loss of vehicle 0's (aggregated)
     model on a fixed eval batch. Returns one record per round.
 
-    `stage_hook(name)` is called after "setup", and in every round after
-    "scenario", "schedule", "local_sgd", "aggregate" and "eval";
+    `batch_fn(gen, b, seq, vocab)` makes every batch (default
+    `lm_batch`); a model that needs `src` needs a `batch_fn` that adds
+    it. `stage_hook(name)` is called after "setup", and in every round
+    after "scenario", "schedule", "local_sgd", "aggregate" and "eval";
     `on_round(record)` after every round."""
+    if batch_fn is None:
+        if cfg.family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"{cfg.name}: its cross-attention needs a src batch entry "
+                f"[b, {cfg.num_src_tokens}, {cfg.src_dim}] and the driver's "
+                f"LM batches carry none, as the reference's launch/train.py "
+                f"builds none; run it through fl/vfl.py with a src batch")
+        batch_fn = lm_batch
     device = resolve_device(device)
     V = cfg.num_vehicles
     tp = attention_tp_mode(cfg.num_heads, 1)
@@ -89,14 +106,14 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
                            veds_prm=prm, ch_prm=ch, sched=sched,
                            stage_hook=stage_hook)
     weights = torch.ones((V,), device=device)
-    eval_batch = lm_batch(_generator(seed, EVAL_STREAM, 0, device), 8, seq,
+    eval_batch = batch_fn(_generator(seed, EVAL_STREAM, 0, device), 8, seq,
                           cfg.vocab_size)
     hook("setup")
     history = []
     for r in range(rounds):
         t0 = time.perf_counter()
         rnd = make_round(round_generator(seed, r, device), sc, mob, ch, prm)
-        batch = lm_batch(_generator(seed, 1, r, device),
+        batch = batch_fn(_generator(seed, 1, r, device),
                          V * batch_per_vehicle, seq, cfg.vocab_size)
         batch_v = {k: x.reshape(V, batch_per_vehicle, *x.shape[1:])
                    for k, x in batch.items()}
@@ -141,7 +158,7 @@ def main(argv=None) -> int:
     if args.ckpt:
         raise NotImplementedError(
             "--ckpt: the npz checkpoint with bf16 leaves is not ported yet "
-            "(ROADMAP queue 1 item 9)")
+            "(ROADMAP queue 1 item 9: checkpointing)")
     cfg = get_smoke_config(args.arch).replace(num_vehicles=args.vehicles,
                                               grad_accum=1)
     train(cfg, rounds=args.rounds, batch_per_vehicle=args.batch_per_vehicle,

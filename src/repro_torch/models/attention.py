@@ -12,8 +12,8 @@ with autodiff; it has no backward kernel).
 The reference's `q_chunk`/`kv_chunk` are tile sizes of its jnp scans.
 Here the kernel picks its own tiles; `q_chunk` sets the backward's
 query-row chunk and `kv_chunk` is accepted for the same call signature.
-Decode attention and the sequence-sharded core come with a later slice
-and raise.
+Decode attention and the sequence-sharded core raise (ROADMAP queue 1
+item 9: decode and caches, row-TP attention).
 """
 from __future__ import annotations
 
@@ -40,10 +40,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def seq_sharded_flash_attention(*args, **kwargs):
     raise NotImplementedError(
         "seq_sharded_flash_attention (row-TP sequence-parallel core) is "
-        "not ported yet: it needs a model mesh axis (ROADMAP queue 1)")
+        "not ported yet: it needs a model mesh axis (ROADMAP queue 1 "
+        "item 9: row-TP attention)")
 
 
 def decode_attention(*args, **kwargs):
     raise NotImplementedError(
-        "decode attention is not ported yet (ROADMAP queue 1: the decode "
-        "and serving paths of the LLM zoo)")
+        "decode attention is not ported yet (ROADMAP queue 1 item 9: "
+        "decode and caches)")

@@ -1,12 +1,13 @@
 """Sub-block implementations for the unified decoder engine.
 
-Port of the attention, MLP, MoE and Mamba2 parts of
-`repro/models/blocks.py`: `<kind>_decl(cfg, tp)` gives the parameter
-declarations and `<kind>_apply(p, x, ...)` the training/prefill forward
-(residual included). On one device every sharding constraint is a no-op
-and the TP mode is always "head" (`sharding/policy.py`); the "row" mode
-and the sequence-sharded core need a model mesh axis and raise. mLSTM,
-sLSTM, the decode caches and every `*_decode` come with later slices.
+Port of `repro/models/blocks.py` (attention, MLP, MoE, Mamba2, mLSTM
+and sLSTM): `<kind>_decl(cfg, tp)` gives the parameter declarations and
+`<kind>_apply(p, x, ...)` the training/prefill forward (residual
+included). On one device every sharding constraint is a no-op and the TP
+mode is always "head" (`sharding/policy.py`); the "row" mode and the
+sequence-sharded core need a model mesh axis and raise (ROADMAP queue 1
+item 9: row-TP attention). The decode caches and every `*_decode` raise
+too (ROADMAP queue 1 item 9: decode and caches).
 """
 from __future__ import annotations
 
@@ -69,7 +70,8 @@ def attn_apply(p, x, cfg: ModelConfig, *, tp: str, kind: str = "attn",
     if tp != "head":
         raise NotImplementedError(
             f"attention tp mode {tp!r} needs a model mesh axis; on one "
-            f"device the mode is 'head' (ROADMAP queue 1: row-TP attention)")
+            f"device the mode is 'head' (ROADMAP queue 1 item 9: row-TP "
+            f"attention)")
     if seq_shard:
         att.seq_sharded_flash_attention()      # raises: needs a mesh axis
     cross = kind == "cross"
@@ -391,4 +393,179 @@ def mamba_cache_decl(*args, **kwargs):
 def mamba_decode(*args, **kwargs):
     raise NotImplementedError(
         "mamba_decode: Mamba decode is not ported yet (ROADMAP queue 1 "
+        "item 9: decode and caches)")
+
+
+# ===========================================================================
+# mLSTM (matrix memory; chunked like SSD but per-head q/k and normalizer)
+# ===========================================================================
+
+def mlstm_decl(cfg: ModelConfig, tp: str):
+    d = cfg.d_model
+    di = int(cfg.lstm_proj_factor * d)
+    H = cfg.num_heads
+    Pd = di // H
+    return {
+        "ln": L.rmsnorm_decl(d),
+        "w_q": declare((d, H, Pd), ("embed", None, "row_head_dim")),
+        "w_k": declare((d, H, Pd), ("embed", None, "row_head_dim")),
+        "w_v": declare((d, H, Pd), ("embed", None, "row_head_dim")),
+        "w_if": declare((d, 2 * H), ("embed", None)),
+        "w_o": declare((d, di), ("embed", "mlp")),
+        "w_out": declare((di, d), ("mlp", "embed")),
+        "out_norm": {"scale": declare((di,), ("mlp",), init="ones")},
+    }
+
+
+def _mlstm_gates(p, h):
+    """(log forget gate = log sigmoid(f) <= 0, log input gate), each
+    [..., H], in float32 from float32 copies of h and w_if."""
+    gif = torch.einsum("...d,dg->...g", h.to(torch.float32),
+                       p["w_if"].to(torch.float32))
+    H = gif.shape[-1] // 2
+    return -_softplus(-gif[..., :H]), gif[..., H:]
+
+
+def _one(like):
+    return torch.ones((), dtype=like.dtype, device=like.device)
+
+
+def _mlstm_chunk(Cm, n, qc, kc, vc, lf, li, scale: float, dtype):
+    """One chunk of the mLSTM scan (the reference's scan step): the
+    chunk's output [B, c, H, P] in `dtype`, and the carried matrix memory
+    Cm [B, H, P, P] and normalizer n [B, H, P], all in float32."""
+    qc, kc, vc = (a.to(torch.float32) for a in (qc, kc, vc))
+    cum = torch.cumsum(lf.to(torch.float32), dim=1)              # [B,c,H]
+    # intra: w_ij = q_i k_j exp(cum_i - cum_j + li_j) (j <= i); above
+    # the diagonal g grows with j - i, so it is clamped before the mask
+    # multiplies (exp would overflow to inf, and inf * 0 is NaN)
+    s = torch.einsum("bihp,bjhp->bhij", qc, kc) * scale
+    c = qc.shape[1]
+    causal = torch.tril(torch.ones((c, c), dtype=torch.float32,
+                                   device=qc.device))
+    g = cum[:, :, None, :] - cum[:, None, :, :] + li[:, None, :, :]
+    w = s * torch.exp(torch.clamp_max(g, 20.0)).permute(0, 3, 1, 2) \
+        * causal
+    y = torch.einsum("bhij,bjhp->bihp", w, vc)
+    den = w.sum(-1).transpose(1, 2)[..., None]                   # [B,i,H,1]
+    # inter, from the carried matrix memory
+    qeff = qc * torch.exp(cum)[..., None] * scale
+    y = y + torch.einsum("bihp,bhpq->bihq", qeff, Cm)
+    den = den + torch.einsum("bihp,bhp->bih", qeff, n)[..., None]
+    out = y / torch.maximum(torch.abs(den), _one(den))
+    # state update; the tail exp(cum[-1] - cum + li) is not clamped, as
+    # the reference's is not
+    tail = torch.exp(cum[:, -1:, :] - cum + li)                  # [B,j,H]
+    keff = kc * tail[..., None]
+    decay = torch.exp(cum[:, -1])[:, :, None, None]
+    Cm = decay * Cm + torch.einsum("bjhp,bjhq->bhpq", keff, vc)
+    n = decay[..., 0] * n + keff.sum(dim=1)
+    return Cm, n, out.to(dtype)
+
+
+def mlstm_apply(p, x, cfg: ModelConfig, **_):
+    B, T, d = x.shape
+    h = L.rmsnorm(p["ln"], x)
+    q = torch.einsum("btd,dhp->bthp", h, p["w_q"].to(x.dtype))
+    k = torch.einsum("btd,dhp->bthp", h, p["w_k"].to(x.dtype))
+    v = torch.einsum("btd,dhp->bthp", h, p["w_v"].to(x.dtype))
+    log_f, log_i = _mlstm_gates(p, h)                            # [B,T,H]
+    H, Pd = q.shape[2], q.shape[3]
+    chunk = min(cfg.ssm_chunk, T)
+    if T % chunk:
+        raise ValueError(f"mlstm_apply: the chunk {chunk} does not divide "
+                         f"the sequence length {T}")
+    Cm = torch.zeros((B, H, Pd, Pd), dtype=torch.float32, device=x.device)
+    n = torch.zeros((B, H, Pd), dtype=torch.float32, device=x.device)
+    outs = []
+    for t0 in range(0, T, chunk):
+        sl = slice(t0, t0 + chunk)
+        Cm, n, out = _mlstm_chunk(Cm, n, q[:, sl], k[:, sl], v[:, sl],
+                                  log_f[:, sl], log_i[:, sl], Pd ** -0.5,
+                                  x.dtype)
+        outs.append(out)
+    y = torch.cat(outs, dim=1).reshape(B, T, H * Pd)
+    o = torch.sigmoid(torch.einsum("btd,di->bti", h, p["w_o"].to(x.dtype)))
+    y = L.rmsnorm(p["out_norm"], y) * o
+    return x + torch.einsum("bti,id->btd", y, p["w_out"].to(x.dtype))
+
+
+def mlstm_cache_decl(*args, **kwargs):
+    raise NotImplementedError(
+        "mlstm_cache_decl: mLSTM decode caches are not ported yet (ROADMAP "
+        "queue 1 item 9: decode and caches)")
+
+
+def mlstm_decode(*args, **kwargs):
+    raise NotImplementedError(
+        "mlstm_decode: mLSTM decode is not ported yet (ROADMAP queue 1 "
+        "item 9: decode and caches)")
+
+
+# ===========================================================================
+# sLSTM (scalar memory, a true recurrence over time)
+# ===========================================================================
+
+def slstm_decl(cfg: ModelConfig, tp: str):
+    d = cfg.d_model
+    H = cfg.num_heads
+    Pd = d // H
+    return {
+        "ln": L.rmsnorm_decl(d),
+        "w_in": declare((d, H, 4 * Pd), ("embed", None, None)),
+        "r": declare((H, Pd, 4 * Pd), (None, None, None), scale=0.5),
+        "b": declare((H, 4 * Pd), (None, None), init="zeros"),
+        "w_out": declare((d, d), ("embed", "out")),
+    }
+
+
+def _slstm_cell(p, gx, state):
+    """gx [B,H,4P] precomputed input gates; state (h,c,n,m) each [B,H,P]
+    in float32."""
+    h, c, n, m = state
+    rec = torch.einsum("bhp,hpq->bhq", h, p["r"].to(torch.float32))
+    g = gx.to(torch.float32) + rec + p["b"].to(torch.float32)
+    Pd = g.shape[-1] // 4
+    gi, gf, gz, go = (g[..., :Pd], g[..., Pd:2 * Pd],
+                      g[..., 2 * Pd:3 * Pd], g[..., 3 * Pd:])
+    log_f = -_softplus(-gf)
+    m_new = torch.maximum(log_f + m, gi)
+    i = torch.exp(gi - m_new)
+    f = torch.exp(log_f + m - m_new)
+    c_new = f * c + i * torch.tanh(gz)
+    n_new = f * n + i
+    h_new = torch.sigmoid(go) * c_new / torch.maximum(n_new, _one(n_new))
+    return h_new, c_new, n_new, m_new
+
+
+def slstm_apply(p, x, cfg: ModelConfig, **_):
+    """The recurrence is a Python loop over the T steps, h kept in float32
+    and cast to x's dtype after it, as the reference's scan emits it. The
+    float32 copies of r and b are made once: the reference's cast in each
+    step gives the same values."""
+    B, T, d = x.shape
+    H = cfg.num_heads
+    Pd = d // H
+    hin = L.rmsnorm(p["ln"], x)
+    gx = torch.einsum("btd,dhq->bthq", hin, p["w_in"].to(x.dtype))
+    p32 = {"r": p["r"].to(torch.float32), "b": p["b"].to(torch.float32)}
+    state = tuple(torch.zeros((B, H, Pd), dtype=torch.float32,
+                              device=x.device) for _ in range(4))
+    hs = []
+    for t in range(T):
+        state = _slstm_cell(p32, gx[:, t], state)
+        hs.append(state[0])
+    y = torch.stack(hs, dim=1).reshape(B, T, d).to(x.dtype)
+    return x + torch.einsum("btd,de->bte", y, p["w_out"].to(x.dtype))
+
+
+def slstm_cache_decl(*args, **kwargs):
+    raise NotImplementedError(
+        "slstm_cache_decl: sLSTM decode caches are not ported yet (ROADMAP "
+        "queue 1 item 9: decode and caches)")
+
+
+def slstm_decode(*args, **kwargs):
+    raise NotImplementedError(
+        "slstm_decode: sLSTM decode is not ported yet (ROADMAP queue 1 "
         "item 9: decode and caches)")

@@ -2,22 +2,26 @@
 
 Port of the training/prefill part of `repro/models/engine.py`. A model
 is embedding -> [super-block `cfg.pattern`, n_rep times] -> norm ->
-unembed. Params layout, as the reference's:
+unembed, optionally with an encoder (whisper) or a projector over
+source embeddings (vlm) whose output feeds the `cross` sub-blocks.
+Params layout, as the reference's:
 
   {"embed": {"table"}, "blocks": [tree_0, ..., tree_{P-1}] (each leaf
    stacked [n_rep, ...]), "shared": {i: tree} (weight-tied positions),
-   "final_norm": {"scale"}, "lm_head": {"w"}}
+   "final_norm": {"scale"}, "lm_head": {"w"},
+   "encoder": {"blocks", "pos", "final_norm"} | "projector": {"w"}}
 
 The reference scans the stacked blocks with `lax.scan`; here a Python
-loop indexes repetition r of every leaf. `cfg.remat` wraps each
+loop indexes repetition r of every leaf. `cfg.remat` wraps each decoder
 sub-block in `torch.utils.checkpoint` (non-reentrant), as the reference
-wraps it in `jax.checkpoint`. `llm_params_from_jax` carries the
+wraps it in `jax.checkpoint`; the encoder is not checkpointed, as the
+reference's encoder scan is not. `llm_params_from_jax` carries the
 reference's parameters across. The weight-tied "shared" trees (zamba2)
 are used by every repetition, so their gradients sum over the uses.
 `forward`'s aux is the sum of every MoE sub-block's load-balance loss
-over the positions and repetitions, in the reference's order. The
-encoder, the vlm projector, the xLSTM sub-blocks and decoding come with
-later slices and raise.
+over the positions and repetitions, in the reference's order. Decoding
+and its caches (`build_cross_cache` included) raise (ROADMAP queue 1
+item 9: decode and caches).
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.module import Declared, tree_map
+from repro_torch.models.module import Declared, declare, tree_map
 from repro_torch.sharding.policy import pad_vocab
 
 _DECLS = {
@@ -42,15 +46,9 @@ _DECLS = {
     "mlp": B.mlp_decl,
     "moe": B.moe_decl,
     "mamba": B.mamba_decl,
+    "mlstm": B.mlstm_decl,
+    "slstm": B.slstm_decl,
 }
-
-
-def _ported(kind: str, table):
-    if kind not in table:
-        raise NotImplementedError(
-            f"sub-block kind {kind!r} is not ported yet (ROADMAP queue 1 "
-            f"item 9: mlstm and slstm)")
-    return table[kind]
 
 
 def _stack_decl(tree, n: int):
@@ -70,16 +68,12 @@ def effective_kind(kind: str, force_swa: bool) -> str:
 # ---------------------------------------------------------------------------
 
 def model_decl(cfg: ModelConfig, tp: str) -> Dict[str, Any]:
-    if cfg.family == "vlm" or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm projector and the encoder are not ported "
-            f"yet (ROADMAP queue 1 item 9)")
     V = pad_vocab(cfg.vocab_size)
     dt = cfg.pdtype
     blocks = []
     shared = {}
     for i, kind in enumerate(cfg.pattern):
-        tree = _ported(kind, _DECLS)(cfg, tp)
+        tree = _DECLS[kind](cfg, tp)
         if cfg.shared_attn and kind in ("attn", "mlp") and \
                 cfg.family == "hybrid":
             shared[str(i)] = tree              # declared once, weight-tied
@@ -94,6 +88,17 @@ def model_decl(cfg: ModelConfig, tp: str) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         decl["lm_head"] = L.unembed_decl(V, cfg.d_model)
+    if cfg.family == "vlm":
+        decl["projector"] = L.linear_decl(cfg.src_dim, cfg.d_model,
+                                          ("out", "embed"))
+    if cfg.encoder_layers:
+        enc_blk = {"attn": B.attn_decl(cfg, tp), "mlp": B.mlp_decl(cfg, tp)}
+        decl["encoder"] = {
+            "blocks": _stack_decl(enc_blk, cfg.encoder_layers),
+            "pos": declare((cfg.num_src_tokens, cfg.d_model),
+                           ("frames", "embed"), init="normal", scale=0.02),
+            "final_norm": L.rmsnorm_decl(cfg.d_model),
+        }
     return tree_map(
         lambda d: Declared(d.shape, d.axes, d.init, d.scale, dt)
         if d.dtype == torch.float32 and d.init in ("scaled", "normal")
@@ -118,18 +123,40 @@ def llm_params_from_jax(tree, device=None):
 
 
 # ---------------------------------------------------------------------------
-# source memory
+# encoder / source memory
 # ---------------------------------------------------------------------------
+
+def _encode(params, cfg: ModelConfig, src: torch.Tensor,
+            tp: str) -> torch.Tensor:
+    """Whisper-style bidirectional encoder over stub frame embeddings:
+    no rope, no causal mask, no remat."""
+    enc = params["encoder"]
+    x = src.to(cfg.dtype) + enc["pos"].to(cfg.dtype)[None]
+    for r in range(cfg.encoder_layers):
+        blk = tree_map(lambda a: a[r], enc["blocks"])
+        x = B.attn_apply(blk["attn"], x, cfg, tp=tp, kind="attn",
+                         causal=False, positions=None)
+        x = B.mlp_apply(blk["mlp"], x, cfg)
+    return L.rmsnorm(enc["final_norm"], x)
+
 
 def source_memory(params, cfg: ModelConfig, src: Optional[torch.Tensor],
                   tp: str) -> Optional[torch.Tensor]:
+    """What the `cross` sub-blocks attend to: the projected patches
+    (vlm), the encoded frames (audio), or `src` itself."""
     if src is None:
         return None
-    if cfg.family == "vlm" or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm projector and the encoder are not ported "
-            f"yet (ROADMAP queue 1 item 9)")
+    if cfg.family == "vlm":
+        return L.linear(params["projector"], src.to(cfg.dtype))
+    if cfg.encoder_layers:
+        return _encode(params, cfg, src, tp)
     return src.to(cfg.dtype)
+
+
+def build_cross_cache(*args, **kwargs):
+    raise NotImplementedError(
+        "build_cross_cache: the cross-attention decode cache is not ported "
+        "yet (ROADMAP queue 1 item 9: decode and caches)")
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +170,8 @@ _APPLY = {
     "mlp": B.mlp_apply,
     "moe": B.moe_apply,         # returns (x, aux)
     "mamba": B.mamba_apply,
+    "mlstm": B.mlstm_apply,
+    "slstm": B.slstm_apply,
 }
 
 
@@ -160,7 +189,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def apply_one(kind, p, x):
-        fn = _ported(kind, _APPLY)
+        fn = _APPLY[kind]
         kw = {}
         if kind in ("attn", "attn_swa", "cross"):
             kw = dict(tp=tp, positions=None if kind == "cross" else positions,

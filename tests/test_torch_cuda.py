@@ -4,8 +4,9 @@ in their fp32 CUDA-core and bf16 tensor-core variants) against their plain
 PyTorch versions on the card, the VEDS round's CUDA graph of the slot
 step (cold, with the warm P4 table, and without COT for `v2i_only`)
 against the same step run eagerly, the streaming `run_fl`, the five
-Section VI schedulers (their queues bit for bit) and LaneGCN's forward on
-the card against the CPU, and the MoE block's bitwise determinism.
+Section VI schedulers (their queues bit for bit), LaneGCN's forward and
+the xLSTM smoke model's forward and backward on the card against the
+CPU, and the MoE block's bitwise determinism.
 Marked
 `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
@@ -493,6 +494,52 @@ def test_moe_apply_is_bitwise_deterministic_on_card():
     for a, b in zip(first, second):
         assert torch.isfinite(a).all()
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_xlstm_smoke_forward_and_backward_on_card_matches_cpu():
+    """xlstm-1.3b's smoke config (mLSTM, mLSTM, sLSTM) in fp32, TF32 off:
+    the LM loss and the logits on the card within 2e-2 absolute of the
+    CPU's, and each leaf's gradient within 2e-2 of its norm: the whole
+    model's tolerance of the CPU tests against the reference
+    (`tests/torch_ref_vfl.py MODEL_TOL`), since the mLSTM divides by a
+    normaliser that cancels at this init."""
+    require_cuda()
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.fl.vfl import lm_loss
+    from repro_torch.models import engine
+    from repro_torch.models.module import (materialize, tree_leaves,
+                                           tree_unflatten)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_smoke_config("xlstm-1.3b").replace(
+            param_dtype="float32", compute_dtype="float32")
+        params = materialize(torch.Generator().manual_seed(0),
+                             engine.model_decl(cfg, "head"))
+        batch = lm_batch(torch.Generator().manual_seed(1), 2, 128,
+                         cfg.vocab_size)
+
+        def run(dev):
+            leaves = [a.to(dev).requires_grad_() for a in tree_leaves(params)]
+            b = {k: x.to(dev) for k, x in batch.items()}
+            p = tree_unflatten(params, leaves)
+            loss = lm_loss(p, b, cfg, "head")
+            logits, _ = engine.forward(p, b["tokens"], cfg, tp="head")
+            grads = torch.autograd.grad(loss, leaves)
+            return loss.detach().cpu(), logits.detach().cpu(), \
+                [g.cpu() for g in grads]
+
+        (lc, oc, gc), (lg, og, gg) = run("cpu"), run("cuda")
+        assert torch.isfinite(lg) and abs(float(lg - lc)) <= 2e-2
+        assert float((og - oc).abs().max()) <= 2e-2
+        assert len(gg) == 24
+        for a, b in zip(gg, gc):
+            assert torch.isfinite(a).all()
+            assert float((a - b).norm()) <= 2e-2 * float(b.norm())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 @pytest.mark.cuda

@@ -112,11 +112,12 @@ def test_zamba2_configs_match_reference_value_for_value(which):
 
 @pytest.mark.parametrize("name", ["granite_moe_1b", "llama4_scout",
                                   "starcoder2_15b", "codeqwen_7b",
-                                  "minitron_4b"])
+                                  "minitron_4b", "xlstm_1p3b",
+                                  "whisper_small", "llama32_vision_90b"])
 @pytest.mark.parametrize("which", ["config", "smoke_config"])
 def test_zoo_configs_match_reference_value_for_value(name, which):
-    """The MoE and dense configurations registered with the MoE slice:
-    each module's configs equal the reference's field for field, and the
+    """The MoE, dense, xLSTM, encoder-decoder and vlm configurations: each
+    module's configs equal the reference's field for field, and the
     registry hands them out."""
     ours = importlib.import_module(f"repro_torch.configs.{name}")
     ref = importlib.import_module(f"repro.configs.{name}")
@@ -128,26 +129,22 @@ def test_zoo_configs_match_reference_value_for_value(name, which):
 
 
 def test_registry_names_every_reference_arch_and_ports_qwen3_and_zamba2():
-    """The ported set: qwen3-32b, zamba2-2.7b, the MoE granite and
-    llama4-scout and the dense starcoder2, codeqwen and minitron; the
-    three that wait for blocks of later slices (xLSTM, the encoder, the
-    vlm projector) raise, naming what they wait for."""
+    """Every id of the reference's registry is ported: qwen3-32b,
+    zamba2-2.7b, the MoE granite and llama4-scout, the dense starcoder2,
+    codeqwen and minitron, and the xLSTM, whisper and vlm configs; an
+    unknown id raises KeyError, as the reference's does."""
     assert ARCH_IDS == J_ARCH_IDS
     ported = {qwen.ID, zamba2.ID, "granite-moe-1b-a400m",
               "llama4-scout-17b-a16e", "starcoder2-15b", "codeqwen1.5-7b",
-              "minitron-4b"}
-    waits = {"xlstm-1.3b": "xLSTM", "whisper-small": "encoder",
-             "llama-3.2-vision-90b": "vlm projector"}
-    assert set(ARCH_IDS) == ported | set(waits)
+              "minitron-4b", "xlstm-1.3b", "whisper-small",
+              "llama-3.2-vision-90b"}
+    assert set(ARCH_IDS) == ported and len(ARCH_IDS) == 10
     for arch in ported:
         assert get_config(arch).name == get_smoke_config(arch).name == arch
-    for arch, what in waits.items():
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match=what):
-            get_smoke_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt-2")
+    with pytest.raises(KeyError):
+        get_smoke_config("gpt-2")
 
 
 def _imports(path: Path):

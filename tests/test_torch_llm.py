@@ -291,12 +291,13 @@ def test_forward_in_bf16_is_finite_and_near_fp32():
 
 
 def test_model_decl_refuses_families_of_later_slices():
+    """Every sub-block kind declares; the xLSTM decode paths and their
+    caches raise, naming decode (ROADMAP queue 1 item 9)."""
     jcfg, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="encoder"):
-        engine.model_decl(cfg.replace(encoder_layers=2), "head")
-    for kind in ("mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match=kind):
-            engine.model_decl(cfg.replace(pattern=("attn", kind)), "head")
+    for fn in (B.mlstm_decode, B.slstm_decode, B.mlstm_cache_decl,
+               B.slstm_cache_decl):
+        with pytest.raises(NotImplementedError, match="decode"):
+            fn()
     for kind, swa in [("attn", True), ("attn", False), ("mlp", True),
                       ("cross", True)]:
         assert engine.effective_kind(kind, swa) == \

@@ -240,7 +240,7 @@ def test_train_main_runs_on_cpu_with_finite_losses(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--devices", "8"], "one card"),
     (["--ckpt", "x.npz"], "checkpoint"),
-    (["--arch", "xlstm-1.3b"], "xLSTM"),
+    (["--arch", "whisper-small"], "src"),
 ])
 def test_train_main_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):

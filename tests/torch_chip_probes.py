@@ -1,21 +1,31 @@
-"""Measurements on the card behind two decisions of the MoE slice, from
-the root of a checkout on a machine with one NVIDIA GPU (no jax needed):
+"""Measurements on the card behind decisions of the MoE and xLSTM slices,
+from the root of a checkout on a machine with one NVIDIA GPU (no jax
+needed):
 
     python3 tests/torch_chip_probes.py grads      # granite's gradients at init
     python3 tests/torch_chip_probes.py lr-sweep   # granite's lr, 0.5 .. 1e-20
+    python3 tests/torch_chip_probes.py lr-sweep xlstm-1.3b [e]
+    python3 tests/torch_chip_probes.py lr-sweep whisper-small [e]
     python3 tests/torch_chip_probes.py bitwise    # schedulers, card vs CPU
 
-`grads`: granite-moe-1b-a400m at full width and depth (bf16, the init
-`launch/train.py` draws for seed 0), the LM loss's gradient on each
-vehicle's batch of rounds 0 and 1 (4 x 1024 tokens): the largest entry
-of each leaf, and vehicle 0's bf16 gradients beside their fp32
+`grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
+and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
+loss's gradient on each vehicle's batch of rounds 0 and 1 (4 x 1024
+tokens): the largest entry of each leaf, and vehicle 0's bf16 gradients beside their fp32
 evaluation on the same weights, norm-wise.
 
 `lr-sweep`: `chip_smoke.py phase_vfl` for granite (1 warm-up and 3
 rounds) at lr 0.5 (`launch/train.py`'s), then 10^-1, 10^-2, ... until
 every round's eval loss is finite,
 then the share of bf16 entries its round 0 changes
-(`round0_changed_share`). This is how `chip_smoke.GRANITE_LR` was set.
+(`chip_smoke.round0_share`). This is how `chip_smoke.GRANITE_LR` was set.
+`lr-sweep xlstm-1.3b` and `lr-sweep whisper-small` run the same sweep
+through `launch/train.py`'s `train` (whisper's batches with `src`,
+`data/synthetic.py` `src_lm_batch`), stopping an lr at its first
+non-finite eval loss (with `e`, from 10^-e down); this is how `XLSTM_LR` and
+`WHISPER_LR` were set. `grads xlstm-1.3b` and `grads whisper-small` log
+the eval loss at init with each sub-block's largest output, and each
+vehicle's gradients of rounds 0 and 1, as for granite.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -48,17 +58,45 @@ def _leaf_names(tree, pre=""):
         yield pre[:-1]
 
 
-def grads(device) -> None:
-    from repro_torch.data.synthetic import lm_batch
+REPS = {"granite-moe-1b-a400m": cs.GRANITE_REPS,
+        "xlstm-1.3b": cs.XLSTM_REPS, "whisper-small": cs.WHISPER_REPS}
+
+
+def grads(device, arch: str = "granite-moe-1b-a400m") -> None:
+    from repro_torch.data.synthetic import lm_batch, src_lm_batch
     from repro_torch.fl.vfl import lm_loss
-    from repro_torch.launch.train import _generator
+    from repro_torch.launch.train import EVAL_STREAM, _generator
     from repro_torch.models import engine
     from repro_torch.models.module import (materialize, tree_leaves,
                                            tree_map, tree_unflatten)
-    cfg = cs.vfl_config("granite-moe-1b-a400m", cs.GRANITE_REPS)
+    cfg = cs.vfl_config(arch, REPS[arch])
+    make = src_lm_batch(cfg) or lm_batch
     params = materialize(torch.Generator(device=device).manual_seed(0),
                          engine.model_decl(cfg, "head"))
     names = list(_leaf_names(params))
+
+    # the eval forward at init, each sub-block's output's largest entry
+    peaks = []
+    kept = dict(engine._APPLY)
+
+    def peak(kind, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            y = out[0] if isinstance(out, tuple) else out
+            peaks.append((kind, float(y.float().abs().max())))
+            return out
+        return call
+    engine._APPLY.update({k: peak(k, f) for k, f in kept.items()})
+    try:
+        with torch.no_grad():
+            ev = make(_generator(0, EVAL_STREAM, 0, device), 8, cs.VFL_SEQ,
+                      cfg.vocab_size)
+            loss = float(lm_loss(params, ev, cfg, "head"))
+    finally:
+        engine._APPLY.update(kept)
+    cs.log("grads", f"{arch} eval loss at init {loss:.4f}; each sub-block's "
+           f"largest |output| in order: " + ", ".join(
+               f"{k} {m:.3g}" for k, m in peaks))
 
     def grad(p, batch, c):
         leaves = [a.detach().clone().requires_grad_() for a in tree_leaves(p)]
@@ -68,31 +106,70 @@ def grads(device) -> None:
     V, b, seq = cfg.num_vehicles, cs.VFL_BATCH, cs.VFL_SEQ
     g0 = None
     for r in (0, 1):
-        batch = lm_batch(_generator(0, 1, r, device), V * b, seq,
-                         cfg.vocab_size)
+        batch = make(_generator(0, 1, r, device), V * b, seq, cfg.vocab_size)
         for v in range(V):
             mb = {k: x[b * v: b * (v + 1)] for k, x in batch.items()}
             loss, g = grad(params, mb, cfg)
             big = [(n, float(x.float().abs().max())) for n, x in
                    zip(names, g)]
             bad = [n for n, x in zip(names, g) if not torch.isfinite(x).all()]
-            cs.log("grads", f"round {r} vehicle {v}: loss {loss:.4f}; "
+            cs.log("grads", f"{arch} round {r} vehicle {v}: loss {loss:.4f}; "
                    f"non-finite leaves {bad}; largest |grad| by leaf "
                    + ", ".join(f"{n} {m:.2e}" for n, m in big))
             if r == v == 0:
                 g0 = g
             del g
     c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
-    batch = lm_batch(_generator(0, 1, 0, device), V * b, seq, cfg.vocab_size)
+    batch = make(_generator(0, 1, 0, device), V * b, seq, cfg.vocab_size)
     loss, g32 = grad(tree_map(lambda a: a.float(), params),
-                     {k: x[:b] for k, x in batch.items()}, c32)
-    cs.log("grads", f"round 0 vehicle 0 in fp32: loss {loss:.4f}; the bf16 "
-           f"gradient's distance from it, norm-wise, by leaf " + ", ".join(
-               f"{n} {float((a.float() - w).norm() / w.norm()):.2e}"
-               for n, a, w in zip(names, g0, g32)))
+                     {k: x[:b].float() if k == "src" else x[:b]
+                      for k, x in batch.items()}, c32)
+    cs.log("grads", f"{arch} round 0 vehicle 0 in fp32: loss {loss:.4f}; "
+           f"non-finite leaves "
+           f"{[n for n, x in zip(names, g32) if not torch.isfinite(x).all()]}"
+           f"; largest |grad| {max(float(x.abs().max()) for x in g32):.2e}; "
+           f"the bf16 gradient's distance from it, norm-wise, by leaf "
+           + ", ".join(f"{n} {float((a.float() - w).norm() / w.norm()):.2e}"
+                       for n, a, w in zip(names, g0, g32)))
 
 
-def lr_sweep(device) -> None:
+def lr_sweep(device, arch: str = "granite-moe-1b-a400m",
+             start: str = "") -> None:
+    """With `start` = e, the sweep begins at 10^-e, below the powers of
+    ten an earlier sweep already found non-finite."""
+    if arch == "granite-moe-1b-a400m":
+        _granite_lr_sweep(device)
+        return
+    from repro_torch.data.synthetic import src_lm_batch
+    from repro_torch.launch.train import train
+    cfg = cs.vfl_config(arch, REPS[arch])
+    n = cs.VFL_WARMUP + cs.VFL_ROUNDS
+
+    def stop(rec):
+        if not np.isfinite(rec["loss"]):
+            raise FloatingPointError(f"round {rec['round']}: eval loss "
+                                     f"{rec['loss']}")
+    lrs = ([10.0 ** -e for e in range(int(start), int(start) + 16)] if start
+           else [0.5] + [10.0 ** -e for e in range(1, 21)])
+    for lr in lrs:
+        try:
+            with cs.round0_share() as changed:
+                hist = train(cfg, rounds=n, batch_per_vehicle=cs.VFL_BATCH,
+                             seq=cs.VFL_SEQ, lr=lr, seed=0, device=device,
+                             log=lambda m: cs.log(f"lr-sweep {arch}", m),
+                             on_round=stop, batch_fn=src_lm_batch(cfg))
+        except FloatingPointError as err:
+            cs.log("lr-sweep", f"{arch} lr {lr:g}: {err}")
+            cs.free()
+            continue
+        cs.log("lr-sweep", f"{arch} lr {lr:g}: every eval loss finite "
+               f"{[r['loss'] for r in hist]}; round 0 changed "
+               f"{changed['share']:.4f} of the bf16 entries")
+        cs.free()
+        return
+
+
+def _granite_lr_sweep(device) -> None:
     cfg = cs.vfl_config("granite-moe-1b-a400m", cs.GRANITE_REPS)
     masks = cs.RECORDED_MASKS["granite-moe-1b-a400m"]
     for lr in [0.5] + [10.0 ** -e for e in range(1, 21)]:
@@ -103,12 +180,9 @@ def lr_sweep(device) -> None:
             cs.log("lr-sweep", f"lr {lr:g}: {err}")
             cs.free()
             continue
-        share = cs.round0_changed_share(device, cfg, cs.VFL_BATCH,
-                                        cs.VFL_SEQ, lr,
-                                        res["rounds"][0]["mask"])
         cs.log("lr-sweep", f"lr {lr:g}: every eval loss finite "
                f"{[r['loss'] for r in res['rounds']]}; round 0 changed "
-               f"{share:.4f} of the bf16 entries")
+               f"{res['changed_bf16_round0']:.4f} of the bf16 entries")
         return
 
 
@@ -181,7 +255,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.build import load_library
     load_library()
     cs.log("device", cs.smi_line())
-    probes[argv[0]](torch.device("cuda"))
+    probes[argv[0]](torch.device("cuda"), *argv[1:])
     cs.log("device", cs.smi_line())
     return 0
 
