@@ -51,9 +51,10 @@ with its kernel launches counted from 0:
   in fp32 on the card against the CPU (zamba2's with 2 repetitions, so
   that the tied block is used twice; granite's, llama4-scout's and the
   dense starcoder2's, codeqwen's and minitron's too);
-- the same loop at xlstm-1.3b's full width and depth (6 x (7 mLSTM + 1
-  sLSTM), d_model 2048, 4 heads, mLSTM head dim 1024 and chunk 128,
-  vocab 50304, bf16; 2.12 B parameters) at `XLSTM_LR`, with one mLSTM and
+- the same loop at xlstm-1.3b's full width, its depth cut from 6 to
+  `XLSTM_REPS` 1 repetition (7 mLSTM + 1 sLSTM; d_model 2048, 4 heads,
+  mLSTM head dim 1024 and chunk 128, vocab 50304, bf16) at `XLSTM_LR`,
+  with one mLSTM and
   one sLSTM sub-block timed beside the rounds' local SGD; and at
   whisper-small's (12 bidirectional encoder layers over 1536 frames, 12 x
   (attention, cross-attention onto the encoded frames, MLP), d_model 768,
@@ -65,6 +66,16 @@ with its kernel launches counted from 0:
   two with `src`. `flash_attention` is also held
   and timed at whisper's encoder, cross and self shapes and at
   llama-3.2-vision's cross shape, beside SDPA under the same mask.
+
+- the scheduling service (`launch/serve.py`): the reference's own
+  `ServeConfig()` (madca, B 4, L 4) over 3 waves of 6 sessions on the card
+  against the CPU on the same draws, then VEDS with the warm P4 table at
+  fig10's width (S=U=10, T=60, fleets of 40, B 8 on the tier ladder (2,
+  4, 8) x (1, 2, 4, 8), 4 sessions on the card) under 12 sessions'
+  mixed load, each dispatch timed, no slot graph captured after
+  `warmup()`, and requests replayed alone at B = 1 (masks identical, the
+  floats' distance in ulps, and where they part, the first operation
+  that parts them).
 
 The VFL rounds' masks must be those recorded before the bf16 kernels
 moved to the tensor cores (the schedule does not depend on the kernels);
@@ -129,15 +140,18 @@ ZAMBA2_REPS, ZAMBA2_LR, ZAMBA2_MIN_CHANGED = 9, 1e-6, 0.1
 # (PERF.md section 4). No power of ten also changes ZAMBA2_MIN_CHANGED of
 # the bf16 entries in round 0; the share is logged and must be positive.
 GRANITE_REPS, GRANITE_LR = 24, 1e-15
-# xlstm-1.3b (6 x (7 mLSTM + 1 sLSTM)) and whisper-small (12 encoder
-# layers, 12 x (attn, cross, mlp)) on the same VFL path at full width and
-# full depth, each at the largest power of ten up to launch/train.py's 0.5
-# at which all 4 rounds keep a finite eval loss (`tests/torch_chip_probes.py
-# lr-sweep`; PERF.md section 6, PR 23): at the reference's init their
-# largest gradients reach ~1e15 (xlstm) and ~1e24 (whisper's encoder), so
-# 1e-15 and 1e-21 give NaN; the share of bf16 entries round 0 changes is
-# logged and must be positive
-XLSTM_REPS, XLSTM_LR = 6, 1e-16
+# xlstm-1.3b (at 1 of its 6 repetitions of (7 mLSTM + 1 sLSTM): its
+# sLSTM time loop is host-bound, 100-144 s a round at full depth) and
+# whisper-small (12 encoder layers, 12 x (attn, cross, mlp), full depth)
+# on the same VFL path at full width, each at the largest power of ten up
+# to launch/train.py's 0.5 at which all 4 rounds keep a finite eval loss
+# (`tests/torch_chip_probes.py lr-sweep` on an NVIDIA H100 80GB HBM3 at
+# 700 W; PERF.md sections 4 and 6, PRs 23 and 24): at the reference's
+# init the largest gradients reach ~1.6e4 at xlstm's one repetition
+# (~1e15 at its six) and ~1e24 in whisper's encoder, so 1e-4 and 1e-21
+# give NaN; the share of bf16 entries round 0 changes is logged and must
+# be positive
+XLSTM_REPS, XLSTM_LR = 1, 1e-5
 WHISPER_REPS, WHISPER_LR = 12, 1e-22
 # the flash_attention cases of phase_kernels_llm timed beside their bounds
 TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
@@ -176,6 +190,24 @@ COMPARE_SCHEDULERS = ("veds", "optimal", "v2i_only", "madca", "sa")
 COMPARE_ROUNDS, COMPARE_EVAL_EVERY, COMPARE_SEED = 20, 5, 4
 TRAJ_CLIENTS, TRAJ_PER_CLIENT, TRAJ_TEST = 40, 128, 512
 STREAM_COMPARE_ROUNDS = 10
+# the scheduling service (`launch/serve.py`): the reference's own
+# `ServeConfig()` on the card against the CPU over 3 waves of 6 sessions
+# (repeat sessions in the later waves), then VEDS with warm P4 at fig10's
+# width: SERVE_SESSIONS sessions sending the reference's serve_tier_sweep
+# mix of round counts (`benchmarks/fig4_speed.py`: the tiers, then all
+# but the last again), packed into windows of up to SERVE_WINDOW
+# requests; SERVE_TRACK's requests are replayed alone at B = 1
+SERVE_REF_WAVES = (
+    (("s0", 1, 0), ("s1", 2, 1), ("s2", 3, 2), ("s3", 4, 3)),
+    (("s4", 4, 10), ("s5", 3, 11), ("s0", 2, 12), ("s1", 1, 13)),
+    (("s2", 2, 20), ("s3", 2, 21), ("s4", 3, 22), ("s5", 1, 23)))
+SERVE_FIG10 = dict(batch=8, tiers=(2, 4, 8), scheduler="veds", n_sov=10,
+                   n_opv=10, n_slots=60, n_fleet=40,
+                   ipm_warm_iters=STREAM_WARM_ITERS, batch_size=32,
+                   n_clients=40, max_sessions=4)
+SERVE_SESSIONS, SERVE_MIX, SERVE_WINDOW = 12, (2, 4, 8, 2, 4), 8
+SERVE_TRACK = ((0, 0), (0, 1), (5, 0), (5, 1))
+SERVE_LOSS_RTOL = SERVE_CARRY_RTOL = 1e-5
 # the eval loss at init through the kernels may move from the plain
 # versions' by at most SENS_ULP_FACTOR times the largest move that
 # SENS_DRAWS random one-ulp changes of every nonzero bf16 weight make
@@ -2323,6 +2355,490 @@ def phase_vfl_reference(device, arch: str, reps: int, *, atol=None,
     return res
 
 
+# ---------------------------------------------------------------------------
+# the scheduling service (`launch/serve.py`): the reference's own
+# configuration card against CPU, and VEDS with warm P4 at fig10's width
+# ---------------------------------------------------------------------------
+
+def ulps(a, b) -> int:
+    """The largest distance in float32 ulps between the entries of two
+    tensors of one shape (the count of floats between them)."""
+    def key(t):
+        i = t.detach().cpu().float().contiguous().view(torch.int32)
+        i = i.to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def _leaves(tree, prefix=""):
+    """(name, tensor) of every tensor of a tree of dataclasses and
+    dicts, in field order."""
+    import dataclasses
+    if tree is None:
+        return []
+    if torch.is_tensor(tree):
+        return [(prefix, tree)]
+    if dataclasses.is_dataclass(tree):
+        items = [(f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)]
+    elif hasattr(tree, "_asdict"):
+        items = list(tree._asdict().items())
+    elif isinstance(tree, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        items = list(tree.items())
+    return [leaf for k, v in items
+            for leaf in _leaves(v, f"{prefix}.{k}" if prefix else k)]
+
+
+def _carry_distance(a, b):
+    """Per leaf of two carries: ulps for float32 leaves, equality for the
+    others, and the relative error of finite float entries."""
+    out = {}
+    for (name, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if not x.is_floating_point():
+            out[name] = dict(equal=bool(torch.equal(x, y)))
+            continue
+        fin = torch.isfinite(y)
+        same_nonfinite = bool(torch.equal(x[~fin], y[~fin]))
+        d = (x[fin].double() - y[fin].double()).abs()
+        scale = float(y[fin].double().abs().max()) if fin.any() else 0.0
+        out[name] = dict(ulps=ulps(x, y), equal=bool(torch.equal(x, y)),
+                         rel_err=float(d.max()) / max(scale, 1e-30)
+                         if d.numel() else 0.0,
+                         nonfinite_equal=same_nonfinite)
+    return out
+
+
+def cpu_draw_service(cfg, device):
+    """A `SchedulingService` on `device` whose every draw (each session's
+    fleet, each request's round draws, selections and minibatch uniforms)
+    is made on the CPU from the service's own keys and moved across, so a
+    service on the card and one on the CPU serve the same draws."""
+    import dataclasses
+    from repro_torch.core.scenario import (fleet_round_draws,
+                                           init_fleet_draws, round_key)
+    from repro_torch.core.streaming import FLEET_STREAM
+    from repro_torch.fl.engine import init_carry
+    from repro_torch.launch import serve
+
+    class CpuDraws(serve.SchedulingService):
+        def _n(self):
+            return self.cfg.n_fleet or 2 * (self.cfg.n_sov + self.cfg.n_opv)
+
+        def _new_carry(self, session):
+            gen = torch.Generator().manual_seed(round_key(
+                self.session_seed(session), FLEET_STREAM, 0))
+            draws = init_fleet_draws(gen, self.mob, self.sc, 1, self._n(),
+                                     "cpu")
+            return init_carry(_to_device(draws, self.device), self.sc,
+                              self.mob,
+                              dataclasses.replace(self._stream, batch=1),
+                              self.params0, ch=self.ch, device=self.device)
+
+        def _column(self, req, L):
+            keys, sel, mb_u = serve.request_draws(
+                int(req.seed), int(req.n_rounds), self.shards.n_clients,
+                self.cfg.n_sov, self.cfg.batch_size, "cpu")
+            draws = [_to_device(fleet_round_draws(
+                torch.Generator().manual_seed(k), self.sc, 1, self._n(),
+                "cpu"), self.device) for k in keys]
+            return (serve._pad_rows(draws, L),
+                    serve._pad_rows(sel.to(self.device), L),
+                    serve._pad_rows(mb_u.to(self.device), L),
+                    np.arange(L) < int(req.n_rounds))
+
+    return CpuDraws(cfg, device=device)
+
+
+def phase_serve_reference(device):
+    """The reference's own `ServeConfig()` (madca, B 4, L 4, S 4, U 3,
+    T 10, `default_problem` of 10 clients): 6 sessions over 3 waves of
+    1-4 rounds, repeat sessions in the later waves, served on the card
+    and on the CPU from the same draws (`cpu_draw_service`). Each
+    response's success and n_success must be equal, its losses within
+    SERVE_LOSS_RTOL, and every stored carry's floats within
+    SERVE_CARRY_RTOL of their leaf's scale (integer and boolean fields
+    equal)."""
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.launch.serve import ServeConfig, ServeRequest
+    res = {}
+    for dev in ("cpu", device):
+        svc = cpu_draw_service(ServeConfig(), dev)
+        veds_dt_score.launches = 0
+        resps = [svc.run_batch([ServeRequest(*r) for r in wave])
+                 for wave in SERVE_REF_WAVES]
+        res[str(dev)] = (svc, resps, veds_dt_score.launches)
+    cpu_svc, cpu, _ = res["cpu"]
+    svc, card, launches = res[str(device)]
+    loss_err = 0.0
+    for cw, gw in zip(cpu, card):
+        for c, g in zip(cw, gw):
+            check(np.array_equal(c.success, g.success)
+                  and np.array_equal(c.n_success, g.n_success),
+                  f"serve reference: {c.session}'s decisions differ "
+                  f"between card and CPU")
+            check(c.tier == g.tier, "serve reference: tiers differ")
+            loss_err = max(loss_err, float(np.max(
+                np.abs(g.loss - c.loss) / np.abs(c.loss))))
+    check(loss_err <= SERVE_LOSS_RTOL, f"serve reference: losses differ by "
+          f"{loss_err:.2e} relative, beyond {SERVE_LOSS_RTOL}")
+    carries = {s: _carry_distance(svc.sessions[s], cpu_svc.sessions[s])
+               for s in sorted(cpu_svc.sessions)}
+    worst = max(d.get("rel_err", 0.0) for c in carries.values()
+                for d in c.values())
+    check(all(d["equal"] or d.get("rel_err", 1.0) <= SERVE_CARRY_RTOL
+              and d["nonfinite_equal"] for c in carries.values()
+              for d in c.values()),
+          f"serve reference: a stored carry differs between card and CPU "
+          f"beyond {SERVE_CARRY_RTOL} of its scale: {carries}")
+    check(set(svc.sessions) == set(cpu_svc.sessions), "serve sessions")
+    bitwise = sorted({k for c in carries.values() for k, d in c.items()
+                      if d["equal"]})
+    n_succ = [[r.n_success.tolist() for r in w] for w in card]
+    log("serve_reference", f"ServeConfig() (madca, B 4, L 4, S 4, U 3, "
+        f"T 10, 10 clients): 6 sessions over 3 waves, card vs CPU on the "
+        f"same draws: decisions identical (n_success {n_succ}); losses "
+        f"{loss_err:.2e} relative (tolerance {SERVE_LOSS_RTOL}); stored "
+        f"carries within {worst:.2e} of their scale (tolerance "
+        f"{SERVE_CARRY_RTOL}), bit for bit in {bitwise}; veds_score "
+        f"launches {launches}")
+    return dict(n_success=n_succ, loss_rel_err=loss_err,
+                carry_rel_err=worst, carries=carries, bitwise=bitwise,
+                launches={"veds_score": launches})
+
+
+def _serve_fig10_config():
+    from repro_torch.fl.simulator import FLSimConfig
+    from repro_torch.launch.serve import ServeConfig
+    sim = FLSimConfig()
+    return ServeConfig(**SERVE_FIG10, alpha=sim.alpha, V=sim.V,
+                       q_bits=sim.q_bits)
+
+
+def _serve_requests():
+    """The load: SERVE_SESSIONS sessions, each sending SERVE_MIX's round
+    counts in turn (the reference's `serve_tier_sweep` mix), one request
+    in flight a session."""
+    from repro_torch.launch.serve import ServeRequest
+    return {(c, j): ServeRequest(f"client-{c}", r, seed=1000 * c + j)
+            for c in range(SERVE_SESSIONS) for j, r in enumerate(SERVE_MIX)}
+
+
+def first_parting(cfg, reqs, carries, idx, device):
+    """Where a packed cell first parts from its solo run: the dispatch of
+    `reqs` from the sessions' stored `carries` (None: a fresh session) at
+    its tier beside request `idx` alone at B = 1 from the same carry,
+    stepped round by round and, inside the schedule, slot by slot
+    (`solve_slot`), cell `idx` compared after each step. A slot that
+    parts is split into its candidates (`_slot_candidates`) to name the
+    stage. `cfg.scheduler` is one of VEDS's (`veds`, `v2i_only`). Returns
+    (round, stage, field, ulps) of the first difference, or None."""
+    import dataclasses
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.scenario import fleet_round
+    from repro_torch.core.scheduler import map_tree
+    from repro_torch.core.streaming import (pack_cells, round_carry,
+                                            sched_round_step, warm_p4)
+    from repro_torch.core import veds as V
+    from repro_torch.launch.serve import SchedulingService
+    svc = SchedulingService(cfg, device=device)
+    L, B = svc.route(reqs)
+    scheds = [map_tree(lambda x: x.to(device), c).sched if c is not None
+              else svc.session_carry(r.session).sched
+              for r, c in zip(reqs, carries)]
+    fleets = [pack_cells(scheds + [scheds[0]] * (B - len(reqs))),
+              scheds[idx]]
+    cols = [svc._column(r, L) for r in reqs]
+    cols += [cols[0]] * (B - len(reqs))
+    sched = get_scheduler(cfg.scheduler)
+    warm = warm_p4(sched, svc.prm)
+    streams = [dataclasses.replace(svc._stream, batch=b) for b in (B, 1)]
+    prm, ch = svc.prm, svc.ch
+
+    def parted(r, stage, p, s):
+        for (name, x), (_, y) in zip(_leaves(p), _leaves(s)):
+            x = x[idx:idx + 1] if x.ndim else x
+            if not torch.equal(x, y):
+                return (r, stage, name, ulps(x, y)
+                        if x.is_floating_point() else None)
+        return None
+
+    for r in range(int(reqs[idx].n_rounds)):
+        keys = [[c[0][r] for c in cols], [cols[idx][0][r]]]
+        outs = [fleet_round(k, f, svc.sc, svc.mob, ch, prm)
+                for k, f in zip(keys, fleets)]
+        # the round's inputs and selections; the fleet it advanced is
+        # compared after the round's scatter
+        found = parted(r, "scenario: fleet_round", *(o[1:] for o in outs))
+        if found:
+            return found
+        rnds = [rnd.with_batch_axis() for _, rnd, _ in outs]
+        states = [V._round_state(rnd, prm, ch, sched.enable_cot, round_carry(
+            fl, sel, warm, cfg.carry_queues)[0])
+            for (fl, _, sel), rnd in zip(outs, rnds)]
+        for t in range(svc.sc.n_slots):
+            at = torch.full((), t, dtype=torch.int64, device=device)
+            nxt = [V.solve_slot(at, st, rnd, prm, ch,
+                                enable_cot=sched.enable_cot)
+                   for st, rnd in zip(states, rnds)]
+            found = parted(r, f"schedule: slot {t}, the selection and the "
+                              f"queue update (_select_slot, lyapunov)",
+                           *nxt)
+            if found:
+                dt, cot = zip(*(V._slot_candidates(at, st, rnd, prm, ch,
+                                                   sched.enable_cot)
+                                for st, rnd in zip(states, rnds)))
+                return (parted(r, f"schedule: slot {t}, the DT candidates "
+                                  f"(veds_score)", *dt)
+                        or parted(r, f"schedule: slot {t}, the COT "
+                                     f"candidates (_cot_candidates: the "
+                                     f"batched P4 interior-point solve)",
+                                  *cot)
+                        or found)
+            states = [st for st, _ in nxt]
+        fleets = [sched_round_step(f, k, sched, svc.sc, svc.mob, ch, prm,
+                                   c)[0]
+                  for f, k, c in zip(fleets, keys, streams)]
+        found = parted(r, "schedule: the round's scatter into the fleet",
+                       *fleets)
+        if found:
+            return found
+    return None
+
+
+def phase_serve(device):
+    """The scheduling service at fig10's width: VEDS with COT and the warm
+    P4 table (`ipm_warm_iters` STREAM_WARM_ITERS), S=U=10, T=60, fleets
+    of 40, batch 32 on `default_problem`'s 40 clients, B 8 on the tier
+    ladder (2, 4, 8) x (1, 2, 4, 8), at most 4 sessions on the card.
+    `warmup()` captures and pins the slot graph of every occupancy rung;
+    then SERVE_SESSIONS sessions send SERVE_MIX's round counts, one
+    request in flight a session, packed from a plain loop into windows
+    of up to SERVE_WINDOW requests, each window split by horizon rung
+    (shortest first) as the reference's front end splits it. Every
+    dispatch is timed on the host around `run_batch`, which ends by
+    reading its outputs to the host. The load must capture no slot
+    graph, and `veds_score` must run T times for every packed round by
+    its own count. Then: requests of two sessions replayed alone at
+    B = 1 on a fresh service (masks identical, the floats' distance in
+    ulps reported, and where they part, the first operation that parts
+    them), the first dispatch replayed on a fresh service (bit for bit),
+    and its first cell served beside other neighbours at the same B (bit
+    for bit)."""
+    import dataclasses
+    from repro_torch.core import veds as V
+    from repro_torch.core.scheduler import map_tree
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.launch.serve import (SchedulingService, ServeRequest,
+                                          _pct)
+    cfg = _serve_fig10_config()
+    reqs = _serve_requests()
+    rung = {r: next(h for h in cfg.horizons if h >= r) for r in SERVE_MIX}
+    svc = SchedulingService(cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log("serve", f"fig10 service: {cfg}; warmup {warm_s:.2f} s, slot "
+        f"graphs captured {svc.warmup_captures}, pinned "
+        f"{len(svc._pins)}")
+
+    def snap(name):
+        # a copy of the stored carry, without touching the LRU order (a
+        # session of a full window may already be spilled)
+        st = svc.sessions
+        return map_tree(lambda x: x.detach().cpu().clone(),
+                        st._hot[name] if name in st._hot
+                        else st._spilled[name])
+
+    pending = sorted(reqs, key=lambda k: (k[1], k[0]))     # arrival order
+    done, t_sub, out, snaps, pre, dispatches = set(), {}, {}, {}, {}, []
+    veds_dt_score.launches = 0
+    captures = V._SlotGraph.captures
+    t_load = time.perf_counter()
+    for c in range(SERVE_SESSIONS):
+        t_sub[(c, 0)] = t_load
+    while pending:
+        window, busy = [], set()
+        for c, j in pending:
+            if len(window) == SERVE_WINDOW:
+                break
+            if c in busy or (j and (c, j - 1) not in done):
+                continue
+            window.append((c, j))
+            busy.add(c)
+        for h in cfg.horizons:
+            group = [k for k in window if rung[reqs[k].n_rounds] == h]
+            if not group:
+                continue
+            batch = [reqs[k] for k in group]
+            st = svc.sessions
+            before = [st._hot.get(r.session, st._spilled.get(r.session))
+                      for r in batch]
+            for i, k in enumerate(group):
+                if k in SERVE_TRACK:
+                    pre[k] = (batch, before, i)
+            t_start = time.perf_counter()
+            resps = svc.run_batch(batch)     # ends reading to the host
+            t_end = time.perf_counter()
+            svc.metrics.observe_batch(batch, [t_sub[k] for k in group],
+                                      t_start, t_end)
+            d = dict(tier=resps[0].tier, occupancy=len(group),
+                     compute_ms=(t_end - t_start) * 1e3,
+                     sessions=[reqs[k].session for k in group])
+            dispatches.append(d)
+            log("serve", f"dispatch {len(dispatches) - 1}: tier "
+                f"{d['tier']}, occupancy {d['occupancy']}, compute "
+                f"{d['compute_ms']:.1f} ms")
+            for k, r in zip(group, resps):
+                out[k] = r
+                done.add(k)
+                t_sub[(k[0], k[1] + 1)] = t_end
+                if k in SERVE_TRACK or len(dispatches) == 1:
+                    snaps[k] = snap(r.session)
+        pending = [k for k in pending if k not in done]
+    launches = veds_dt_score.launches
+    load_captures = V._SlotGraph.captures - captures
+    summary = svc.metrics.summary()
+    comp = [1e3 * x for x in svc.metrics.compute_s]
+    packed_rounds = sum(int(d["tier"][1:].split("x")[0])
+                        for d in dispatches)
+    want = packed_rounds * cfg.n_slots
+    log("serve", f"load: {len(reqs)} requests of {SERVE_MIX} rounds from "
+        f"{SERVE_SESSIONS} sessions in {len(dispatches)} dispatches: "
+        f"compute p50 {_pct(comp, 50):.1f} ms, p99 {_pct(comp, 99):.1f} "
+        f"ms; total p50 {summary['p50_ms']:.1f} ms, p99 "
+        f"{summary['p99_ms']:.1f} ms; {summary['rounds_per_s']:.2f} "
+        f"rounds/s; mean occupancy {summary['mean_occupancy']:.2f}; pad "
+        f"fractions rounds {summary['pad_frac_rounds']:.3f}, cells "
+        f"{summary['pad_frac_cells']:.3f}; tier hits "
+        f"{summary['tier_hits']}; spills {summary['n_spills']}, restores "
+        f"{summary['n_restores']}; slot graphs captured in warmup "
+        f"{svc.warmup_captures}, in the load {load_captures} (metrics "
+        f"{summary['n_captures']}); veds_score launches {launches} "
+        f"(expected {want} = {packed_rounds} packed rounds x T "
+        f"{cfg.n_slots})")
+    check(load_captures == 0 and summary["n_captures"] == 0,
+          f"serve: the load captured {load_captures} slot graphs after "
+          f"warmup")
+    check(launches == want, f"serve: veds_score launched {launches} "
+          f"times, expected {want}")
+    check(summary["n_spills"] > 0 and summary["n_restores"] > 0,
+          "serve: max_sessions 4 of 12 sessions spilled or restored none")
+    check(all(0 <= int(n) <= cfg.n_sov for r in out.values()
+              for n in r.n_success)
+          and all(np.isfinite(r.loss).all() for r in out.values()),
+          "serve: n_success out of range or a loss not finite")
+
+    # requests of two sessions alone at B = 1 on a fresh service
+    solo = SchedulingService(dataclasses.replace(cfg, batch=1,
+                                                 batch_tiers=None),
+                             device=device)
+    solo.warmup()
+    veds_dt_score.launches = 0
+    solo_rows, solo_rounds, solo_s = [], 0, 0.0
+    for k in SERVE_TRACK:
+        t_start = time.perf_counter()
+        r = solo.run_batch([reqs[k]])[0]
+        solo_s += time.perf_counter() - t_start
+        solo_rounds += r.n_rounds
+        p = out[k]
+        check(np.array_equal(r.success, p.success)
+              and np.array_equal(r.n_success, p.n_success),
+              f"serve: {k}'s masks differ between packed ({p.tier}) and "
+              f"solo")
+        dist = _carry_distance(solo.sessions._hot[r.session], snaps[k])
+        row = dict(request=list(k), tier=p.tier,
+                   loss_ulps=ulps(torch.from_numpy(p.loss),
+                                  torch.from_numpy(r.loss)),
+                   carry_ulps={n: d.get("ulps") for n, d in dist.items()
+                               if not d["equal"]})
+        solo_rows.append(row)
+        log("serve", f"solo replay of {k} (packed at {p.tier}): masks "
+            f"identical; loss {row['loss_ulps']} ulps; carry leaves "
+            f"differing: {row['carry_ulps'] or 'none'}")
+    solo_launches = veds_dt_score.launches
+    solo_rps = solo_rounds / solo_s
+    bitwise = all(r["loss_ulps"] == 0 and not r["carry_ulps"]
+                  for r in solo_rows)
+    parting = None
+    for row in solo_rows:
+        k = tuple(row["request"])
+        if row["loss_ulps"] or row["carry_ulps"]:
+            parting = dict(request=list(k), at=first_parting(
+                cfg, *pre[k], device))
+            log("serve", f"{k} packed ({row['tier']}) first parts from "
+                f"solo at (round, stage, field, ulps) {parting['at']}")
+            break
+    log("serve", f"solo B=1: {solo_rounds} rounds in {solo_s:.3f} s, "
+        f"{solo_rps:.2f} rounds/s; packed load {summary['rounds_per_s']:.2f}"
+        f" rounds/s = {summary['rounds_per_s'] / solo_rps:.2f}x; packed "
+        f"== solo bit for bit: {bitwise}; veds_score launches "
+        f"{solo_launches}")
+
+    # the first dispatch again on a fresh service, and its first cell
+    # beside other neighbours at the same B: both bit for bit
+    first = [reqs[k] for k in sorted(reqs, key=lambda k: (k[1], k[0]))
+             if reqs[k].session in dispatches[0]["sessions"] and k[1] == 0]
+    others = [first[0]] + [ServeRequest(f"other-{i}", first[0].n_rounds,
+                                        seed=5000 + i)
+                           for i in range(len(first) - 1)]
+    stages = {}
+    for label, batch in (("replayed", first), ("other neighbours", others)):
+        again = SchedulingService(cfg, device=device)
+        again.warmup()
+        records = stages.setdefault(label, [])
+        hook = _stage_timer(records)
+        hook.start()
+        resps = again.run_batch(batch, stage_hook=hook)
+        for r in resps[:len(first) if label == "replayed" else 1]:
+            k = (int(r.session.split("-")[1]), 0)
+            _assert_bitwise(r, out[k], again.sessions[r.session], snaps[k],
+                            f"serve: the first dispatch {label}, {k}")
+        log("serve", f"the first dispatch ({dispatches[0]['tier']}) "
+            f"{label} on a fresh service: bit for bit; its rounds' stages "
+            f"(each closed by a synchronisation; round 0's scenario "
+            f"includes the dispatch's set-up) " + "; ".join(
+                ", ".join(f"{k[:-3]} {v:.1f}" for k, v in rec.items())
+                + " ms" for rec in records))
+        again.close()
+    # the same request's stages alone at B = 1
+    records = stages.setdefault("solo", [])
+    hook = _stage_timer(records)
+    hook.start()
+    solo.run_batch([ServeRequest("stage-probe", first[0].n_rounds,
+                                 seed=first[0].seed)], stage_hook=hook)
+    log("serve", f"{first[0].n_rounds} rounds alone at B = 1: " + "; ".join(
+        ", ".join(f"{k[:-3]} {v:.1f}" for k, v in rec.items()) + " ms"
+        for rec in records))
+    svc.close()
+    solo.close()
+    return dict(config=str(cfg), warmup_s=warm_s,
+                warmup_captures=svc.warmup_captures,
+                load_captures=load_captures, dispatches=dispatches,
+                summary=summary, compute_p50_ms=_pct(comp, 50),
+                compute_p99_ms=_pct(comp, 99), solo=solo_rows,
+                solo_rounds_per_s=solo_rps,
+                packed_over_solo=summary["rounds_per_s"] / solo_rps,
+                bitwise_vs_solo=bitwise, first_parting=parting,
+                stages=stages,
+                launches={"veds_score": launches},
+                solo_launches={"veds_score": solo_launches})
+
+
+def _assert_bitwise(r, want, carry, want_carry, what):
+    check(np.array_equal(r.success, want.success)
+          and np.array_equal(r.n_success, want.n_success)
+          and np.array_equal(r.loss, want.loss), f"{what}: the response "
+          f"differs")
+    dist = _carry_distance(carry, want_carry)
+    check(all(d["equal"] for d in dist.values()), f"{what}: the stored "
+          f"carry differs: {dist}")
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]) \
         .parse_args(argv)
@@ -2360,11 +2876,15 @@ def main(argv=None) -> int:
         elif "registers" in line or "spill" in line:
             log("build", f"{entry}: {line.strip()}")
 
+    # the serving path's [B, S] at fig10's width on its occupancy rungs
+    # (B 1 is the stream shape's)
+    serve_shapes = {f"serve_b{b}": (b, SERVE_FIG10["n_sov"])
+                    for b in (2, 4, 8)}
     kernels = phase_kernels({"main": (ROUND_BATCH, 10), "vfl": (1, 4),
                              "stream": (1, 10), "v2i_only": (1, 10),
-                             "large": (1 << 22,)},
+                             **serve_shapes, "large": (1 << 22,)},
                             device, graphed=("main", "vfl", "stream",
-                                             "v2i_only"))
+                                             "v2i_only", *serve_shapes))
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
@@ -2376,6 +2896,9 @@ def main(argv=None) -> int:
     compare_ref = phase_compare_reference(device)
     stream_compare = phase_stream_compare(device, setup)
     del setup
+    free()
+    serve_ref = phase_serve_reference(device)
+    serve = phase_serve(device)
     free()
     vfl = phase_vfl(device, vfl_config("qwen3-32b", VFL_REPS), VFL_WARMUP,
                     VFL_ROUNDS, VFL_BATCH, VFL_SEQ, VFL_LR,
@@ -2461,12 +2984,21 @@ def main(argv=None) -> int:
                         "schedulers"][sched]["launches"][name]
             out["stream_compare_v2i_only"] = stream_compare["v2i_only"][
                 "launches"][name]
+            out["serve_reference_madca"] = serve_ref["launches"][name]
+            out["serve_fig10"] = serve["launches"][name]
+            out["serve_fig10_solo"] = serve["solo_launches"][name]
         return out
 
     def timed(r, **extra):
         return dict(ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r.get("library_ms"), **extra)
+
+    def graphed_shape(label):
+        r = kernels[label]
+        return timed(r, shape=r["shape"], max_abs_err=r["max_abs_err"],
+                     graph_ms=r["graph_ms"],
+                     graph_floor_ms=r["graph_floor_ms"])
 
     def max_err(res, key="max_abs_err"):
         return max(r[key] for r in res.values() if isinstance(r, dict))
@@ -2487,20 +3019,11 @@ def main(argv=None) -> int:
         "max_abs_err": max_err(kernels),
         **timed(k, shape=k["shape"], graph_ms=k["graph_ms"],
                 graph_floor_ms=k["graph_floor_ms"],
-                vfl_shape=timed(kernels["vfl"], shape=kernels["vfl"]["shape"],
-                                graph_ms=kernels["vfl"]["graph_ms"],
-                                graph_floor_ms=kernels["vfl"][
-                                    "graph_floor_ms"]),
-                stream_shape=timed(kernels["stream"],
-                                   shape=kernels["stream"]["shape"],
-                                   graph_ms=kernels["stream"]["graph_ms"],
-                                   graph_floor_ms=kernels["stream"][
-                                       "graph_floor_ms"]),
-                v2i_only_shape=timed(kernels["v2i_only"],
-                                     shape=kernels["v2i_only"]["shape"],
-                                     graph_ms=kernels["v2i_only"]["graph_ms"],
-                                     graph_floor_ms=kernels["v2i_only"][
-                                         "graph_floor_ms"]))}, {
+                vfl_shape=graphed_shape("vfl"),
+                stream_shape=graphed_shape("stream"),
+                v2i_only_shape=graphed_shape("v2i_only"),
+                serve_shapes={label: graphed_shape(label)
+                              for label in serve_shapes})}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_sm90.cu",
@@ -2551,7 +3074,8 @@ def main(argv=None) -> int:
         ssd_kernels=ssd_kernels, main=main_res, stages=stages,
         reference=ref, stream=stream, stream_reference=stream_ref,
         compare=compare, compare_reference=compare_ref,
-        stream_compare=stream_compare,
+        stream_compare=stream_compare, serve_reference=serve_ref,
+        serve=serve,
         stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
         vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,
         sensitivity=sensitivity,

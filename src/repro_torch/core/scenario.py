@@ -472,6 +472,26 @@ def fleet_round_draws(gen: torch.Generator, sc: ScenarioParams,
             "g_so": channel_draws(gen, (B, T, S, U), device)}
 
 
+def per_cell(key) -> bool:
+    """Whether a round key is a sequence of B per-cell keys (the serving
+    layer's packed sessions) rather than one key for the whole batch."""
+    return isinstance(key, (list, tuple))
+
+
+def _fleet_round_draws_of(key, sc: ScenarioParams, B: int, N: int,
+                          device):
+    """The draws of one `fleet_round`: from one round key for all B
+    cells, or from B per-cell keys, cell b drawing its own [1, ...]
+    draws from its own generator (or taking them as given) exactly as a
+    B = 1 call with its key does, concatenated along the cell axis."""
+    if not per_cell(key):
+        return _draws_of(key, fleet_round_draws, device, sc, B, N, device)
+    if len(key) != B:
+        raise ValueError(f"{len(key)} per-cell keys for {B} cells")
+    return stack_tree([_draws_of(k, fleet_round_draws, device, sc, 1, N,
+                                 device) for k in key], torch.cat)
+
+
 def fleet_round(key, fleet: FleetState, sc: ScenarioParams,
                 mob: ManhattanParams, ch: ChannelParams, prm: VedsParams, *,
                 handover_delay: bool = False, handoff: bool = False
@@ -490,11 +510,13 @@ def fleet_round(key, fleet: FleetState, sc: ScenarioParams,
     back untouched (the streaming engine scatters the scheduler's outputs
     back); `covered` is refreshed to this round's start. `key` is the
     round's key (an int seeding its draws on the fleet's device, or the
-    draws of `fleet_round_draws`)."""
+    draws of `fleet_round_draws`), or a sequence of B per-cell keys (the
+    serving layer's packed sessions, each bringing its own round key):
+    cell b then draws what a B = 1 call with `key[b]` draws, so a packed
+    cell is the same request run alone."""
     B, N = fleet.batch_size, fleet.n_vehicles
     S, U = sc.n_sov, sc.n_opv
-    dr = _draws_of(key, fleet_round_draws, fleet.pos.device, sc, B, N,
-                   fleet.pos.device)
+    dr = _fleet_round_draws_of(key, sc, B, N, fleet.pos.device)
     rsu = fleet.rsu_xy
     cov0 = _dist(fleet.pos, rsu[:, None]) <= mob.coverage
     if handoff:

@@ -45,7 +45,9 @@ Randomness: every round draws from its own generator, seeded with a
 round key derived from (seed, stream, r) alone (`round_keys`), so a run
 cut into segments draws what the one-loop run draws. A round key may
 also be the round's draws themselves (a dict), which is how tests feed
-the reference's draws.
+the reference's draws, or, in persistent mode, a list of B per-cell keys
+(the serving layer's packed sessions: cell b draws what a B = 1 round
+with its key draws).
 """
 from __future__ import annotations
 
@@ -61,9 +63,9 @@ from repro_torch.core.lyapunov import VedsParams
 from repro_torch.core.scenario import (FleetState, ScenarioParams,
                                        exchange_fleet, fleet_round,
                                        init_fleet, make_round_batch,
-                                       round_key, rsu_grid)
+                                       per_cell, round_key, rsu_grid)
 from repro_torch.core.scheduler import (RoundOutputs, SchedulerCarry,
-                                        map_tensors, stack_tree)
+                                        map_tensors, map_tree, stack_tree)
 
 # the draw streams of a run: one generator per (stream, round)
 ROUND_STREAM, FLEET_STREAM, SEL_STREAM, MB_STREAM = 0, 1, 2, 3
@@ -219,9 +221,9 @@ def pack_cells(states, pad_to: Optional[int] = None) -> SchedState:
 
 
 def unpack_cell(state, b: int):
-    """Cell `b` of a packed state as a B=1 state (`pack_cells`'s
-    inverse for one session)."""
-    return map_tensors(lambda x: x[b:b + 1], state)
+    """Cell `b` of a packed state (a dataclass or dict of tensors) as a
+    B=1 state (`pack_cells`'s inverse for one session)."""
+    return map_tree(lambda x: x[b:b + 1], state)
 
 
 def warm_p4(sched, prm: VedsParams) -> bool:
@@ -238,6 +240,27 @@ def _rows_set(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor):
     return x.index_put((rows, idx), v)
 
 
+def round_carry(fl, sel, warm: bool, carry_queues: bool):
+    """The scheduler's carry for a fleet round: the queues of the round's
+    selected vehicles (`sel`), gathered from the fleet, and with `warm`
+    their P4 table rows ([B,S,U,1+U]). Returns (carry or None, qs, qu,
+    p4): the gathered values, which the round scatters back for the
+    vehicles that did not play."""
+    rows = torch.arange(fl.batch_size, device=fl.queue.device)[:, None]
+    qs_old = torch.gather(fl.queue, 1, sel.sov_idx)
+    qu_old = torch.gather(fl.queue, 1, sel.opv_idx)
+    p4_old = fl.p4_tab[rows, sel.sov_idx] if warm else None
+    if carry_queues:
+        c_in = SchedulerCarry(qs=qs_old, qu=qu_old, p4=p4_old)
+    elif warm:
+        # the table threads without the queues: they start at zero
+        c_in = SchedulerCarry(qs=torch.zeros_like(qs_old),
+                              qu=torch.zeros_like(qu_old), p4=p4_old)
+    else:
+        c_in = None
+    return c_in, qs_old, qu_old, p4_old
+
+
 def sched_round_step(state: SchedState, k, sched, sc: ScenarioParams,
                      mob: ManhattanParams, ch: ChannelParams,
                      prm: VedsParams, cfg: StreamConfig, stage_hook=None):
@@ -250,10 +273,18 @@ def sched_round_step(state: SchedState, k, sched, sc: ScenarioParams,
     (`SchedulerCarry.p4`) and scattered back under the freeze rule of
     the queues: only slots that played update. `stage_hook(name)`, if
     given, is called after "scenario" and after "schedule" (a caller may
-    time them). (The reference's per-cell keys of its serving layer are
-    not ported.)"""
+    time them).
+
+    `k` may be one round key or a sequence of B per-cell keys (the
+    serving layer's packed sessions): per-cell keys need the persistent
+    fleet's per-cell draws (`fleet_round`), so fresh-fleet mode rejects
+    them."""
     hook = stage_hook or (lambda name: None)
     if cfg.fresh_fleet:
+        if per_cell(k):
+            raise ValueError("per-cell keys [B] need a persistent fleet "
+                             "(fresh_fleet draws the whole batch from "
+                             "one round key)")
         rnd = make_round_batch(k, sc, mob, ch, prm, int(cfg.batch),
                                hetero_fleet=cfg.hetero_fleet,
                                device=state.qs.device)
@@ -269,19 +300,9 @@ def sched_round_step(state: SchedState, k, sched, sc: ScenarioParams,
                                handover_delay=cfg.handover_delay,
                                handoff=cfg.handoff)
     hook("scenario")
-    rows = torch.arange(fl.batch_size, device=fl.queue.device)[:, None]
-    qs_old = torch.gather(fl.queue, 1, sel.sov_idx)
-    qu_old = torch.gather(fl.queue, 1, sel.opv_idx)
     warm = warm_p4(sched, prm)
-    p4_old = fl.p4_tab[rows, sel.sov_idx] if warm else None  # [B,S,U,1+U]
-    if cfg.carry_queues:
-        c_in = SchedulerCarry(qs=qs_old, qu=qu_old, p4=p4_old)
-    elif warm:
-        # the table threads without the queues: they start at zero
-        c_in = SchedulerCarry(qs=torch.zeros_like(qs_old),
-                              qu=torch.zeros_like(qu_old), p4=p4_old)
-    else:
-        c_in = None
+    c_in, qs_old, qu_old, p4_old = round_carry(fl, sel, warm,
+                                               cfg.carry_queues)
     out = sched.solve_round(rnd, prm, ch, c_in)
     # freeze/restore: round-end queues go back only to the fleet slots
     # that played (valid_*); unselected vehicles are never written, and

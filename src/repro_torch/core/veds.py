@@ -29,6 +29,7 @@ layout on the left, batched layout on the right:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -210,6 +211,41 @@ def _slot_start(t: torch.Tensor, slot: float) -> torch.Tensor:
     return t.to(torch.float32) * slot
 
 
+def _slot_candidates(t: torch.Tensor, state: Dict[str, torch.Tensor],
+                     rnd: RoundInputs, prm: lyp.VedsParams,
+                     ch: ChannelParams, enable_cot: bool):
+    """Slot t's candidates before the selection (`solve_slot`'s first
+    half): the DT triple (`_dt_candidates`, the `veds_score` kernel) and
+    the COT tuple (`_cot_candidates`, the batched P4 solves; without COT,
+    candidates that never win and the P4 table passed through)."""
+    B, _, S = rnd.g_sr.shape
+    U = rnd.g_or.shape[-1]
+    zeta, qs, qu = state["zeta"], state["qs"], state["qu"]
+    # `x[:, t]` would turn the 0-dim tensor into a host integer (a sync)
+    at_t = t.reshape(1)
+    g_sr, g_or, g_so = (x.index_select(1, at_t).squeeze(1)
+                        for x in (rnd.g_sr, rnd.g_or, rnd.g_so))
+    w = lyp.sigmoid_weight(zeta, prm, state["Q"])
+    t_now = _slot_start(t, prm.slot)
+    eligible = (rnd.t_cp <= t_now) & (zeta < prm.Q)
+    if rnd.valid_sov is not None:
+        eligible &= rnd.valid_sov
+
+    dt = _dt_candidates(w, qs, g_sr, eligible, prm, ch)
+    if enable_cot:
+        cot = _cot_candidates(w, qs, qu, g_sr, g_or, g_so, eligible, prm,
+                              ch, state, state.get("p4"))
+    else:
+        # no P4 solves without COT: a threaded table passes through
+        cot = (torch.full((B, S, U), NEG, device=g_sr.device),
+               torch.zeros((B, S, U), device=g_sr.device),
+               torch.zeros((B, S, U, U), device=g_sr.device),
+               torch.arange(U, device=g_sr.device).expand(B, S, U),
+               torch.zeros((B, S, U), device=g_sr.device),
+               state.get("p4"))
+    return dt, cot
+
+
 def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
                rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
                enable_cot: bool = True):
@@ -224,34 +260,10 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
     optima and write their own back.
 
     Returns (new state, decision dict of [B, ...] tensors)."""
-    B, _, S = rnd.g_sr.shape
-    U = rnd.g_or.shape[-1]
     warm = "p4" in state
     zeta, qs, qu = state["zeta"], state["qs"], state["qu"]
-    # `x[:, t]` would turn the 0-dim tensor into a host integer (a sync)
-    at_t = t.reshape(1)
-    g_sr, g_or, g_so = (x.index_select(1, at_t).squeeze(1)
-                        for x in (rnd.g_sr, rnd.g_or, rnd.g_so))
-    w = lyp.sigmoid_weight(zeta, prm, state["Q"])
-    t_now = _slot_start(t, prm.slot)
-    eligible = (rnd.t_cp <= t_now) & (zeta < prm.Q)
-    if rnd.valid_sov is not None:
-        eligible &= rnd.valid_sov
-
-    y_dt, p_dt, z_dt = _dt_candidates(w, qs, g_sr, eligible, prm, ch)
-    if enable_cot:
-        y_cot, pm_cot, po_cot, order, z_cot, p_all = _cot_candidates(
-            w, qs, qu, g_sr, g_or, g_so, eligible, prm, ch, state,
-            state["p4"] if warm else None)
-    else:
-        y_cot = torch.full((B, S, U), NEG, device=g_sr.device)
-        pm_cot = torch.zeros((B, S, U), device=g_sr.device)
-        po_cot = torch.zeros((B, S, U, U), device=g_sr.device)
-        order = torch.arange(U, device=g_sr.device).expand(B, S, U)
-        z_cot = torch.zeros((B, S, U), device=g_sr.device)
-        # no P4 solves without COT: a threaded table passes through
-        p_all = state.get("p4")
-
+    (y_dt, p_dt, z_dt), (y_cot, pm_cot, po_cot, order, z_cot, p_all) = \
+        _slot_candidates(t, state, rnd, prm, ch, enable_cot)
     m_sel, use_dt, use_cot, z_vec, e_sov_vec, e_opv_vec = _select_slot(
         y_dt, p_dt, z_dt, y_cot, pm_cot, po_cot, order, z_cot, prm)
 
@@ -366,10 +378,38 @@ class _SlotGraph:
         return self.state, self.infos
 
 
-# at most this many slot graphs are kept; each holds its static buffers
-# and its own memory pool until it is evicted, oldest first
+# at most this many unpinned slot graphs are kept; each holds its static
+# buffers and its own memory pool until it is evicted, oldest first. A
+# pinned graph (`pin_slot_graphs`) is never evicted while pinned.
 _MAX_SLOT_GRAPHS = 8
 _SLOT_GRAPHS: Dict[tuple, _SlotGraph] = {}
+_PINS: Dict[tuple, int] = {}       # key -> number of holders
+_PINNING: List[set] = []           # the key sets of open pin blocks
+
+
+@contextlib.contextmanager
+def pin_slot_graphs():
+    """Pin every slot graph used inside the block: yields the set of
+    their keys, each pinned once for this holder until
+    `unpin_slot_graphs(keys)`. A pinned graph is never evicted, so a
+    holder that warmed its round shapes (a scheduling service's
+    occupancy ladder) never captures one again inside a timed run,
+    however many other shapes are captured meanwhile."""
+    keys: set = set()
+    _PINNING.append(keys)
+    try:
+        yield keys
+    finally:
+        _PINNING.pop()
+
+
+def unpin_slot_graphs(keys) -> None:
+    """Release one holder's pins (`pin_slot_graphs`'s keys): a graph
+    that no holder pins becomes evictable again."""
+    for k in keys:
+        n = _PINS.pop(k, 0) - 1
+        if n > 0:
+            _PINS[k] = n
 
 
 def _slots_graphed(rb: RoundInputs, state, prm, ch, enable_cot):
@@ -390,10 +430,15 @@ def _slots_graphed(rb: RoundInputs, state, prm, ch, enable_cot):
         for x in (getattr(rb, f.name) for f in dataclasses.fields(rb)))
     graph = _SLOT_GRAPHS.get(key)
     if graph is None:
-        while len(_SLOT_GRAPHS) >= _MAX_SLOT_GRAPHS:
-            del _SLOT_GRAPHS[next(iter(_SLOT_GRAPHS))]
+        unpinned = [k for k in _SLOT_GRAPHS if k not in _PINS]
+        while len(unpinned) >= _MAX_SLOT_GRAPHS:
+            del _SLOT_GRAPHS[unpinned.pop(0)]
         graph = _SLOT_GRAPHS[key] = _SlotGraph(rb, state, prm, ch,
                                                enable_cot)
+    for keys in _PINNING:
+        if key not in keys:
+            keys.add(key)
+            _PINS[key] = _PINS.get(key, 0) + 1
     return graph.run(rb, state)
 
 
@@ -419,14 +464,11 @@ def veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
                        graphed=rnd.g_sr.is_cuda)
 
 
-def _veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
-                *, enable_cot: bool, carry: Optional[SchedulerCarry],
-                graphed: bool) -> RoundOutputs:
-    """`veds_round`, with the slot graph or the eager loop as asked; the
-    card tests and `chip_smoke.py` hold the graph against the eager loop
-    on the card."""
-    batched = rnd.batched
-    rb = rnd.with_batch_axis()
+def _round_state(rb: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
+                 enable_cot: bool, carry: Optional[SchedulerCarry]):
+    """The slot state at the start of batched round `rb`: zeta at zero,
+    the queues from `carry`, the round's divisors, and the P4 table where
+    the round runs warm."""
     B, T, S = rb.g_sr.shape
     U = rb.g_or.shape[-1]
     qs0, qu0 = init_queues(rb, carry)
@@ -435,6 +477,18 @@ def _veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
     if (enable_cot and prm.ipm_warm_iters > 0 and carry is not None
             and carry.p4 is not None):
         state["p4"] = torch.broadcast_to(carry.p4, (B, S, U, U + 1))
+    return state
+
+
+def _veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
+                *, enable_cot: bool, carry: Optional[SchedulerCarry],
+                graphed: bool) -> RoundOutputs:
+    """`veds_round`, with the slot graph or the eager loop as asked; the
+    card tests and `chip_smoke.py` hold the graph against the eager loop
+    on the card."""
+    batched = rnd.batched
+    rb = rnd.with_batch_axis()
+    state = _round_state(rb, prm, ch, enable_cot, carry)
     slots = _slots_graphed if graphed else _slots_eager
     state, infos = slots(rb, state, prm, ch, enable_cot)
     total = {k: infos[k].sum(0) for k in _SUMMED}

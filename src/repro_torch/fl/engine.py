@@ -34,7 +34,7 @@ import torch
 from repro_torch.channel.mobility import ManhattanParams
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.core.lyapunov import VedsParams
-from repro_torch.core.scenario import FleetState, ScenarioParams
+from repro_torch.core.scenario import FleetState, ScenarioParams, per_cell
 from repro_torch.core.scheduler import (RolloutCarry, RoundOutputs,
                                         SchedulerCarry, map_tensors,
                                         map_tree, stack_tree, zip_tree)
@@ -234,10 +234,11 @@ def fused_rollout(keys: Sequence, sel: torch.Tensor, mb_u: torch.Tensor,
     """A (segment of a) training run as one loop: scheduling + minibatch
     gather + local SGD + aggregation per round.
 
-      keys  [R]            per-round scheduling keys (`round_keys`, or
-                           the rounds' draws); the reference's per-cell
-                           keys [R, B] of its serving layer are not
-                           ported
+      keys  [R] | [R][B]   per-round scheduling keys (`round_keys`, or
+                           the rounds' draws), or per round a sequence
+                           of B per-cell keys (the serving layer's
+                           packed sessions; persistent fleets only, and
+                           not with `cfg.handoff`)
       sel   [R, B, S]      client id of each cell's SOV slot per round
       mb_u  [R, B, S, bs]  uniform minibatch draws
       carry                `init_carry(...)` or a previous segment's
@@ -289,6 +290,10 @@ def fused_rollout(keys: Sequence, sel: torch.Tensor, mb_u: torch.Tensor,
                          "with handoff: the cross-cell exchange moves "
                          "vehicles between cells, which an inactive "
                          "cell's carry pass-through cannot revert")
+    if cfg.handoff and any(per_cell(k) for k in keys):
+        raise ValueError("per-cell keys [R][B] cannot compose with "
+                         "handoff: the cross-cell exchange moves vehicles "
+                         "between the cells that own them")
     ev = np.zeros(R, bool) if eval_mask is None else _host_bool(eval_mask,
                                                                 (R,))
     K = int(history_chunk)

@@ -241,26 +241,33 @@ def _stream_cfg(sim: FLSimConfig) -> StreamConfig:
                         handover_delay=sim.handover_delay)
 
 
-def _stream_draws(seed: int, sim: FLSimConfig, device):
-    """The streaming draws shared by the fused and host-gather paths:
-    (round keys [R], the fleet's key, sel [R, S], mb_u [R, S, bs]): a
-    client permutation per round and uniform minibatch draws, each round
-    from its own generator on `device`."""
-    R = sim.rounds
-    cfg = _stream_cfg(sim)
-
+def client_draws(seed: int, n_rounds: int, n_clients: int, n_sov: int,
+                 batch_size: int, device):
+    """The training side's draws of rounds 0 .. n_rounds - 1 of a run
+    seeded with `seed`: (sel [R, S], mb_u [R, S, bs]), a client
+    permutation per round and uniform minibatch draws, each round from
+    its own generator on `device`."""
     def gen(stream, r):
         return torch.Generator(device=device).manual_seed(
             round_key(seed, stream, r))
 
     sel = torch.stack([
-        torch.randperm(sim.n_clients, generator=gen(SEL_STREAM, r),
-                       device=device)[:sim.n_sov] for r in range(R)])
+        torch.randperm(n_clients, generator=gen(SEL_STREAM, r),
+                       device=device)[:n_sov] for r in range(n_rounds)])
     mb_u = torch.stack([
-        torch.rand((sim.n_sov, sim.batch_size), generator=gen(MB_STREAM, r),
-                   device=device) for r in range(R)])
-    return (round_keys(seed, cfg, R), round_key(seed, FLEET_STREAM, 0),
-            sel, mb_u)
+        torch.rand((n_sov, batch_size), generator=gen(MB_STREAM, r),
+                   device=device) for r in range(n_rounds)])
+    return sel, mb_u
+
+
+def _stream_draws(seed: int, sim: FLSimConfig, device):
+    """The streaming draws shared by the fused and host-gather paths:
+    (round keys [R], the fleet's key, sel [R, S], mb_u [R, S, bs])."""
+    R = sim.rounds
+    sel, mb_u = client_draws(seed, R, sim.n_clients, sim.n_sov,
+                             sim.batch_size, device)
+    return (round_keys(seed, _stream_cfg(sim), R),
+            round_key(seed, FLEET_STREAM, 0), sel, mb_u)
 
 
 def _run_fused(seed, params, loss_fn, shards: ClientShards,

@@ -6,7 +6,10 @@ step (cold, with the warm P4 table, and without COT for `v2i_only`)
 against the same step run eagerly, the streaming `run_fl`, the five
 Section VI schedulers (their queues bit for bit), LaneGCN's forward and
 the xLSTM smoke model's forward and backward on the card against the
-CPU, and the MoE block's bitwise determinism.
+CPU, the MoE block's bitwise determinism, and the scheduling service
+(`launch/serve.py`): the same dispatch twice and a cell beside other
+neighbours bit for bit, packed and solo masks identical, spill and
+restore bit for bit, and no slot graph captured after `warmup()`.
 Marked
 `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
@@ -950,3 +953,141 @@ def test_ssd_scan_wrapper_checks_its_inputs():
         ssd_scan_fwd(v, b, c, la, 16)
     with pytest.raises(ValueError, match="N = 64"):
         ssd_scan_fwd(v[..., :32].contiguous(), b, c, la, 32)
+
+
+# ---------------------------------------------------------------------------
+# the scheduling service (`launch/serve.py`) on the card
+# ---------------------------------------------------------------------------
+
+SERVE_KW = dict(scheduler="veds", n_sov=4, n_opv=3, n_slots=10, n_fleet=14,
+                ipm_iters=8, ipm_warm_iters=4, batch_size=4, max_rounds=2)
+
+
+def _service(B, **kw):
+    from repro_torch.launch.serve import SchedulingService, ServeConfig
+    return SchedulingService(ServeConfig(batch=B, **{**SERVE_KW, **kw}),
+                             device="cuda")
+
+
+def _req(session, n_rounds, seed):
+    from repro_torch.launch.serve import ServeRequest
+    return ServeRequest(session, n_rounds, seed=seed)
+
+
+def _same_response(a, b):
+    assert a.tier == b.tier
+    np.testing.assert_array_equal(a.success, b.success)
+    np.testing.assert_array_equal(a.n_success, b.n_success)
+    np.testing.assert_array_equal(a.loss, b.loss)
+
+
+def _same_carry(a, b):
+    from repro_torch.core.scheduler import zip_tree
+
+    def eq(x, y):
+        assert x.dtype == y.dtype and x.device == y.device
+        assert torch.equal(x, y)
+    zip_tree(eq, a, b)
+
+
+def _wave(n, seed0=0):
+    return [_req(f"s{i}", 1 + i % 2, seed0 + i) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_serve_same_dispatch_twice_is_bitwise():
+    """Two fresh services given the same dispatches (a second wave
+    resuming every session) answer and store the same bits."""
+    require_cuda()
+    runs = []
+    for _ in range(2):
+        svc = _service(4)
+        runs.append((svc, [svc.run_batch(_wave(4)),
+                           svc.run_batch(_wave(4, 10))]))
+    (a, ra), (b, rb) = runs
+    for wa, wb in zip(ra, rb):
+        for x, y in zip(wa, wb):
+            _same_response(x, y)
+    for s in a.sessions:
+        _same_carry(a.sessions[s], b.sessions[s])
+
+
+@pytest.mark.cuda
+def test_serve_cell_is_bitwise_whatever_its_neighbours():
+    """A cell's response and stored carry at a given B do not depend on
+    the requests packed beside it."""
+    require_cuda()
+    a, b = _service(4), _service(4)
+    ra = a.run_batch(_wave(4))
+    rb = b.run_batch([_wave(4)[0]] + [_req(f"n{i}", 2, 100 + i)
+                                      for i in range(3)])
+    _same_response(ra[0], rb[0])
+    _same_carry(a.sessions["s0"], b.sessions["s0"])
+
+
+@pytest.mark.cuda
+def test_serve_packed_and_solo_masks_are_identical():
+    """Packed at B 4 against each request alone at B 1 on a fresh
+    service, two waves: every success mask and count identical (the
+    floats' distance is measured by `chip_smoke.py phase_serve`)."""
+    require_cuda()
+    svc, solo = _service(4), _service(1)
+    for wave in (_wave(4), _wave(4, 10)):
+        for p in svc.run_batch(wave):
+            r = solo.run_batch([next(q for q in wave
+                                     if q.session == p.session)])[0]
+            np.testing.assert_array_equal(p.success, r.success)
+            np.testing.assert_array_equal(p.n_success, r.n_success)
+
+
+@pytest.mark.cuda
+def test_serve_spill_and_restore_on_card_are_bitwise():
+    """A carry with a bf16 leaf spilled to the host and restored comes
+    back on the card in its own dtype, bit for bit; a bounded service's
+    sessions answer as an unbounded one's after spilling."""
+    require_cuda()
+    from repro_torch.core.scheduler import RolloutCarry
+    from repro_torch.launch.serve import SessionStore
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    carries = {s: RolloutCarry(
+        sched={"t": torch.randn((2, 3), generator=gen, device="cuda")},
+        params={"w": torch.randn((1, 4), generator=gen, device="cuda")
+                .bfloat16()}, opt_state=None) for s in "abc"}
+    store = SessionStore(max_sessions=1, device="cuda")
+    for s, c in carries.items():
+        store.put(s, c)
+    assert store._spilled["a"].params["w"].device.type == "cpu"
+    for s, c in carries.items():
+        _same_carry(store[s], c)
+    bounded, free = _service(2, max_sessions=1), _service(2)
+    for seed0 in (0, 10):
+        for x, y in zip(bounded.run_batch(_wave(2, seed0)),
+                        free.run_batch(_wave(2, seed0))):
+            _same_response(x, y)
+    assert bounded.metrics.n_spills > 0 and bounded.metrics.n_restores > 0
+    for s in free.sessions:
+        _same_carry(bounded.sessions[s], free.sessions[s])
+
+
+@pytest.mark.cuda
+def test_serve_load_captures_no_slot_graph_after_warmup():
+    """`warmup()` captures one slot graph a rung of the occupancy ladder
+    and pins it: more other round shapes than the cache keeps are
+    captured next, and then a load that touches every rung captures
+    none."""
+    require_cuda()
+    port_veds._SLOT_GRAPHS.clear()
+    svc = _service(4, tiers=(1, 2), n_slots=7)
+    svc.warmup()
+    assert svc.warmup_captures == len(svc.cfg.occupancies) == 3
+    prm, ch = VedsParams(), ChannelParams()
+    for T in range(1, port_veds._MAX_SLOT_GRAPHS + 3):
+        port_veds.veds_round(_rounds(4, 3, T, B=1, seed=T), prm, ch)
+    n0 = port_veds._SlotGraph.captures
+    for n in (1, 2, 3, 4):
+        svc.run_batch([_req(f"s{i}", 1 + i % 2, 20 * n + i)
+                       for i in range(n)])
+    assert port_veds._SlotGraph.captures == n0
+    assert svc.metrics.n_captures == 0
+    assert set(svc.metrics.tier_hits) >= {"L1xB1", "L2xB2", "L2xB4"}
+    svc.close()

@@ -25,6 +25,9 @@ from repro.core.scenario import ScenarioParams as JScenario
 from repro.core.streaming import StreamConfig as JStreamConfig
 from repro.fl.engine import ClientShards as JClientShards
 from repro.fl.simulator import FLSimConfig as JFLSimConfig
+from repro.launch.serve import ServeConfig as JServeConfig
+from repro.launch.serve import ServeRequest as JServeRequest
+from repro.launch.serve import ServeResponse as JServeResponse
 from repro_torch import resolve_device
 from repro_torch.channel.mobility import ManhattanParams
 from repro_torch.channel.v2x import ChannelParams
@@ -38,6 +41,9 @@ from repro_torch.core.scenario import FleetState, ScenarioParams
 from repro_torch.core.streaming import StreamConfig
 from repro_torch.fl.engine import ClientShards
 from repro_torch.fl.simulator import FLSimConfig
+from repro_torch.launch.serve import (SchedulingService, ServeConfig,
+                                      ServeRequest, ServeResponse,
+                                      default_problem, request_draws)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -46,7 +52,8 @@ PORT = ROOT / "src" / "repro_torch"
 @pytest.mark.parametrize("ours,ref", [
     (ChannelParams, JChannel), (ManhattanParams, JManhattan),
     (VedsParams, JVeds), (ScenarioParams, JScenario),
-    (FLSimConfig, JFLSimConfig), (StreamConfig, JStreamConfig)])
+    (FLSimConfig, JFLSimConfig), (StreamConfig, JStreamConfig),
+    (ServeConfig, JServeConfig)])
 def test_parameter_dataclasses_match_reference(ours, ref):
     fo, fr = dataclasses.fields(ours), dataclasses.fields(ref)
     assert [f.name for f in fo] == [f.name for f in fr]
@@ -55,6 +62,18 @@ def test_parameter_dataclasses_match_reference(ours, ref):
     assert ours.__dataclass_params__.frozen
     if hasattr(ref, "noise_power"):
         assert ours().noise_power == ref().noise_power
+    if hasattr(ref, "horizons"):
+        assert (ours().horizons, ours().occupancies) == \
+            (ref().horizons, ref().occupancies)
+
+
+@pytest.mark.parametrize("ours,ref", [
+    (ServeRequest, JServeRequest), (ServeResponse, JServeResponse)])
+def test_serving_records_match_reference_field_for_field(ours, ref):
+    fo, fr = dataclasses.fields(ours), dataclasses.fields(ref)
+    assert [(f.name, f.default) for f in fo] == \
+        [(f.name, f.default) for f in fr]
+    assert ours.__dataclass_params__.frozen == ref.__dataclass_params__.frozen
 
 
 @pytest.mark.parametrize("ours,ref", [
@@ -214,7 +233,11 @@ def _builders():
         "p4_seed_table": lambda d: p4_seed_table((2, 3), 1.0, device=d),
         "pad_client_shards": lambda d: pad_client_shards(data, d)[1],
         "ClientShards.from_ragged": lambda d: ClientShards.from_ragged(
-            data, d).n_samples}
+            data, d).n_samples,
+        "default_problem": lambda d: default_problem(2, device=d)[0]["w"],
+        "request_draws": lambda d: request_draws(0, 2, 4, 2, 3, d)[1],
+        "SchedulingService": lambda d: SchedulingService(
+            ServeConfig(batch=1, max_rounds=1), device=d).shards.n_samples}
 
 
 @pytest.mark.parametrize("name", sorted(_builders()))

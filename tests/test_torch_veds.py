@@ -284,6 +284,7 @@ def replayed_step(monkeypatch):
 
     monkeypatch.setattr(port_veds._SlotGraph, "_capture", capture)
     monkeypatch.setattr(port_veds, "_SLOT_GRAPHS", {})
+    monkeypatch.setattr(port_veds, "_PINS", {})
 
 
 def test_slot_graph_bookkeeping_matches_eager_loop(rounds3, replayed_step):
@@ -346,3 +347,41 @@ def test_slot_graph_cache_is_bounded_and_takes_float32_queues(
     with pytest.raises(TypeError, match="float32"):
         run(_first_slots(r, cap + 1), c64)
     assert port_veds._SlotGraph.captures == n0 + cap + 2
+
+
+def test_pinned_slot_graphs_outlive_eviction_until_unpinned(
+        rounds3, replayed_step, monkeypatch):
+    """Graphs used inside `pin_slot_graphs` are never evicted, however
+    many other shapes are captured after them (the cap then applies to
+    the unpinned ones); released by every holder, they are evictable
+    again. (The cap is cut to 3 here: the round's 10 slots give 10
+    shapes.)"""
+    r = round_to_torch(rounds3)
+    cap = 3
+    monkeypatch.setattr(port_veds, "_MAX_SLOT_GRAPHS", cap)
+
+    def run(T):
+        port_veds._veds_round(_first_slots(r, T), PRM, CH, enable_cot=False,
+                              carry=None, graphed=True)
+
+    with port_veds.pin_slot_graphs() as a:
+        run(1)
+        run(2)
+    with port_veds.pin_slot_graphs() as b:
+        run(2)                                     # a second holder
+    assert len(a) == 2 and len(b) == 1
+    n0 = port_veds._SlotGraph.captures
+    for T in range(3, cap + 5):
+        run(T)
+    assert len(port_veds._SLOT_GRAPHS) == cap + 2
+    run(1)
+    run(2)
+    assert port_veds._SlotGraph.captures == n0 + cap + 2   # both replayed
+    port_veds.unpin_slot_graphs(a)
+    run(cap + 5)                           # T = 1 evicted, 2 still pinned
+    assert port_veds._SlotGraph.captures == n0 + cap + 3
+    assert len(port_veds._SLOT_GRAPHS) == cap + 1
+    run(2)
+    assert port_veds._SlotGraph.captures == n0 + cap + 3
+    port_veds.unpin_slot_graphs(b)
+    assert not port_veds._PINS
