@@ -75,7 +75,13 @@ with its kernel launches counted from 0:
   mixed load, each dispatch timed, no slot graph captured after
   `warmup()`, and requests replayed alone at B = 1 (masks identical, the
   floats' distance in ulps, and where they part, the first operation
-  that parts them).
+  that parts them); then its asyncio front end at the same width
+  (`phase_serve_front`): `drive()`'s closed loop with the sequential
+  B = 1 baseline, a Poisson load through `BatchServer` at half the
+  closed loop's request rate whose dispatch log is replayed on a fresh
+  service bit for bit, and `main()` with no `--device`, each dispatch
+  checked to run on the server's executor thread, to capture no slot
+  graph and to launch `veds_score` T times a packed round.
 
 The VFL rounds' masks must be those recorded before the bf16 kernels
 moved to the tensor cores (the schedule does not depend on the kernels);
@@ -96,14 +102,17 @@ exits non-zero, as it does without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import functools
 import gc
+import io
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2829,11 +2838,215 @@ def phase_serve(device):
                 solo_launches={"veds_score": solo_launches})
 
 
+@contextlib.contextmanager
+def _dispatch_log():
+    """Log every `SchedulingService.run_batch` call made inside the
+    block, whichever service makes it: the service, its device, the
+    thread it ran on, its requests and responses, its tier, the slot
+    graphs it captured and its `veds_score` launches (read on that
+    thread before and after; reading synchronises, and `run_batch` ends
+    synchronised anyway). Yields the list of records."""
+    from repro_torch.core import veds as V
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.launch.serve import SchedulingService
+    real = SchedulingService.run_batch
+    records = []
+
+    def logged(self, reqs, **kw):
+        n0, c0 = veds_dt_score.launches, V._SlotGraph.captures
+        out = real(self, reqs, **kw)
+        records.append(dict(
+            service=id(self), device=str(self.device),
+            thread=threading.get_ident(), reqs=list(reqs), resps=out,
+            tier=out[0].tier, captures=V._SlotGraph.captures - c0,
+            launches=veds_dt_score.launches - n0))
+        return out
+
+    SchedulingService.run_batch = logged
+    try:
+        yield records
+    finally:
+        SchedulingService.run_batch = real
+
+
+def _horizon(tier: str) -> int:
+    return int(tier[1:].split("x")[0])
+
+
+def _check_dispatches(records, n_slots: int, phase: str):
+    """Each service's dispatches all ran on one thread that is not this
+    (the event loop's) thread, captured no slot graph, and launched
+    `veds_score` T times a packed round."""
+    main_thread = threading.get_ident()
+    by_service = {}
+    for r in records:
+        by_service.setdefault(r["service"], set()).add(r["thread"])
+    check(all(len(t) == 1 and main_thread not in t
+              for t in by_service.values()),
+          f"{phase}: dispatches off their server's one executor thread: "
+          f"{by_service}, event loop {main_thread}")
+    check(all(r["captures"] == 0 for r in records),
+          f"{phase}: a dispatch captured a slot graph")
+    bad = [(r["tier"], r["launches"]) for r in records
+           if r["launches"] != n_slots * _horizon(r["tier"])]
+    check(not bad, f"{phase}: veds_score launches differ from T x L: {bad}")
+
+
+def _summary_line(s) -> str:
+    return (f"{s['n_requests']} requests in {s['n_batches']} dispatches, "
+            f"{s['rounds_per_s']:.2f} rounds/s, mean occupancy "
+            f"{s['mean_occupancy']:.2f}, tier hits {s['tier_hits']}; "
+            f"queue wait p50 {s['p50_queue_wait_ms']:.1f} / p99 "
+            f"{s['p99_queue_wait_ms']:.1f} ms, compute p50 "
+            f"{s['p50_compute_ms']:.1f} / p99 {s['p99_compute_ms']:.1f} ms, "
+            f"total p50 {s['p50_ms']:.1f} / p99 {s['p99_ms']:.1f} ms; "
+            f"spills {s['n_spills']}, restores {s['n_restores']}, slot "
+            f"graphs captured {s['n_captures']}")
+
+
+def phase_serve_front(device):
+    """The service's asyncio front end at fig10's width (the service of
+    `phase_serve`). (a) `drive()`: a closed loop of SERVE_SESSIONS
+    clients each sending SERVE_MIX's round counts, through `BatchServer`,
+    then the sequential B = 1 baseline, each service warmed up before its
+    server opens. (b) A Poisson load through `BatchServer` at half (a)'s
+    batched requests/s, its dispatch log replayed through `run_batch` on
+    a fresh service: every response and stored carry bit for bit. (c)
+    `main()` with no `--device`: the command line runs on the card. In
+    every load each dispatch runs on its server's executor thread,
+    captures no slot graph and launches `veds_score` T times a packed
+    round; `veds_score`'s count over (a) and over (b)'s load is reported
+    per path."""
+    import dataclasses
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.launch import serve as S
+    cfg = _serve_fig10_config()
+    T = cfg.n_slots
+    seq_cfg = dataclasses.replace(cfg, batch=1, batch_tiers=None)
+    warm_rounds = cfg.horizons[0] * (len(cfg.occupancies)
+                                     + len(seq_cfg.occupancies))
+    n_rounds = SERVE_SESSIONS * sum(SERVE_MIX)
+
+    # (a) the closed loop and the sequential baseline
+    with _dispatch_log() as closed_log:
+        veds_dt_score.launches = 0
+        t0 = time.perf_counter()
+        closed = S.drive(cfg, n_clients=SERVE_SESSIONS,
+                         n_requests=len(SERVE_MIX), n_rounds=SERVE_MIX,
+                         device=device)
+        closed_s = time.perf_counter() - t0
+        closed_launches = veds_dt_score.launches
+    _check_dispatches(closed_log, T, "serve_front closed")
+    b, q = closed["batched"], closed["sequential"]
+    check(b["n_captures"] == 0 and q["n_captures"] == 0,
+          "serve_front closed: the loads captured slot graphs")
+    check(b["n_requests"] == q["n_requests"]
+          == SERVE_SESSIONS * len(SERVE_MIX)
+          and b["n_batches"] + q["n_batches"] == len(closed_log),
+          "serve_front closed: requests or dispatches lost")
+    check(q["mean_occupancy"] == 1.0 and q["n_batches"] == q["n_requests"],
+          "serve_front closed: the sequential baseline packed requests")
+    want = T * (sum(_horizon(r["tier"]) for r in closed_log) + warm_rounds)
+    check(closed_launches == want, f"serve_front closed: veds_score "
+          f"launched {closed_launches} times over drive(), expected {want}")
+    check(all(np.isfinite(r.loss).all() for d in closed_log
+              for r in d["resps"]), "serve_front closed: a loss not finite")
+    log("serve_front", f"(a) drive() closed loop, {SERVE_SESSIONS} clients x "
+        f"{SERVE_MIX} rounds, window {1e3 * cfg.window_s:.1f} ms, in "
+        f"{closed_s:.1f} s: batched: {_summary_line(b)}")
+    log("serve_front", f"(a) sequential B = 1: {_summary_line(q)}")
+    log("serve_front", f"(a) speedup {closed['speedup']:.2f}x rounds/s; "
+        f"veds_score launches {closed_launches} (= T {T} x ({len(closed_log)}"
+        f" load dispatches' horizons + {warm_rounds} warm-up rounds)); "
+        f"dispatch threads {len({r['thread'] for r in closed_log})}, none "
+        f"the event loop's")
+
+    # (b) a Poisson load at half the closed loop's request rate
+    rate = 0.5 * b["rounds_per_s"] * b["n_requests"] / n_rounds
+    svc = S.SchedulingService(cfg, device=device)
+    svc.warmup()
+    loop_thread = []
+
+    async def go():
+        loop_thread.append(threading.get_ident())
+        async with S.BatchServer(svc) as srv:
+            return await S.poisson_load(
+                srv, n_clients=SERVE_SESSIONS, rate_hz=rate,
+                n_requests=len(SERVE_MIX), n_rounds=SERVE_MIX)
+
+    with _dispatch_log() as poisson_log:
+        veds_dt_score.launches = 0
+        t0 = time.perf_counter()
+        got = asyncio.run(go())
+        poisson_s = time.perf_counter() - t0
+        poisson_launches = veds_dt_score.launches
+    _check_dispatches(poisson_log, T, "serve_front poisson")
+    check(loop_thread == [threading.get_ident()], "serve_front poisson: "
+          "the event loop ran off the main thread")
+    p = svc.metrics.summary()
+    check(p["n_captures"] == 0, "serve_front poisson: the load captured "
+          "slot graphs")
+    check(len(got) == SERVE_SESSIONS * len(SERVE_MIX), "serve_front "
+          "poisson: requests lost")
+    want = T * sum(_horizon(r["tier"]) for r in poisson_log)
+    check(poisson_launches == want, f"serve_front poisson: veds_score "
+          f"launched {poisson_launches} times, expected {want}")
+    log("serve_front", f"(b) Poisson at {rate:.3f} requests/s in "
+        f"{poisson_s:.1f} s: {_summary_line(p)}; veds_score launches "
+        f"{poisson_launches}")
+    fresh = S.SchedulingService(cfg, device=device)
+    fresh.warmup()
+    for i, d in enumerate(poisson_log):
+        for r, want_r in zip(fresh.run_batch(d["reqs"]), d["resps"]):
+            check(r.tier == want_r.tier, "serve_front replay: tiers differ")
+            _assert_bitwise(r, want_r, None, None,
+                            f"serve_front replay, dispatch {i}")
+    check(set(fresh.sessions) == set(svc.sessions), "serve_front replay: "
+          "sessions differ")
+    for s in sorted(svc.sessions):
+        dist = _carry_distance(fresh.sessions[s], svc.sessions[s])
+        check(all(d["equal"] for d in dist.values()),
+              f"serve_front replay: {s}'s stored carry differs: {dist}")
+    log("serve_front", f"(b) the dispatch log ({len(poisson_log)} dispatches)"
+        f" replayed through run_batch on a fresh service: every response "
+        f"and every stored carry ({len(svc.sessions)} sessions) bit for bit")
+    svc.close()
+    fresh.close()
+
+    # (c) the command line with no --device
+    buf = io.StringIO()
+    with _dispatch_log() as main_log, contextlib.redirect_stdout(buf):
+        rc = S.main(["--json", "--clients", "3", "--requests", "2"])
+    out = json.loads(buf.getvalue())
+    check(rc == 0 and all(r["device"].startswith("cuda") for r in main_log)
+          and main_log, "serve_front main: did not serve on the card")
+    check(all(math.isfinite(out[k]["rounds_per_s"])
+              and math.isfinite(out[k]["p99_ms"])
+              for k in ("batched", "sequential"))
+          and math.isfinite(out["speedup"]), f"serve_front main: {out}")
+    log("serve_front", f"(c) main(['--json', '--clients', '3', '--requests', "
+        f"'2']) on {main_log[0]['device']}: batched "
+        f"{out['batched']['rounds_per_s']:.1f} rounds/s, sequential "
+        f"{out['sequential']['rounds_per_s']:.1f}, speedup "
+        f"{out['speedup']:.2f}x")
+    return dict(config=str(cfg), closed=closed, closed_s=closed_s,
+                closed_dispatches=[dict(tier=r["tier"], n=len(r["reqs"]),
+                                        launches=r["launches"])
+                                   for r in closed_log],
+                poisson_rate_hz=rate, poisson=p, poisson_s=poisson_s,
+                poisson_dispatches=len(poisson_log), replay_bitwise=True,
+                main=out,
+                launches={"veds_score": {"closed": closed_launches,
+                                         "poisson": poisson_launches}})
+
+
 def _assert_bitwise(r, want, carry, want_carry, what):
     check(np.array_equal(r.success, want.success)
           and np.array_equal(r.n_success, want.n_success)
           and np.array_equal(r.loss, want.loss), f"{what}: the response "
           f"differs")
+    if carry is None:
+        return
     dist = _carry_distance(carry, want_carry)
     check(all(d["equal"] for d in dist.values()), f"{what}: the stored "
           f"carry differs: {dist}")
@@ -2899,6 +3112,8 @@ def main(argv=None) -> int:
     free()
     serve_ref = phase_serve_reference(device)
     serve = phase_serve(device)
+    free()
+    serve_front = phase_serve_front(device)
     free()
     vfl = phase_vfl(device, vfl_config("qwen3-32b", VFL_REPS), VFL_WARMUP,
                     VFL_ROUNDS, VFL_BATCH, VFL_SEQ, VFL_LR,
@@ -2987,6 +3202,10 @@ def main(argv=None) -> int:
             out["serve_reference_madca"] = serve_ref["launches"][name]
             out["serve_fig10"] = serve["launches"][name]
             out["serve_fig10_solo"] = serve["solo_launches"][name]
+            out["serve_front_closed"] = serve_front["launches"][name][
+                "closed"]
+            out["serve_front_poisson"] = serve_front["launches"][name][
+                "poisson"]
         return out
 
     def timed(r, **extra):
@@ -3075,7 +3294,7 @@ def main(argv=None) -> int:
         reference=ref, stream=stream, stream_reference=stream_ref,
         compare=compare, compare_reference=compare_ref,
         stream_compare=stream_compare, serve_reference=serve_ref,
-        serve=serve,
+        serve=serve, serve_front=serve_front,
         stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
         vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,
         sensitivity=sensitivity,

@@ -123,7 +123,8 @@ def madca_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,
         m = torch.argmax(score, dim=-1)                     # [B], first max
         any_e = _take_m(score, m) > 0
         # success-probability greedy: full power while the budget lasts
-        p = torch.clamp_max(_take_m(e_left, m) / div["slot"], ch.p_max)
+        # the reference's e_left / slot as XLA compiles it (`divisors`)
+        p = torch.clamp_max(_take_m(e_left, m) * div["per_slot"], ch.p_max)
         p = torch.where(any_e, p, 0.0)
         rate = ch.bandwidth * _log2(1.0 + p * _take_m(g, m) / div["noise"])
         z = prm.slot * rate

@@ -16,6 +16,7 @@ import math
 from typing import (Any, Dict, Iterator, Optional, Protocol,
                     runtime_checkable)
 
+import numpy as np
 import torch
 
 from repro_torch import device_scalar
@@ -136,13 +137,20 @@ def init_queues(rnd, carry: Optional[SchedulerCarry]):
 def divisors(rb, prm, ch) -> Dict[str, torch.Tensor]:
     """The scalars a batched round `rb` divides by, as 0-dim float32
     tensors on its device: the slot count "T", the model size "Q", the
-    slot length "slot", the noise power "noise" and "ln2". A CUDA
-    division by a Python number multiplies by its rounded reciprocal; by
-    a tensor it divides, correctly rounded, as the CPU does, so that a
-    decision (a budget spent to its last joule, a tie of objectives)
-    comes out the same on both. Made once a round (once a round shape
-    in the VEDS slot graph)."""
-    vals = {"T": float(rb.g_sr.shape[-2]), "Q": prm.Q, "slot": prm.slot,
+    noise power "noise" and "ln2"; and "per_slot", the float32
+    reciprocal of the slot length, which the slot length's divisions
+    multiply by. A CUDA division by a Python number multiplies by its
+    rounded reciprocal; by a tensor it divides, correctly rounded, as
+    the CPU does, so that a decision (a budget spent to its last joule,
+    a tie of objectives) comes out the same on both. "per_slot" is the
+    product the reference's compiled rounds take instead: XLA rewrites a
+    division by a constant c into a product with the float32 1 / c, and
+    `madca`'s last partial slot of a budget, p = e_left / slot, leaves
+    a residual of e_left - slot p whose sign decides whether the SOV
+    takes another slot. A product is correctly rounded on both devices.
+    Made once a round (once a round shape in the VEDS slot graph)."""
+    vals = {"T": float(rb.g_sr.shape[-2]), "Q": prm.Q,
+            "per_slot": float(np.float32(1.0) / np.float32(prm.slot)),
             "noise": ch.noise_power, "ln2": math.log(2.0)}
     return {k: device_scalar(v, rb.g_sr) for k, v in vals.items()}
 

@@ -254,7 +254,7 @@ def solve_slot(t: torch.Tensor, state: Dict[str, torch.Tensor],
     reads a value back to the host, so the step can be captured into a
     CUDA graph. `rnd` must be batched; state holds zeta [B,S], qs [B,S],
     qu [B,U] and the round's `divisors` (0-dim tensors: the slot count
-    "T", "Q", "slot", "noise", "ln2"). An optional
+    "T", "Q", "per_slot", "noise", "ln2"). An optional
     state["p4"] [B,S,U,1+U] threads the P4 warm-start table from slot to
     slot: each slot's candidate solves start from the previous slot's
     optima and write their own back.

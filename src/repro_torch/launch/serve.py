@@ -53,8 +53,40 @@ algorithms by batch size on a device, so packed floats are held to solo
 decisions exactly and to their own run bit for bit, and their distance
 from solo is measured (`chip_smoke.py phase_serve`), not assumed.
 
-The asyncio front end of the reference (`BatchServer`, its load
-generators, `drive` and `main`) is not ported yet.
+The asyncio front end: `BatchServer` collects concurrent requests into
+windows and hands each window to `run_batch`; `closed_loop_load` and
+`poisson_load` are the reference's synthetic clients, `drive` runs a
+batched service and the sequential B = 1 baseline under one of them, and
+`main` is the command line (`python -m repro_torch.launch.serve`). Its
+threading and CUDA-graph design:
+
+  capture first    slot graphs are captured only in `warmup()`, which the
+                   caller runs before `BatchServer.__aenter__` (`drive`
+                   does; its sequential baseline warms up only after the
+                   batched server has closed). `torch.cuda.graph` captures
+                   in the global mode, where a CUDA call from any other
+                   thread during a capture invalidates it, so no capture
+                   may overlap a running server. A dispatch that captures
+                   anyway is counted (`ServeMetrics.n_captures`), and a
+                   load is held to 0.
+  one thread       `run_batch` runs on the server's one-thread executor,
+                   so every CUDA call of a dispatch (the draws, the copies
+                   into the slot graph's static buffers, the replays, the
+                   read-back) is made from that thread on its current
+                   stream, and dispatches never overlap. The server opens
+                   no side stream. The event loop's thread touches no CUDA
+                   tensor: a `ServeResponse` holds numpy arrays and the
+                   metrics hold floats.
+  errors shown     a dispatch that raises fails every future of its batch
+                   with the exception; the loads `gather` without
+                   `return_exceptions`, so the error reaches `drive` and
+                   `main`. Nothing is retried or rerun on the CPU or a
+                   plain version: a CUDA error is sticky, and the next
+                   dispatch fails the same way.
+  timing           `run_batch` reads every output to the host before it
+                   returns, so the time taken when the executor's future
+                   resolves closes on finished device work; the event
+                   loop never synchronises the device.
 
 All requests' draws come from their seeds alone (`request_draws`, on the
 port's stream scheme of `round_key`), and a session's fleet from
@@ -63,11 +95,17 @@ does not depend on what it was packed with.
 """
 from __future__ import annotations
 
+import argparse
+import asyncio
 import collections
+import concurrent.futures
 import dataclasses
+import json
+import sys
+import time
 import weakref
 import zlib
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -104,9 +142,10 @@ class ServeConfig:
                    the LRU session's carry spills to the host and
                    restores bitwise on its next request. None = every
                    session stays on the device
-      window_s     batching window of the front end (not ported yet)
-      bucket_rounds the front end's split of a window by horizon rung
-                   (not ported yet)
+      window_s     `BatchServer`'s batching window: how long the collector
+                   waits after a window's first request for more
+      bucket_rounds `BatchServer` splits a window by horizon rung before
+                   routing, shortest rung first
     """
     batch: int = 4
     max_rounds: int = 4
@@ -322,7 +361,9 @@ class ServeMetrics:
         """Aggregate view: p50/p99 total latency, mean queue-wait and
         compute, aggregate rounds/s over the observed wall span, mean
         batch occupancy (packed cells per dispatch), padding shares, tier
-        hits, spills, restores and slot graphs captured in the load."""
+        hits, spills, restores and slot graphs captured in the load; and,
+        beyond the reference's keys, p50/p99 of the queue wait and of the
+        compute."""
         wall = (self.t_last - self.t_first
                 if self.total_s and self.t_last > self.t_first else
                 float("nan"))
@@ -336,6 +377,10 @@ class ServeMetrics:
             else float("nan"),
             "mean_compute_ms": 1e3 * float(np.mean(self.compute_s))
             if self.compute_s else float("nan"),
+            "p50_queue_wait_ms": 1e3 * _pct(self.queue_wait_s, 50),
+            "p99_queue_wait_ms": 1e3 * _pct(self.queue_wait_s, 99),
+            "p50_compute_ms": 1e3 * _pct(self.compute_s, 50),
+            "p99_compute_ms": 1e3 * _pct(self.compute_s, 99),
             "rounds_per_s": sum(self.rounds) / wall,
             "mean_occupancy": float(np.mean(self.occupancy))
             if self.occupancy else float("nan"),
@@ -563,7 +608,7 @@ class SchedulingService:
         B = next(b for b in self.cfg.occupancies if b >= len(reqs))
         return L, B
 
-    def warmup(self) -> None:
+    def warmup(self, rounds: Sequence[int] = ()) -> None:
         """Capture the slot graph of every occupancy rung outside any
         timed load and pin it for the service's lifetime. The warm-up
         dispatches run from a fresh carry that is never stored, so the
@@ -571,7 +616,13 @@ class SchedulingService:
         is keyed by the round's shape, which the occupancy sets and the
         horizon does not, so one dispatch a rung at the shortest horizon
         warms every tier. Schedulers without a slot graph capture
-        nothing."""
+        nothing. Run it before a `BatchServer` takes requests: a capture
+        must not overlap another thread's CUDA calls.
+
+        `rounds` is the reference's hint of the load's round counts, for
+        which it compiles its draw programs ahead of the load. The port's
+        draws (`_padded_draws`) run eagerly and compile nothing, so the
+        hint is accepted and changes nothing."""
         c0 = veds._SlotGraph.captures
         req = ServeRequest("warmup", n_rounds=self.cfg.horizons[0])
         carry = self._new_carry(req.session)
@@ -653,3 +704,335 @@ class SchedulingService:
                              tier=f"L{L}xB{B}")
                for b, r in enumerate(reqs)]
         return new, out
+
+
+class BatchServer:
+    """Continuous-batching front end over a `SchedulingService`.
+
+    `submit` enqueues a request and awaits its response. A collector
+    task takes the first queued request, waits up to `window_s` for more
+    (up to `max_batch`), then runs the packed dispatch on a one-thread
+    executor: off the event loop, so arrivals keep flowing during
+    compute, and serialized, so two batches never race on one session's
+    state and every CUDA call of every dispatch comes from one thread
+    (the module docstring's design). Warm the service up before entering
+    the server.
+
+    Deferral fairness: a request sharing a session with one already in
+    the forming batch is deferred (a session's requests are sequential:
+    each resumes the state the previous one left), and deferred requests
+    seed the NEXT batch FIFO-first, ahead of any newer arrivals, so a
+    session whose requests keep coming waits at most the batches its own
+    predecessors occupy, never behind fresh traffic. A stop drains the
+    deferred requests before the collector ends.
+
+    Round bucketing (`ServeConfig.bucket_rounds`): a collected window is
+    split by horizon rung before routing, shortest rung first. `route()`
+    pads every cell of a dispatch to the batch's longest rung, so a
+    1-round request packed with an L-round one would pay L - 1 inactive
+    rounds; bucketed, each group goes to its own smallest tier. On a
+    single-rung ladder the split is a no-op.
+
+    A batch whose dispatch raises fails every one of its futures with
+    the exception, and the collector goes on to the next batch."""
+
+    def __init__(self, service: SchedulingService, *,
+                 window_s: Optional[float] = None,
+                 max_batch: Optional[int] = None):
+        self.service = service
+        self.window_s = float(service.cfg.window_s if window_s is None
+                              else window_s)
+        self.max_batch = int(service.cfg.batch if max_batch is None
+                             else max_batch)
+        if not 0 < self.max_batch <= int(service.cfg.batch):
+            raise ValueError(f"max_batch={self.max_batch} outside "
+                             f"1..{service.cfg.batch}")
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="serve-dispatch")
+        self._task: Optional[asyncio.Task] = None
+
+    async def __aenter__(self) -> "BatchServer":
+        self._task = asyncio.get_running_loop().create_task(self._run())
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        self._queue.put_nowait(None)
+        try:
+            if self._task is not None:
+                await self._task
+        finally:
+            self._pool.shutdown(wait=True)
+
+    async def submit(self, req: ServeRequest) -> ServeResponse:
+        fut = asyncio.get_running_loop().create_future()
+        self._queue.put_nowait((req, fut, time.perf_counter()))
+        return await fut
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        deferred: List = []       # FIFO of session-conflicted holdovers
+        stopping = False          # stop seen: drain, take no more
+        while True:
+            # the deferred requests seed the batch first, in arrival order
+            batch: List = []
+            sessions = set()
+            keep: List = []
+            for it in deferred:
+                if (len(batch) < self.max_batch
+                        and it[0].session not in sessions):
+                    sessions.add(it[0].session)
+                    batch.append(it)
+                else:
+                    keep.append(it)
+            deferred = keep
+            if not batch:
+                if stopping:
+                    return
+                item = await self._queue.get()
+                if item is None:
+                    return
+                batch = [item]
+                sessions = {item[0].session}
+            deadline = loop.time() + self.window_s
+            while not stopping and len(batch) < self.max_batch:
+                timeout = deadline - loop.time()
+                try:
+                    nxt = (self._queue.get_nowait() if timeout <= 0 else
+                           await asyncio.wait_for(self._queue.get(),
+                                                  timeout))
+                except (asyncio.QueueEmpty, asyncio.TimeoutError):
+                    break
+                if nxt is None:
+                    # drain: finish this batch, then serve the deferred
+                    # requests until none is left
+                    stopping = True
+                    break
+                if nxt[0].session in sessions:
+                    deferred.append(nxt)
+                    continue
+                sessions.add(nxt[0].session)
+                batch.append(nxt)
+            for group in self._round_buckets(batch):
+                await self._dispatch(loop, group)
+
+    def _round_buckets(self, batch: List) -> List[List]:
+        """The window's dispatch groups: split by horizon rung
+        (ascending) when `bucket_rounds` is on, else the whole window as
+        one group. A request beyond the ladder joins the top rung's group,
+        so that `run_batch` raises its ValueError into that request's
+        future instead of the collector failing on routing."""
+        if not self.service.cfg.bucket_rounds or len(batch) <= 1:
+            return [batch]
+        horizons = self.service.cfg.horizons
+        by_rung: Dict[int, List] = {}
+        for it in batch:
+            rung = next((h for h in horizons
+                         if h >= int(it[0].n_rounds)), horizons[-1])
+            by_rung.setdefault(rung, []).append(it)
+        return [by_rung[h] for h in sorted(by_rung)]
+
+    async def _dispatch(self, loop, batch: List) -> None:
+        reqs = [b[0] for b in batch]
+        t_start = time.perf_counter()
+        try:
+            resps = await loop.run_in_executor(
+                self._pool, self.service.run_batch, reqs)
+            # run_batch reads every output to the host before it returns,
+            # so the device work has finished when its future resolves
+            t_end = time.perf_counter()  # reprolint: disable=timer-no-block -- run_batch ends by copying its outputs to the host
+            self.service.metrics.observe_batch(
+                reqs, [b[2] for b in batch], t_start, t_end)
+            for (req, fut, ts), resp in zip(batch, resps):
+                resp.queue_wait_s = t_start - ts
+                resp.compute_s = t_end - t_start
+                resp.total_s = t_end - ts
+                if not fut.done():
+                    fut.set_result(resp)
+        except Exception as e:          # noqa: BLE001 -- fail the batch
+            for _, fut, _ in batch:
+                if not fut.done():
+                    fut.set_exception(e)
+
+
+def _rounds_of(n_rounds: Union[int, Sequence[int]], i: int) -> int:
+    """A request's round count under a mixed-`n_rounds` load: an int is
+    every request's count; a sequence is cycled by request index, every
+    client's i-th request taking `seq[i % len]`, so the load moves through
+    phases of like-sized work (which horizon routing can exploit)."""
+    if isinstance(n_rounds, int):
+        return n_rounds
+    seq = list(n_rounds)
+    return int(seq[i % len(seq)])
+
+
+def _request(c: int, i: int, n_rounds, seed: int) -> ServeRequest:
+    """Client c's i-th request of a synthetic load."""
+    return ServeRequest(session=f"client-{c}",
+                        n_rounds=_rounds_of(n_rounds, i),
+                        seed=seed + 1000 * c + i)
+
+
+async def closed_loop_load(server: BatchServer, *, n_clients: int,
+                           n_requests: int,
+                           n_rounds: Union[int, Sequence[int]],
+                           seed: int = 0) -> List[ServeResponse]:
+    """Saturating load: every client keeps exactly one request in flight,
+    submitting the next the moment its response lands. The batched
+    against sequential rounds/s is measured under it. `n_rounds` may be a
+    sequence (`_rounds_of`). Responses come back client by client; the
+    first error raised by a dispatch is raised here."""
+    async def client(c: int) -> List[ServeResponse]:
+        return [await server.submit(_request(c, i, n_rounds, seed))
+                for i in range(n_requests)]
+
+    res = await asyncio.gather(*(client(c) for c in range(n_clients)))
+    return [r for rs in res for r in rs]
+
+
+async def poisson_load(server: BatchServer, *, n_clients: int,
+                       rate_hz: float, n_requests: int,
+                       n_rounds: Union[int, Sequence[int]],
+                       seed: int = 0) -> List[ServeResponse]:
+    """Open-loop Poisson arrivals: each client waits exponential gaps of
+    mean `n_clients / rate_hz` seconds (drawn on the host from
+    `numpy.random.default_rng(seed + c)`, as the reference draws them)
+    before each request, so the aggregate is a Poisson process at
+    `rate_hz` requests/s. The latency under a window is measured under
+    it. `n_rounds` may be a sequence (`_rounds_of`)."""
+    gap = n_clients / float(rate_hz)
+
+    async def client(c: int) -> List[ServeResponse]:
+        rng = np.random.default_rng(seed + c)
+        out = []
+        for i in range(n_requests):
+            await asyncio.sleep(float(rng.exponential(gap)))
+            out.append(await server.submit(_request(c, i, n_rounds, seed)))
+        return out
+
+    res = await asyncio.gather(*(client(c) for c in range(n_clients)))
+    return [r for rs in res for r in rs]
+
+
+def drive(cfg: ServeConfig, *, n_clients: int = 8, n_requests: int = 4,
+          n_rounds: Union[int, Sequence[int], None] = None,
+          rate_hz: float = 0.0, window_s: Optional[float] = None,
+          baseline: bool = True, seed: int = 0,
+          device=None) -> Dict[str, object]:
+    """Build a service on `device` (CUDA unless the caller names
+    another), warm it up, drive it under a synthetic load (closed loop,
+    or Poisson at `rate_hz` > 0) through a `BatchServer`, and return its
+    metrics summary as `batched`; with `baseline`, then the same load on
+    the sequential B = 1 service (every request dispatched alone: batch
+    1, no occupancy ladder, window 0) as `sequential`, and the ratio of
+    their rounds/s as `speedup`. Each service warms up before its server
+    opens and is closed after it, so no slot graph is captured while a
+    server runs. `n_rounds` may be a sequence (`_rounds_of`)."""
+    device = resolve_device(device)
+    if n_rounds is None:
+        n_rounds = cfg.horizons[-1]
+
+    def load(service: SchedulingService, w: float, mb: int):
+        try:
+            service.warmup(rounds=(n_rounds,) if isinstance(n_rounds, int)
+                           else n_rounds)
+
+            async def go():
+                async with BatchServer(service, window_s=w,
+                                       max_batch=mb) as srv:
+                    if rate_hz > 0:
+                        await poisson_load(srv, n_clients=n_clients,
+                                           rate_hz=rate_hz,
+                                           n_requests=n_requests,
+                                           n_rounds=n_rounds, seed=seed)
+                    else:
+                        await closed_loop_load(srv, n_clients=n_clients,
+                                               n_requests=n_requests,
+                                               n_rounds=n_rounds,
+                                               seed=seed)
+
+            asyncio.run(go())
+            return service.metrics.summary()
+        finally:
+            service.close()
+
+    w = float(cfg.window_s if window_s is None else window_s)
+    out: Dict[str, object] = {
+        "batched": load(SchedulingService(cfg, device=device), w,
+                        int(cfg.batch))}
+    if baseline:
+        # the B = 1 lower bound keeps the horizon ladder but has no
+        # occupancy to bucket (an explicit batch_tiers would not fit)
+        seq = SchedulingService(dataclasses.replace(cfg, batch=1,
+                                                    batch_tiers=None),
+                                device=device)
+        out["sequential"] = load(seq, 0.0, 1)
+        out["speedup"] = (out["batched"]["rounds_per_s"]
+                          / out["sequential"]["rounds_per_s"])
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Batched scheduling service under synthetic load")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="B: packed cell slots per dispatch")
+    ap.add_argument("--max-rounds", type=int, default=4,
+                    help="L: the round horizon per dispatch")
+    ap.add_argument("--tiers", type=str, default=None,
+                    help="comma-separated horizon ladder (e.g. 8,32,128)"
+                         ": route each batch to the smallest tier that "
+                         "fits instead of padding to one max horizon")
+    ap.add_argument("--max-sessions", type=int, default=None,
+                    help="bound on device-resident sessions (LRU spill "
+                         "to host beyond it; default unbounded)")
+    ap.add_argument("--window-ms", type=float, default=2.0,
+                    help="batching window after the first request")
+    ap.add_argument("--clients", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=4,
+                    help="requests per client")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="rounds per request (default: max-rounds)")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="aggregate Poisson arrival rate in requests/s "
+                         "(0 = saturating closed loop)")
+    ap.add_argument("--scheduler", default="madca")
+    ap.add_argument("--warm-iters", type=int, default=0,
+                    help="VEDS+COT: warm P4 budget per candidate")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-baseline", action="store_true",
+                    help="skip the sequential B=1 baseline")
+    ap.add_argument("--json", action="store_true",
+                    help="emit one JSON line instead of text")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' on request)")
+    args = ap.parse_args(argv)
+
+    tiers = (None if args.tiers is None else
+             tuple(int(t) for t in args.tiers.split(",")))
+    cfg = ServeConfig(batch=args.batch, max_rounds=args.max_rounds,
+                      tiers=tiers, max_sessions=args.max_sessions,
+                      window_s=1e-3 * args.window_ms,
+                      scheduler=args.scheduler,
+                      ipm_warm_iters=args.warm_iters, seed=args.seed)
+    out = drive(cfg, n_clients=args.clients, n_requests=args.requests,
+                n_rounds=args.rounds, rate_hz=args.rate,
+                baseline=not args.no_baseline, seed=args.seed,
+                device=args.device)
+    if args.json:
+        print(json.dumps(out))
+        return 0
+    b = out["batched"]
+    print(f"batched  B={args.batch} window={args.window_ms}ms: "
+          f"{b['rounds_per_s']:8.1f} rounds/s  p50={b['p50_ms']:.1f}ms "
+          f"p99={b['p99_ms']:.1f}ms  occupancy={b['mean_occupancy']:.1f}")
+    if "sequential" in out:
+        s = out["sequential"]
+        print(f"sequential B=1:          {s['rounds_per_s']:8.1f} rounds/s"
+              f"  p50={s['p50_ms']:.1f}ms p99={s['p99_ms']:.1f}ms")
+        print(f"speedup: {out['speedup']:.1f}x aggregate rounds/s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

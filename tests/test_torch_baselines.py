@@ -31,6 +31,7 @@ from repro.core.scenario import ScenarioParams as JScenario
 from repro.core.scenario import make_round as j_make_round
 from repro.core.scenario import make_round_batch as j_make_round_batch
 from repro.core.scheduler import SchedulerCarry as JCarry
+from repro.core.veds import RoundInputs as JRoundInputs
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.core import baselines
 from repro_torch.core import lyapunov as lyp
@@ -126,6 +127,40 @@ def test_scheduler_matches_reference(hetero, sched, layout, with_carry):
                                    np.asarray(getattr(ref.carry, k)),
                                    rtol=rtol, atol=1e-9, err_msg=k)
     assert out.carry.p4 is None
+
+
+def test_madca_spends_budgets_to_their_end_as_the_compiled_reference(
+        singles):
+    """`madca` gives a vehicle full power while its budget lasts and the
+    rest, e_left / slot, in its last slot; the sign of what that leaves,
+    e_left - slot p, decides whether the vehicle takes one more slot. The
+    reference's compiled round computes the quotient as XLA rewrites it,
+    a product with the float32 1 / slot. Over 64 cells of budgets that
+    run out mid-round: slot counts and successes identical, and every
+    cell's energy and round-end queue within `RTOL`."""
+    rnd = singles[0]
+    rng = np.random.default_rng(5)
+    B = 64
+    tile = {f.name: None if getattr(rnd, f.name) is None else
+            tn(getattr(rnd, f.name))[None].repeat(B, 0)
+            for f in dataclasses.fields(RoundInputs)}
+    tile["e_sov"] = (tile["e_cp"] + rng.uniform(
+        0.0, 0.12, tile["e_cp"].shape)).astype(np.float32)
+    ours = RoundInputs(**{k: None if v is None else tt(v)
+                          for k, v in tile.items()})
+    ref = jax.jit(lambda r: j_get_scheduler("madca").solve_round(
+        r, JPRM, JCH, None))(JRoundInputs(
+            **{k: None if v is None else jnp.asarray(v)
+               for k, v in tile.items()}))
+    out = get_scheduler("madca").solve_round(ours, PRM, CH, None)
+    for k in DECISIONS:
+        np.testing.assert_array_equal(tn(out[k]), np.asarray(ref[k]),
+                                      err_msg=k)
+    for k in ("energy_sov", "zeta"):
+        np.testing.assert_allclose(tn(out[k]), np.asarray(ref[k]),
+                                   rtol=RTOL["madca"], atol=1e-9, err_msg=k)
+    np.testing.assert_allclose(tn(out.carry.qs), np.asarray(ref.carry.qs),
+                               rtol=RTOL["madca"], atol=1e-9)
 
 
 def test_registry_schedulers_follow_the_protocol():

@@ -9,7 +9,9 @@ the xLSTM smoke model's forward and backward on the card against the
 CPU, the MoE block's bitwise determinism, and the scheduling service
 (`launch/serve.py`): the same dispatch twice and a cell beside other
 neighbours bit for bit, packed and solo masks identical, spill and
-restore bit for bit, and no slot graph captured after `warmup()`.
+restore bit for bit, no slot graph captured after `warmup()`, and its
+front end (`BatchServer`) dispatching on one thread with no capture and
+its dispatch log replayed bit for bit.
 Marked
 `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
@@ -1091,3 +1093,51 @@ def test_serve_load_captures_no_slot_graph_after_warmup():
     assert svc.metrics.n_captures == 0
     assert set(svc.metrics.tier_hits) >= {"L1xB1", "L2xB2", "L2xB4"}
     svc.close()
+
+
+@pytest.mark.cuda
+def test_serve_batch_server_on_card_runs_dispatches_on_one_thread():
+    """After `warmup()`, a closed-loop load through `BatchServer` captures
+    no slot graph, runs every `run_batch` on one thread that is not the
+    event loop's, and the server's own dispatch log, replayed through
+    `run_batch` on a fresh service, gives every response and every stored
+    carry bit for bit."""
+    require_cuda()
+    import asyncio
+    import threading
+    from repro_torch.launch.serve import BatchServer, closed_loop_load
+    svc = _service(4, tiers=(1, 2))
+    svc.warmup()
+    log, real = [], svc.run_batch
+
+    def logged(reqs):
+        out = real(reqs)
+        log.append((threading.get_ident(), list(reqs), out))
+        return out
+
+    svc.run_batch = logged
+    n0 = port_veds._SlotGraph.captures
+    loop_threads = []
+
+    async def go():
+        loop_threads.append(threading.get_ident())
+        async with BatchServer(svc, window_s=0.01) as srv:
+            return await closed_loop_load(srv, n_clients=6, n_requests=3,
+                                          n_rounds=(1, 2), seed=5)
+
+    got = asyncio.run(go())
+    assert port_veds._SlotGraph.captures == n0
+    assert svc.metrics.n_captures == 0
+    threads = {t for t, _, _ in log}
+    assert len(threads) == 1 and loop_threads[0] not in threads
+    assert len(got) == 18 == sum(len(reqs) for _, reqs, _ in log)
+    fresh = _service(4, tiers=(1, 2))
+    fresh.warmup()
+    for _, reqs, resps in log:
+        for a, b in zip(fresh.run_batch(reqs), resps):
+            _same_response(a, b)
+    assert set(fresh.sessions) == set(svc.sessions)
+    for s in svc.sessions:
+        _same_carry(fresh.sessions[s], svc.sessions[s])
+    svc.close()
+    fresh.close()

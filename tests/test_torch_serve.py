@@ -10,13 +10,15 @@ draws and each request's round draws, selections and minibatch uniforms
 as the reference consumed them), under `madca` and under `veds` with the
 warm P4 table, at `tests/test_serve.py`'s small shapes.
 
-Tolerances: masks and `n_success` identical; losses within rtol
-`LOSS_RTOL`, each session's params within `PARAM_RTOL` of their largest
-entry, queues within `QUEUE_TOL`, the P4 table within `TABLE_ATOL` W
-(with the same entries moved off the seed), the other fleet fields equal
-(positions within 1e-4 m), each well above the fp32 rounding these
-shapes show. Each tolerance has a test showing that a plausible wrong
-port fails it (`test_reference_tolerances_fail_on_a_wrong_port`).
+Tolerances (`torch_ref_draws.py`, which holds `RefDrawService` and the
+`check_*` helpers this file shares with `test_torch_serve_front.py`):
+masks and `n_success` identical; losses within rtol `LOSS_RTOL`, each
+session's params within `PARAM_RTOL` of their largest entry, queues
+within `QUEUE_TOL`, the P4 table within `TABLE_ATOL` W (with the same
+entries moved off the seed), the other fleet fields equal (positions
+within 1e-4 m), each well above the fp32 rounding these shapes show.
+Each tolerance has a test showing that a plausible wrong port fails it
+(`test_reference_tolerances_fail_on_a_wrong_port`).
 
 The port's own contract mirrors `tests/test_serve.py`: packed equals
 solo bit for bit, padding inert, warm P4 across requests, tier routing,
@@ -24,7 +26,6 @@ validation, the LRU store's bitwise spill and restore (bf16 leaves
 included), each with a mutant that the check catches.
 """
 import dataclasses
-import zlib
 
 import jax
 import numpy as np
@@ -44,14 +45,14 @@ from repro_torch.core.solver import p4_seed_table
 from repro_torch.core.streaming import (StreamConfig, _zero_carry,
                                         pack_cells, sched_round_step,
                                         unpack_cell)
-from repro_torch.fl.engine import ClientShards, fused_rollout, init_carry
+from repro_torch.fl.engine import fused_rollout, init_carry
 from repro_torch.launch import serve as P
-from torch_port_util import tn, tt
+from torch_port_util import tn
+from torch_ref_draws import (RefDrawService, check_decisions, check_fleet,
+                             check_loss, check_params, check_queues,
+                             check_table)
 
 L = 3
-LOSS_RTOL = PARAM_RTOL = 1e-5
-QUEUE_TOL = dict(rtol=1e-4, atol=1e-6)
-TABLE_ATOL = 2e-5
 MADCA = dict(max_rounds=L, scheduler="madca", ipm_iters=4, ipm_warm_iters=2)
 VEDS = dict(max_rounds=2, scheduler="veds", n_sov=3, n_opv=2, n_slots=6,
             ipm_iters=4, ipm_warm_iters=2)
@@ -232,44 +233,6 @@ def test_ladders_and_route_match_reference(kw):
 
 # ---- run_batch against the reference's SchedulingService ----------------
 
-class RefDrawService(P.SchedulingService):
-    """The port's service fed the reference's data and draws: the
-    reference's `default_problem` arrays, each session's fleet from the
-    reference's session key, and each request's round draws, selections
-    and minibatch uniforms from the reference's `_padded_draws`.
-    `mb_shift` rolls a request's minibatch draws by that many rounds (a
-    wrong port, for the tolerance tests)."""
-
-    def __init__(self, cfg, jsvc, mb_shift=0):
-        self.jsvc, self.mb_shift = jsvc, mb_shift
-        _, _, shards = J.default_problem(cfg.n_clients)
-        data = {k: tt(v, torch.int64 if k == "y" else None)
-                for k, v in shards.data.items()}
-        super().__init__(
-            cfg, params={"w": torch.zeros(8, 3)},
-            loss_fn=P._linear_softmax_loss,
-            client_data=ClientShards(data, tt(shards.n_samples)),
-            device="cpu")
-        self.N = cfg.n_fleet or 2 * (cfg.n_sov + cfg.n_opv)
-
-    def _new_carry(self, session):
-        k = jax.random.fold_in(jax.random.key(self.cfg.seed),
-                               zlib.crc32(session.encode()))
-        draws = RD.init_fleet(jax.random.fold_in(k, 0xF1EE7), self.jsvc.sc,
-                              self.jsvc.mob, 1, self.cfg.n_fleet)
-        return init_carry(draws, self.sc, self.mob,
-                          dataclasses.replace(self._stream, batch=1),
-                          self.params0, ch=self.ch, device="cpu")
-
-    def _column(self, req, L):
-        keys, sel, mb_u, act = J._padded_draws(
-            int(req.n_rounds), L, self.shards.n_clients, self.cfg.n_sov,
-            self.cfg.batch_size)(int(req.seed))
-        mb_u = torch.roll(tt(mb_u), self.mb_shift, 0)
-        return ([RD.fleet_round(k, self.jsvc.sc, 1, self.N) for k in keys],
-                tt(sel, torch.int64), mb_u, np.asarray(act))
-
-
 def _waves(kw, B):
     if kw["scheduler"] == "madca":
         return [[(f"s{i}", 1 + (i + w) % L, 10 * w + i) for i in range(B)]
@@ -303,58 +266,6 @@ def _port_run(name, reference_runs, mb_shift=0, **cfg_kw):
     return svc, _serve(svc, P.ServeRequest, _waves(kw, B))
 
 
-def _check_decisions(ref, ours):
-    for rw, ow in zip(ref, ours):
-        for r, o in zip(rw, ow):
-            np.testing.assert_array_equal(o.success, r.success)
-            np.testing.assert_array_equal(o.n_success, r.n_success)
-
-
-def _check_loss(ref, ours):
-    for rw, ow in zip(ref, ours):
-        for r, o in zip(rw, ow):
-            np.testing.assert_allclose(o.loss, r.loss, rtol=LOSS_RTOL,
-                                       atol=0)
-
-
-def _check_params(jsvc, svc):
-    for s in jsvc.sessions:
-        a = np.asarray(jsvc.sessions[s].params["w"])
-        b = tn(svc.sessions[s].params["w"])
-        assert np.max(np.abs(a - b)) <= PARAM_RTOL * np.max(np.abs(a)), s
-
-
-def _check_queues(jsvc, svc):
-    for s in jsvc.sessions:
-        np.testing.assert_allclose(tn(svc.sessions[s].sched.queue),
-                                   np.asarray(jsvc.sessions[s].sched.queue),
-                                   **QUEUE_TOL, err_msg=s)
-
-
-def _check_table(jsvc, svc):
-    """The P4 table as ROADMAP queue 3 holds it: the same entries moved
-    off the seed, each within TABLE_ATOL W of the reference's."""
-    for s in jsvc.sessions:
-        a = np.asarray(jsvc.sessions[s].sched.p4_tab)
-        b = tn(svc.sessions[s].sched.p4_tab)
-        seed = tn(p4_seed_table(b.shape, svc.ch.p_max, device="cpu"))
-        np.testing.assert_array_equal(b != seed, a != seed, err_msg=s)
-        np.testing.assert_allclose(b, a, rtol=0, atol=TABLE_ATOL,
-                                   err_msg=s)
-
-
-def _check_fleet(jsvc, svc):
-    for s in jsvc.sessions:
-        ref, ours = jsvc.sessions[s].sched, svc.sessions[s].sched
-        for f in ("dir", "speed", "jitter", "allowance", "energy", "rsu_xy",
-                  "covered", "cell_id"):
-            np.testing.assert_array_equal(tn(getattr(ours, f)),
-                                          np.asarray(getattr(ref, f)),
-                                          err_msg=f)
-        np.testing.assert_allclose(tn(ours.pos), np.asarray(ref.pos),
-                                   rtol=0, atol=1e-4)
-
-
 @pytest.mark.parametrize("name", sorted(PARITY))
 def test_run_batch_matches_reference(name, reference_runs):
     """Two waves of ragged requests (the second resuming every session)
@@ -362,12 +273,12 @@ def test_run_batch_matches_reference(name, reference_runs):
     floats within the stated tolerances, every stored carry compared."""
     jsvc, ref = reference_runs[name]
     svc, ours = _port_run(name, reference_runs)
-    _check_decisions(ref, ours)
-    _check_loss(ref, ours)
-    _check_params(jsvc, svc)
-    _check_queues(jsvc, svc)
-    _check_table(jsvc, svc)
-    _check_fleet(jsvc, svc)
+    check_decisions(ref, ours)
+    check_loss(ref, ours)
+    check_params(jsvc, svc)
+    check_queues(jsvc, svc)
+    check_table(jsvc, svc)
+    check_fleet(jsvc, svc)
     assert set(svc.sessions) == set(jsvc.sessions)
     assert [[o.tier for o in w] for w in ours] == \
         [[r.tier for r in w] for w in ref]
@@ -383,10 +294,10 @@ def _split_from_cell_0(state, n):
 
 
 @pytest.mark.parametrize("mutant,checks", [
-    ("minibatch_off_by_one_round", (_check_loss, _check_params)),
-    ("queues_not_carried", (_check_queues,)),
-    ("warm_table_not_threaded", (_check_table,)),
-    ("every_cell_split_from_cell_0", (_check_fleet,))])
+    ("minibatch_off_by_one_round", (check_loss, check_params)),
+    ("queues_not_carried", (check_queues,)),
+    ("warm_table_not_threaded", (check_table,)),
+    ("every_cell_split_from_cell_0", (check_fleet,))])
 def test_reference_tolerances_fail_on_a_wrong_port(mutant, checks,
                                                    reference_runs,
                                                    monkeypatch):
@@ -406,7 +317,7 @@ def test_reference_tolerances_fail_on_a_wrong_port(mutant, checks,
     jsvc, ref = reference_runs[name]
     svc, ours = _port_run(name, reference_runs, **kw)
     for check in checks:
-        args = (ref, ours) if check is _check_loss else (jsvc, svc)
+        args = (ref, ours) if check is check_loss else (jsvc, svc)
         with pytest.raises(AssertionError):
             check(*args)
 

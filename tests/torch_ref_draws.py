@@ -7,14 +7,33 @@ Each function mirrors where the reference splits its key: `init_mobility`
 (the turn uniform from the key, the heading bits from fold_in(key, 1)
 and fold_in(key, 2)), `channel_gain` (k1..k5 = split(key, 5); a
 bernoulli(k, p) is uniform(k) < p), and the scenario builders above
-them. Shared by `test_torch_streaming.py` and `test_torch_fused.py`."""
+them. Shared by `test_torch_streaming.py` and `test_torch_fused.py`.
+
+Below them, the scheduling service fed those draws (`RefDrawService`)
+and the checks that hold its responses and stored carries against the
+reference's, shared by `test_torch_serve.py` and
+`test_torch_serve_front.py`: masks and `n_success` identical; losses
+within rtol `LOSS_RTOL`, each session's params within `PARAM_RTOL` of
+their largest entry, queues within `QUEUE_TOL`, the P4 table within
+`TABLE_ATOL` W (with the same entries moved off the seed), the other
+fleet fields equal (positions within 1e-4 m)."""
+import dataclasses
 import functools
+import zlib
 
 import jax
 import numpy as np
 import torch
 
-from torch_port_util import tt
+from repro.launch import serve as J
+from repro_torch.core.solver import p4_seed_table
+from repro_torch.fl.engine import ClientShards, init_carry
+from repro_torch.launch import serve as P
+from torch_port_util import tn, tt
+
+LOSS_RTOL = PARAM_RTOL = 1e-5
+QUEUE_TOL = dict(rtol=1e-4, atol=1e-6)
+TABLE_ATOL = 2e-5
 
 
 def _t(tree):
@@ -154,3 +173,106 @@ def _trajectory_batch(key, b, num_map_nodes):
         "curls": jax.random.normal(k3, (b, 1)) * 0.05,
         "accel": jax.random.normal(k5, (b, 1)) * 0.05,
         "off": jax.random.normal(k4, (b, num_map_nodes, 2)) * 2.0}
+
+
+# ---- the scheduling service ------------------------------------------------
+
+class RefDrawService(P.SchedulingService):
+    """The port's service fed the reference's data and draws: the
+    reference's `default_problem` arrays, each session's fleet from the
+    reference's session key, and each request's round draws, selections
+    and minibatch uniforms from the reference's `_padded_draws`.
+    `mb_shift` rolls a request's minibatch draws by that many rounds (a
+    wrong port, for the tolerance tests)."""
+
+    def __init__(self, cfg, jsvc, mb_shift=0):
+        self.jsvc, self.mb_shift = jsvc, mb_shift
+        _, _, shards = J.default_problem(cfg.n_clients)
+        data = {k: tt(v, torch.int64 if k == "y" else None)
+                for k, v in shards.data.items()}
+        super().__init__(
+            cfg, params={"w": torch.zeros(8, 3)},
+            loss_fn=P._linear_softmax_loss,
+            client_data=ClientShards(data, tt(shards.n_samples)),
+            device="cpu")
+        self.N = cfg.n_fleet or 2 * (cfg.n_sov + cfg.n_opv)
+
+    def _new_carry(self, session):
+        k = jax.random.fold_in(jax.random.key(self.cfg.seed),
+                               zlib.crc32(session.encode()))
+        draws = init_fleet(jax.random.fold_in(k, 0xF1EE7), self.jsvc.sc,
+                              self.jsvc.mob, 1, self.cfg.n_fleet)
+        return init_carry(draws, self.sc, self.mob,
+                          dataclasses.replace(self._stream, batch=1),
+                          self.params0, ch=self.ch, device="cpu")
+
+    def _column(self, req, L):
+        keys, sel, mb_u, act = J._padded_draws(
+            int(req.n_rounds), L, self.shards.n_clients, self.cfg.n_sov,
+            self.cfg.batch_size)(int(req.seed))
+        mb_u = torch.roll(tt(mb_u), self.mb_shift, 0)
+        return ([fleet_round(k, self.jsvc.sc, 1, self.N) for k in keys],
+                tt(sel, torch.int64), mb_u, np.asarray(act))
+
+
+def check_decisions(ref, ours):
+    for rw, ow in zip(ref, ours):
+        for r, o in zip(rw, ow):
+            np.testing.assert_array_equal(o.success, r.success)
+            np.testing.assert_array_equal(o.n_success, r.n_success)
+
+
+def check_loss(ref, ours):
+    for rw, ow in zip(ref, ours):
+        for r, o in zip(rw, ow):
+            np.testing.assert_allclose(o.loss, r.loss, rtol=LOSS_RTOL,
+                                       atol=0)
+
+
+def check_params(jsvc, svc):
+    for s in jsvc.sessions:
+        a = np.asarray(jsvc.sessions[s].params["w"])
+        b = tn(svc.sessions[s].params["w"])
+        assert np.max(np.abs(a - b)) <= PARAM_RTOL * np.max(np.abs(a)), s
+
+
+def check_queues(jsvc, svc, parted=()):
+    """Every stored queue within `QUEUE_TOL` of the reference's, except
+    the (session, vehicle) entries of `parted`, which must part from it
+    by more (a known case where the reference parts from itself)."""
+    skip = np.zeros((len(parted),), bool)
+    for s in jsvc.sessions:
+        ours = tn(svc.sessions[s].sched.queue).copy()
+        ref = np.asarray(jsvc.sessions[s].sched.queue).copy()
+        for i, (ps, v) in enumerate(parted):
+            if ps == s:
+                skip[i] = not np.allclose(ours[..., v], ref[..., v],
+                                          **QUEUE_TOL)
+                ours[..., v] = ref[..., v]
+        np.testing.assert_allclose(ours, ref, **QUEUE_TOL, err_msg=s)
+    assert skip.all(), ("these queues no longer part from the reference",
+                        [p for p, k in zip(parted, skip) if not k])
+
+
+def check_table(jsvc, svc):
+    """The P4 table as ROADMAP queue 3 holds it: the same entries moved
+    off the seed, each within TABLE_ATOL W of the reference's."""
+    for s in jsvc.sessions:
+        a = np.asarray(jsvc.sessions[s].sched.p4_tab)
+        b = tn(svc.sessions[s].sched.p4_tab)
+        seed = tn(p4_seed_table(b.shape, svc.ch.p_max, device="cpu"))
+        np.testing.assert_array_equal(b != seed, a != seed, err_msg=s)
+        np.testing.assert_allclose(b, a, rtol=0, atol=TABLE_ATOL,
+                                   err_msg=s)
+
+
+def check_fleet(jsvc, svc):
+    for s in jsvc.sessions:
+        ref, ours = jsvc.sessions[s].sched, svc.sessions[s].sched
+        for f in ("dir", "speed", "jitter", "allowance", "energy", "rsu_xy",
+                  "covered", "cell_id"):
+            np.testing.assert_array_equal(tn(getattr(ours, f)),
+                                          np.asarray(getattr(ref, f)),
+                                          err_msg=f)
+        np.testing.assert_allclose(tn(ours.pos), np.asarray(ref.pos),
+                                   rtol=0, atol=1e-4)
