@@ -82,6 +82,17 @@ with its kernel launches counted from 0:
   service bit for bit, and `main()` with no `--device`, each dispatch
   checked to run on the server's executor thread, to capture no slot
   graph and to launch `veds_score` T times a packed round.
+- the sharded rollout (`sharding/mesh_exec.py`, `phase_mesh`) on a
+  one-rank NCCL world: 4 cells of the `rsu_grid` with handoff at fig10's
+  width (VEDS with warm P4), 10 rounds through `fused_rollout` and
+  `mesh_fused_rollout` from the same carry and keys, then `stream_rounds`
+  beside `mesh_stream_rounds`, each mesh run bit for bit its one-device
+  run with its collectives run (the exchange's all-gathers,
+  `gather_result`), `veds_score` T x R times on each; the exchange timed
+  alone. After whisper-small's VFL loop, its last params go through the
+  npz checkpoint (`phase_checkpoint`: saved by `train(ckpt=...)`, loaded
+  to the card, the eval loss equal to the run's, saved again byte for
+  byte).
 
 The VFL rounds' masks must be those recorded before the bf16 kernels
 moved to the tensor cores (the schedule does not depend on the kernels);
@@ -110,8 +121,10 @@ import io
 import json
 import math
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -217,6 +230,12 @@ SERVE_FIG10 = dict(batch=8, tiers=(2, 4, 8), scheduler="veds", n_sov=10,
 SERVE_SESSIONS, SERVE_MIX, SERVE_WINDOW = 12, (2, 4, 8, 2, 4), 8
 SERVE_TRACK = ((0, 0), (0, 1), (5, 0), (5, 1))
 SERVE_LOSS_RTOL = SERVE_CARRY_RTOL = 1e-5
+# the sharded rollout (`sharding/mesh_exec.py`) on a one-rank NCCL world:
+# fig10's width (S=U=10, T=60, fleets of 40, batch 32, warm P4) on
+# MESH_BATCH cells of the rsu_grid with handoff, MESH_ROUNDS rounds, each
+# path beside its one-device loop; the exchange timed MESH_EXCHANGE_REPS
+# times on the run's fleet
+MESH_BATCH, MESH_ROUNDS, MESH_SEED, MESH_EXCHANGE_REPS = 4, 10, 17, 21
 # the eval loss at init through the kernels may move from the plain
 # versions' by at most SENS_ULP_FACTOR times the largest move that
 # SENS_DRAWS random one-ulp changes of every nonzero bf16 weight make
@@ -1862,14 +1881,16 @@ def vfl_config(arch: str, reps: int, vehicles: int = VFL_VEHICLES):
 
 
 def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
-              lr: float, masks=None):
+              lr: float, masks=None, ckpt=None):
     """The VFL loop of `launch/train.py` (`make_train_step` with the
     scheduler inline) on the card, every kernel count set to 0 first:
     per round the wall time, its stages (each closed by a device
     synchronisation), the schedule's outcome, the eval loss and the peak
     memory; then the launch counts against those the code implies, and
     the masks against `masks` (an entry of RECORDED_MASKS) where given.
-    A model that reads `src` gets its batches from `src_lm_batch`."""
+    A model that reads `src` gets its batches from `src_lm_batch`.
+    `ckpt` is passed to `train`, which saves vehicle 0's params there
+    after the last round."""
     from repro_torch.data.synthetic import src_lm_batch
     from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
@@ -1919,7 +1940,8 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
         hist = train(cfg, rounds=warmup + rounds, batch_per_vehicle=batch,
                      seq=seq, lr=lr, seed=0, device=device,
                      log=lambda m: log(phase, m), stage_hook=hook,
-                     on_round=on_round, batch_fn=src_lm_batch(cfg))
+                     on_round=on_round, batch_fn=src_lm_batch(cfg),
+                     ckpt=ckpt)
     captures = _SlotGraph.captures - captures
     launches = {"flash_attention": flash_attention_fwd.launches,
                 "fedavg_agg": fedavg_agg.launches,
@@ -1982,6 +2004,231 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
                 expected_launches=want, lr=lr, graph_captures=captures,
                 timed_wall_s=[r["wall_s"] for r in timed],
                 history_len=len(hist), changed_bf16_round0=share)
+
+
+def _bits_equal(a, b) -> bool:
+    """Two trees of tensors (dataclasses, dicts, tuples) equal bit for
+    bit."""
+    from repro_torch.core.scheduler import zip_tree
+
+    def raw(x):
+        x = x.reshape(-1).contiguous()
+        return x.view(torch.uint8) if x.is_floating_point() else x
+
+    same = []
+    zip_tree(lambda x, y: same.append(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(raw(x), raw(y))), a, b)
+    if not all(same):
+        gaps = []
+        zip_tree(lambda x, y: gaps.append(float((x.double() - y.double())
+                                                .abs().max())), a, b)
+        log("mesh", f"differing leaves {[i for i, k in enumerate(same) if not k]}"
+            f" of {len(same)}; largest gaps {gaps}")
+    return all(same)
+
+
+def phase_mesh(device, setup):
+    """The sharded rollout (`sharding/mesh_exec.py`) on a one-rank NCCL
+    world (a `file://` store in a temporary directory): MESH_BATCH cells
+    of the `rsu_grid` with handoff at fig10's width (the CNN and data of
+    `make_fl_setup`, S=U=10, T=60, fleets of 40, batch 32, VEDS with warm
+    P4 at `ipm_warm_iters` STREAM_WARM_ITERS), MESH_ROUNDS rounds through
+    `fused_rollout` and through `mesh_fused_rollout` from the same carry
+    and keys, then `stream_rounds` beside `mesh_stream_rounds`. The
+    collectives run at world size 1 (the exchange's all-gathers,
+    `gather_result`), and each mesh run must be its one-device run bit
+    for bit: masks, decisions, `cell_id`, every fleet field, params and
+    losses (cuDNN's deterministic algorithms for the phase: its default
+    convolution backward may sum in another order from run to run).
+    `veds_score` must run T x R times on each path. One untimed round
+    first captures the slot graph and warms cuDNN. Logs each path's wall
+    time a round, the exchange's time (all-gather plus permutation, on
+    the run's final fleet) and the migrated fraction."""
+    import dataclasses
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.baselines import get_scheduler
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import (ScenarioParams, exchange_fleet,
+                                           migrated_fraction)
+    from repro_torch.core.streaming import (StreamConfig, round_keys,
+                                            stream_rounds)
+    from repro_torch.core.veds import _SlotGraph
+    from repro_torch.fl.engine import ClientShards, fused_rollout, init_carry
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.models.cnn import cnn_loss
+    from repro_torch.sharding import mesh_exec
+    params, client_data, _, sim = setup
+    mob, ch = ManhattanParams(v_max=sim.v_max), ChannelParams()
+    prm = VedsParams(alpha=sim.alpha, V=sim.V, Q=sim.q_bits, slot=0.1,
+                     ipm_warm_iters=STREAM_WARM_ITERS)
+    sc = ScenarioParams(n_sov=sim.n_sov, n_opv=sim.n_opv,
+                        n_slots=sim.n_slots, batch_size=sim.batch_size)
+    R, B = MESH_ROUNDS, MESH_BATCH
+    cfg = StreamConfig(n_rounds=R, batch=B, fresh_fleet=False,
+                       carry_queues=True, handoff=True)
+    sched = get_scheduler("veds")
+    shards = ClientShards.from_ragged(client_data, device)
+    g = torch.Generator(device=device).manual_seed(MESH_SEED)
+    sel = torch.randint(0, sim.n_clients, (R, B, sim.n_sov), generator=g,
+                        device=device)
+    mb_u = torch.rand((R, B, sim.n_sov, sim.batch_size), generator=g,
+                      device=device)
+    keys = round_keys(MESH_SEED, cfg, R)
+    out = {}
+
+    def carry():
+        return init_carry(MESH_SEED, sc, mob, cfg, params, ch=ch,
+                          device=device)
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        veds_dt_score.launches = 0
+        captures = _SlotGraph.captures
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = veds_dt_score.launches
+        out[label] = dict(wall_s=wall, round_ms=wall / R * 1e3,
+                          launches={"veds_score": launches},
+                          graph_captures=_SlotGraph.captures - captures)
+        log("mesh", f"{label}: {R} rounds of {B} cells in {wall:.3f} s, "
+            f"{wall / R * 1e3:.2f} ms a round; veds_score launches "
+            f"{launches} (expected {R * sc.n_slots}); slot graphs captured "
+            f"{out[label]['graph_captures']}")
+        check(launches == R * sc.n_slots, f"mesh {label}: veds_score "
+              f"launched {launches} times, expected {R * sc.n_slots}")
+        return res
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fused_rollout(keys[:1], sel[:1], mb_u[:1], sched, sc, mob, ch, prm, cfg,
+                  cnn_loss, shards, carry(), lr=sim.lr)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_world(0, 1, f"{tmp}/store", "cuda")
+        try:
+            check(dist.get_backend() == "nccl", "mesh: the world is not NCCL")
+            mesh = mesh_exec.fleet_mesh(1)
+            out["init_s"] = time.perf_counter() - t0
+            log("mesh", f"one-rank NCCL world and mesh {mesh} in "
+                f"{out['init_s']:.3f} s")
+            fleet0 = carry().sched
+            one = timed("run_fl", lambda: fused_rollout(
+                keys, sel, mb_u, sched, sc, mob, ch, prm, cfg, cnn_loss,
+                shards, carry(), lr=sim.lr))
+            local = timed("mesh_run_fl", lambda: mesh_exec.mesh_fused_rollout(
+                mesh, keys, sel, mb_u, sched, sc, mob, ch, prm, cfg,
+                cnn_loss, shards, carry(), lr=sim.lr))
+            got = mesh_exec.gather_result(mesh, local)
+            for k in ("outputs", "fleet", "params", "loss", "carry"):
+                check(_bits_equal(getattr(got, k), getattr(one, k)),
+                      f"mesh_fused_rollout's {k} differ from fused_rollout's")
+            s_one = timed("stream", lambda: stream_rounds(
+                MESH_SEED, sched, sc, mob, ch, prm, cfg, device=device))
+            s_got = mesh_exec.gather_result(mesh, timed(
+                "mesh_stream", lambda: mesh_exec.mesh_stream_rounds(
+                    mesh, MESH_SEED, sched, sc, mob, ch, prm, cfg)))
+            for k in ("outputs", "fleet", "carry"):
+                check(_bits_equal(getattr(s_got, k), getattr(s_one, k)),
+                      f"mesh_stream_rounds's {k} differ from "
+                      f"stream_rounds's")
+            check(bool(torch.isfinite(got.loss).all()) and all(
+                bool(torch.isfinite(v).all()) for v in got.params.values()),
+                "mesh: losses or params not finite")
+            # the exchange alone on the run's final fleet: the all-gathered
+            # one and the one-device permutation
+            ex = mesh_exec.allgather_exchange(mesh.get_group("data"))
+            fl = local.fleet
+            ex_ms = [], []
+            for _ in range(MESH_EXCHANGE_REPS):
+                for i, fn in enumerate((ex, exchange_fleet)):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    moved = fn(fl, mob)
+                    torch.cuda.synchronize()
+                    ex_ms[i].append((time.perf_counter() - t1) * 1e3)
+            check(_bits_equal(moved, ex(fl, mob)), "mesh: the all-gathered "
+                  "exchange differs from the one-device one")
+            out["exchange_ms"] = statistics.median(ex_ms[0])
+            out["exchange_one_device_ms"] = statistics.median(ex_ms[1])
+            out["migrated_per_exchange"] = migrated_fraction(fl, moved)
+            out["migrated_over_run"] = migrated_fraction(fleet0, got.fleet)
+            out["parked"] = int((got.fleet.cell_id < 0).sum())
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = deterministic
+    out["n_success"] = [int(x) for x in got.outputs.n_success.sum(0)]
+    log("mesh", f"exchange a round: {out['exchange_ms']:.3f} ms all-gathered "
+        f"(median of {MESH_EXCHANGE_REPS}; one-device permutation alone "
+        f"{out['exchange_one_device_ms']:.3f} ms); migrated "
+        f"{out['migrated_per_exchange']:.4f} of the vehicles in one exchange "
+        f"of the final fleet, {out['migrated_over_run']:.4f} over the run; "
+        f"{out['parked']} parked; successes by cell {out['n_success']}; "
+        f"mesh / one-device wall a round: fused "
+        f"{out['mesh_run_fl']['round_ms'] / out['run_fl']['round_ms']:.3f}, "
+        f"stream "
+        f"{out['mesh_stream']['round_ms'] / out['stream']['round_ms']:.3f}; "
+        f"masks, cell_id, fleet, params and losses bit for bit equal")
+    return out
+
+
+def phase_checkpoint(device, cfg, path: str, loss: float, seq: int):
+    """The npz checkpoint of `cfg`'s VFL run that `train(ckpt=path)` wrote
+    (vehicle 0's params after the last round): loaded into the model's
+    template on the card (timed), its eval loss on `train`'s eval batch
+    equal to the last round's `loss`, saved again (timed) to a file whose
+    arrays are the first's byte for byte, and both files removed."""
+    import os
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.data.synthetic import src_lm_batch
+    from repro_torch.fl.vfl import lm_loss
+    from repro_torch.launch.train import EVAL_STREAM, _generator
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize, tree_leaves
+    decl = engine.model_decl(cfg, "head")
+    like = materialize(torch.Generator(device=device).manual_seed(1), decl)
+    size = os.path.getsize(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = load_checkpoint(path, like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check([(x.dtype, x.shape) for x in tree_leaves(got)]
+          == [(x.dtype, x.shape) for x in tree_leaves(like)],
+          "checkpoint: leaves of other dtypes or shapes")
+    batch = src_lm_batch(cfg)(_generator(0, EVAL_STREAM, 0, device), 8, seq,
+                              cfg.vocab_size)
+    with torch.no_grad():
+        again = float(lm_loss(got, batch, cfg, "head"))
+    check(again == loss, f"checkpoint: eval loss {again!r} of the loaded "
+          f"params, {loss!r} in the run")
+    path2 = path.replace(".npz", "") + ".again.npz"
+    t0 = time.perf_counter()
+    save_checkpoint(path2, got)
+    save_s = time.perf_counter() - t0
+    with np.load(path) as a, np.load(path2) as b:
+        check(list(a.keys()) == list(b.keys()) and all(
+            a[k].dtype.str == b[k].dtype.str and a[k].tobytes()
+            == b[k].tobytes() for k in a.keys()),
+            "checkpoint: the second save's arrays differ from the first's")
+        n_bf16 = sum(a[k].dtype.str == "|V2" for k in a.keys())
+    for f in (path, path2):
+        os.remove(f)
+        os.remove(f.replace(".npz", "") + ".meta.json")
+    out = dict(file_bytes=size, load_s=load_s, save_s=save_s,
+               leaves=len(tree_leaves(got)), bf16_leaves=n_bf16,
+               eval_loss=again)
+    log("checkpoint", f"{cfg.name}: {size / 1e6:.1f} MB, {out['leaves']} "
+        f"leaves ({n_bf16} bf16 as |V2); load to the card {load_s:.3f} s, "
+        f"save from it {save_s:.3f} s; eval loss of the loaded params "
+        f"{again:.6f} = the run's; the second save byte for byte the first")
+    return out
 
 
 def phase_moe(device, cfg, batch: int, seq: int, seed: int = 31):
@@ -3108,6 +3355,7 @@ def main(argv=None) -> int:
     compare = phase_compare(device, setup)
     compare_ref = phase_compare_reference(device)
     stream_compare = phase_stream_compare(device, setup)
+    mesh = phase_mesh(device, setup)
     del setup
     free()
     serve_ref = phase_serve_reference(device)
@@ -3140,15 +3388,24 @@ def main(argv=None) -> int:
     # the last two families at full width and depth: xLSTM, and whisper's
     # encoder with the cross-attention fed from it
     new_vfl = {}
+    ckpt_dir = tempfile.mkdtemp()
     for arch, reps, lr in (("xlstm-1.3b", XLSTM_REPS, XLSTM_LR),
                            ("whisper-small", WHISPER_REPS, WHISPER_LR)):
         cfg = vfl_config(arch, reps)
+        # whisper-small (279 M parameters) saves its last round's params
+        ckpt = (f"{ckpt_dir}/{arch}.npz" if arch == "whisper-small"
+                else None)
         res = phase_vfl(device, cfg, VFL_WARMUP, VFL_ROUNDS, VFL_BATCH,
-                        VFL_SEQ, lr, RECORDED_MASKS[arch])
+                        VFL_SEQ, lr, RECORDED_MASKS[arch], ckpt=ckpt)
         free()
         if arch == "xlstm-1.3b":
             res["blocks"] = phase_xlstm_blocks(device, cfg, VFL_BATCH,
                                                VFL_SEQ, res)
+            free()
+        else:
+            res["checkpoint"] = phase_checkpoint(
+                device, cfg, ckpt, res["rounds"][-1]["loss"], VFL_SEQ)
+            os.rmdir(ckpt_dir)
             free()
         new_vfl[arch] = (cfg, res)
     xlstm, whisper = new_vfl["xlstm-1.3b"][1], new_vfl["whisper-small"][1]
@@ -3206,6 +3463,8 @@ def main(argv=None) -> int:
                 "closed"]
             out["serve_front_poisson"] = serve_front["launches"][name][
                 "poisson"]
+            out["mesh_run_fl"] = mesh["mesh_run_fl"]["launches"][name]
+            out["mesh_stream"] = mesh["mesh_stream"]["launches"][name]
         return out
 
     def timed(r, **extra):
@@ -3293,7 +3552,7 @@ def main(argv=None) -> int:
         ssd_kernels=ssd_kernels, main=main_res, stages=stages,
         reference=ref, stream=stream, stream_reference=stream_ref,
         compare=compare, compare_reference=compare_ref,
-        stream_compare=stream_compare, serve_reference=serve_ref,
+        stream_compare=stream_compare, mesh=mesh, serve_reference=serve_ref,
         serve=serve, serve_front=serve_front,
         stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
         vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,

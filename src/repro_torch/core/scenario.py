@@ -409,7 +409,11 @@ def exchange_fleet(fleet: FleetState, mob: ManhattanParams) -> FleetState:
     row-major order, parked with `cell_id = -1` and `covered = False`.
     A vehicle that changed cells gets `covered = False` (one round of
     handover delay where `handover_delay` is on). For B = 1 the exchange
-    is the identity."""
+    is the identity.
+
+    This is the one-device exchange; the round loops take it as their
+    `exchange=` argument, where a process holding a block of the cells
+    passes `repro_torch.sharding.mesh_exec.allgather_exchange`."""
     B, N = fleet.batch_size, fleet.n_vehicles
     M = B * N
     dev = fleet.pos.device
@@ -564,17 +568,18 @@ def fleet_round(key, fleet: FleetState, sc: ScenarioParams,
 def rollout_rounds(keys: Sequence, fleet: FleetState, sc: ScenarioParams,
                    mob: ManhattanParams, ch: ChannelParams, prm: VedsParams,
                    n_rounds: int, *, handover_delay: bool = False,
-                   handoff: bool = False
+                   handoff: bool = False, exchange=exchange_fleet
                    ) -> Tuple[FleetState, RoundInputs, FleetSelection]:
     """R resumable rounds of one persistent fleet, one round key each
     (`keys[:n_rounds]`): returns (final fleet, RoundInputs [R, B, T, ...],
     FleetSelection [R, B, ...]). Scheduling is not included
     (`repro_torch.core.streaming.stream_rounds` adds it). With `handoff`
-    each round starts with the cross-cell exchange."""
+    each round starts with the cross-cell exchange, `exchange(fleet,
+    mob)`."""
     rnds, sels = [], []
     for k in list(keys)[:n_rounds]:
         if handoff:
-            fleet = exchange_fleet(fleet, mob)
+            fleet = exchange(fleet, mob)
         fleet, rnd, sel = fleet_round(k, fleet, sc, mob, ch, prm,
                                       handover_delay=handover_delay,
                                       handoff=handoff)

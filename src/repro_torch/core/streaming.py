@@ -263,7 +263,8 @@ def round_carry(fl, sel, warm: bool, carry_queues: bool):
 
 def sched_round_step(state: SchedState, k, sched, sc: ScenarioParams,
                      mob: ManhattanParams, ch: ChannelParams,
-                     prm: VedsParams, cfg: StreamConfig, stage_hook=None):
+                     prm: VedsParams, cfg: StreamConfig, stage_hook=None,
+                     exchange=exchange_fleet):
     """One round of scheduling: advance the fleet (or draw a fresh one
     from round key `k`), run the scheduler with the carried queues and
     scatter queue/energy updates back. Returns (state', RoundOutputs).
@@ -278,7 +279,9 @@ def sched_round_step(state: SchedState, k, sched, sc: ScenarioParams,
     `k` may be one round key or a sequence of B per-cell keys (the
     serving layer's packed sessions): per-cell keys need the persistent
     fleet's per-cell draws (`fleet_round`), so fresh-fleet mode rejects
-    them."""
+    them. With `cfg.handoff` the round starts with `exchange(state,
+    mob)`: the one-device `exchange_fleet`, or where the cells are split
+    over processes the exchange of `mesh_exec.allgather_exchange`."""
     hook = stage_hook or (lambda name: None)
     if cfg.fresh_fleet:
         if per_cell(k):
@@ -295,7 +298,7 @@ def sched_round_step(state: SchedState, k, sched, sc: ScenarioParams,
         return out.carry, out
 
     if cfg.handoff:
-        state = exchange_fleet(state, mob)
+        state = exchange(state, mob)
     fl, rnd, sel = fleet_round(k, state, sc, mob, ch, prm,
                                handover_delay=cfg.handover_delay,
                                handoff=cfg.handoff)
@@ -330,14 +333,15 @@ def sched_round_step(state: SchedState, k, sched, sc: ScenarioParams,
 def stream_rounds(key, sched, sc: ScenarioParams, mob: ManhattanParams,
                   ch: ChannelParams, prm: VedsParams, cfg: StreamConfig,
                   fleet: Optional[FleetState] = None, *,
-                  keys: Optional[Sequence] = None,
-                  device=None) -> StreamResult:
+                  keys: Optional[Sequence] = None, device=None,
+                  exchange=exchange_fleet) -> StreamResult:
     """Roll out `cfg.n_rounds` rounds of `cfg.batch` cells. `key` is the
     run's seed: the rounds use `round_keys(key, ...)` unless `keys` (one
     round key each) is given, and the fleet draws from its own stream
     unless `fleet` is given. Resumable: pass the returned `fleet` and the
     next rounds' `keys` to continue. Runs on `device` (CUDA by default;
-    the fleet's device where a fleet is given)."""
+    the fleet's device where a fleet is given). `exchange` is the
+    cross-cell exchange of `cfg.handoff` (`sched_round_step`)."""
     R = int(cfg.n_rounds)
     validate_stream_config(cfg)
     if fleet is not None:
@@ -353,7 +357,7 @@ def stream_rounds(key, sched, sc: ScenarioParams, mob: ManhattanParams,
     outs = []
     for k in keys:
         state, out = sched_round_step(state, k, sched, sc, mob, ch, prm,
-                                      cfg)
+                                      cfg, exchange=exchange)
         outs.append(out)
     outputs = stack_tree(outs)
     if cfg.fresh_fleet:

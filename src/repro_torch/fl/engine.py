@@ -34,7 +34,8 @@ import torch
 from repro_torch.channel.mobility import ManhattanParams
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.core.lyapunov import VedsParams
-from repro_torch.core.scenario import FleetState, ScenarioParams, per_cell
+from repro_torch.core.scenario import (FleetState, ScenarioParams,
+                                       exchange_fleet, per_cell)
 from repro_torch.core.scheduler import (RolloutCarry, RoundOutputs,
                                         SchedulerCarry, map_tensors,
                                         map_tree, stack_tree, zip_tree)
@@ -230,7 +231,8 @@ def fused_rollout(keys: Sequence, sel: torch.Tensor, mb_u: torch.Tensor,
                   clip: float = 5.0, opt=None, steps=None, active=None,
                   eval_fn: Optional[Callable] = None, eval_mask=None,
                   unroll: int = 1, history_chunk: int = 1,
-                  state_dtype=None, stage_hook=None) -> FusedResult:
+                  state_dtype=None, stage_hook=None,
+                  exchange=exchange_fleet) -> FusedResult:
     """A (segment of a) training run as one loop: scheduling + minibatch
     gather + local SGD + aggregation per round.
 
@@ -274,6 +276,10 @@ def fused_rollout(keys: Sequence, sel: torch.Tensor, mb_u: torch.Tensor,
                            "eval" after each stage of every round (a
                            caller may time them; "eval" also where the
                            round runs no eval).
+      exchange             the cross-cell exchange of `cfg.handoff`:
+                           `exchange_fleet` on one device, the
+                           all-gathered one where the cells are split
+                           over processes (`sharding/mesh_exec.py`).
 
     Resumable: feed `FusedResult`'s (fleet or carry, params, opt_state)
     back as the next segment's carry with the next rounds' keys, sel and
@@ -336,7 +342,7 @@ def fused_rollout(keys: Sequence, sel: torch.Tensor, mb_u: torch.Tensor,
         os_in = (_promote_opt_state(c.opt_state) if state_dtype
                  else c.opt_state)
         st, out = sched_round_step(st_in, keys[r], sched, sc, mob, ch, prm,
-                                   cfg, stage_hook)
+                                   cfg, stage_hook, exchange)
         mask = out.success.to(torch.float32)                 # [B, S]
         cells = [train_cell({k: v[b] for k, v in c.params.items()},
                             map_tree(lambda x, b=b: x[b], os_in),

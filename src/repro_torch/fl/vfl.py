@@ -16,14 +16,23 @@ model replica: every parameter leaf has a leading [V] axis. One round:
 The aggregate comes back broadcast to [V] as a view (no copy). V = 1 is
 the reference's scalar-mask branch. `make_train_step(stream=...)` is the
 whole-run step: the run's scheduling (`stream_rounds`) and then its VFL
-rounds. The reference's multi-device meshes come with a later slice and
-raise.
+rounds.
+
+With a mesh (a `DeviceMesh` over an initialized world, or its `{axis:
+size}` mapping) the vehicles are the ranks of the mesh's vehicle axes
+(`vehicle_axes`, the reference's rule): each rank holds one vehicle's
+replica ([1, ...] leaves), runs its local SGD and aggregates with two
+all-reduces over those axes, as the reference's shard_map body psums:
+den = sum of the weights, num = sum of fp32(x) * w / max(den, 1e-9),
+the old leaf kept where den = 0, cast to the leaf's dtype. A model axis
+larger than 1 raises (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.veds import veds_round
@@ -31,13 +40,41 @@ from repro_torch.kernels.fedavg_agg.ops import fedavg_agg_tree
 from repro_torch.models import engine
 from repro_torch.models import layers as L
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.rules import mesh_shape
 
 
-def _one_device(mesh) -> None:
-    if mesh not in (None, 1):
+def vehicle_axes(mesh, num_vehicles: int) -> Tuple[str, ...]:
+    """Mesh axes that carry the federation dimension: none for one
+    vehicle, else the pod axis, the data axis or both, whichever has
+    `num_vehicles` ranks (the reference's rule). `mesh` None is one
+    process holding every vehicle."""
+    if mesh is None:
+        return ()
+    sizes = mesh_shape(mesh)
+    if sizes.get("model", 1) > 1:
         raise NotImplementedError(
-            "the port's VFL round runs on one device; device meshes come "
-            "with the sharding slice (ROADMAP queue 1 item 7)")
+            f"mesh {sizes}: a model axis larger than 1 needs tensor-parallel "
+            f"layers, which the port does not have yet (ROADMAP queue 1 "
+            f"item 9)")
+    data, pod = sizes.get("data", 1), sizes.get("pod", 1)
+    if num_vehicles == 1:
+        return ()
+    if num_vehicles == pod:
+        return ("pod",)
+    if num_vehicles == data:
+        return ("data",)
+    if num_vehicles == pod * data and pod > 1:
+        return ("pod", "data")
+    raise ValueError(
+        f"num_vehicles={num_vehicles} incompatible with mesh {sizes}")
+
+
+def _vehicle_group(mesh, v_axes):
+    """(process group, this rank's vehicle index) of the vehicle axes."""
+    if len(v_axes) == 1 and not isinstance(mesh, Mapping):
+        return mesh.get_group(v_axes[0]), mesh.get_local_rank(v_axes[0])
+    # both pod and data (or a mapping): the vehicles are the whole world
+    return dist.group.WORLD, dist.get_rank()
 
 
 def lm_loss(params, batch, cfg: ModelConfig, tp: str) -> torch.Tensor:
@@ -85,10 +122,35 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     params_v: leading [V] axis; batch_v leaves [V, b, ...];
     mask/weights: [V] (success indicators from the scheduler; |D_m|
     weights). `stage_hook(name)`, if given, is called after the
-    "local_sgd" and "aggregate" stages (a caller may time them)."""
-    _one_device(mesh)
+    "local_sgd" and "aggregate" stages (a caller may time them). Over
+    the vehicle axes of a mesh (`vehicle_axes`), params_v and batch_v
+    hold this rank's vehicle ([1, ...] leaves)."""
     V = cfg.num_vehicles
+    v_axes = vehicle_axes(mesh, V)
     hook = stage_hook or (lambda name: None)
+
+    if v_axes:
+        group, idx = _vehicle_group(mesh, v_axes)
+
+        def round_fn(params_v, batch_v, mask, weights):
+            p = _vehicle(params_v, 0)
+            new = _local_sgd(p, _vehicle(batch_v, 0), cfg, tp, loss_fn, lr)
+            hook("local_sgd")
+            w = (mask[idx] * weights[idx]).to(torch.float32)
+            den = w.clone()
+            dist.all_reduce(den, group=group)
+            scale = w / torch.clamp_min(den, 1e-9)
+
+            def agg(old, x):
+                num = x.to(torch.float32) * scale
+                dist.all_reduce(num, group=group)
+                return torch.where(den > 0, num, old.to(torch.float32)).to(
+                    old.dtype)
+
+            out = tree_map(agg, p, new)
+            hook("aggregate")
+            return tree_map(lambda x: x[None], out)
+        return round_fn
 
     if V == 1:
         def round_fn(params_v, batch_v, mask, weights):
@@ -143,8 +205,9 @@ def make_train_step(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     where `batches_v` entries are [R, V, b, ...] (one per-vehicle batch
     a round) and `key` is the run's seed. The scheduling of all R rounds
     (`stream_rounds`) runs first, then the R VFL rounds gated by its
-    masks; `stats` holds `n_success` [R] and `mask` [R, V]."""
-    _one_device(mesh)
+    masks; `stats` holds `n_success` [R] and `mask` [R, V]. Over a
+    mesh's vehicle axes every rank schedules the same run and takes the
+    masks of cell 0; `batches_v` hold this rank's vehicle."""
     round_fn = make_vfl_round(cfg, mesh, tp, lr=lr, stage_hook=stage_hook)
     hook = stage_hook or (lambda name: None)
     V = cfg.num_vehicles

@@ -18,13 +18,28 @@ as the reference's do not; they are refused up front. `train` is the
 loop itself, for any `ModelConfig`; its `batch_fn` may add `src`
 (`chip_smoke.py` drives it at qwen3-32b's full width and at
 zamba2-2.7b's, granite-moe-1b-a400m's, xlstm-1.3b's and
-whisper-small's full width and depth). One card only (`--devices 1`,
-ROADMAP queue 1 item 7); checkpoints (`--ckpt`) raise (ROADMAP queue 1
-item 9: checkpointing).
+whisper-small's full width and depth).
+
+`--devices N` follows the reference's mesh (V, max(1, N // V)) of
+("data", "model"): N = 1 is one process holding every vehicle (the
+aggregation is the `fedavg_agg` kernel on the card); N = V runs one rank
+a vehicle over a `torch.distributed` world, spawned here (one card a
+rank, or with `--device cpu` one gloo process a rank) or joined under
+`torchrun`, and aggregates with all-reduces (`fl/vfl.py`). Rank 0
+prints the round lines. A model axis larger than 1 raises (ROADMAP
+queue 1 item 9), as does any other N; on CUDA so does an N above the
+card count. `--ckpt PATH` saves vehicle 0's params after the last round
+(`checkpoint/np_ckpt.py`, the reference's npz layout):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --devices 2 --vehicles 2 --rounds 2 --batch-per-vehicle 2 \
+      --seq 64 --ckpt /tmp/qwen3.npz
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 import sys
 import time
 from typing import Callable, Dict, List, Optional
@@ -35,6 +50,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.channel.mobility import ManhattanParams
 from repro_torch.channel.v2x import ChannelParams
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.baselines import get_scheduler
@@ -42,10 +58,14 @@ from repro_torch.core.lyapunov import VedsParams
 from repro_torch.core.scenario import (ScenarioParams, make_round,
                                        round_generator)
 from repro_torch.data.synthetic import lm_batch
-from repro_torch.fl.vfl import lm_loss, make_train_step
+from repro_torch.fl.vfl import lm_loss, make_train_step, vehicle_axes
+from repro_torch.launch.mesh import (init_world, make_host_mesh, run_world,
+                                     under_torchrun)
 from repro_torch.models import engine
 from repro_torch.models.module import materialize, param_bytes, tree_map
 from repro_torch.sharding.policy import attention_tp_mode
+from repro_torch.sharding.mesh_exec import world_device
+from repro_torch.sharding.rules import default_rules, shard_tree
 
 EVAL_STREAM = 999
 
@@ -63,8 +83,8 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
           device=None, log: Callable[[str], None] = print,
           stage_hook: Optional[Callable[[str], None]] = None,
           on_round: Optional[Callable[[dict], None]] = None,
-          batch_fn: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
-          ) -> List[dict]:
+          batch_fn: Optional[Callable[..., Dict[str, torch.Tensor]]] = None,
+          mesh=None, ckpt: Optional[str] = None) -> List[dict]:
     """`rounds` VFL rounds of `cfg` over `cfg.num_vehicles` vehicles:
     per round a scenario, the scheduler's success mask, local SGD and
     the masked aggregation, then the loss of vehicle 0's (aggregated)
@@ -74,7 +94,13 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
     `lm_batch`); a model that needs `src` needs a `batch_fn` that adds
     it. `stage_hook(name)` is called after "setup", and in every round
     after "scenario", "schedule", "local_sgd", "aggregate" and "eval";
-    `on_round(record)` after every round."""
+    `on_round(record)` after every round.
+
+    Over a mesh whose vehicle axes hold the V vehicles (`mesh`, this
+    rank's world; `fl.vfl.vehicle_axes`) this rank trains its vehicle:
+    every rank draws the same scenario, schedule and batches, and keeps
+    its vehicle's block. `ckpt` saves vehicle 0's params after the last
+    round (from rank 0)."""
     if batch_fn is None:
         if cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
@@ -87,12 +113,21 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
     V = cfg.num_vehicles
     tp = attention_tp_mode(cfg.num_heads, 1)
     sched = get_scheduler(scheduler)
+    if vehicle_axes(mesh, V):
+        rules = default_rules()
+
+        def vehicles(tree):          # this rank's vehicle of [V, ...]
+            return tree_map(lambda x: shard_tree(mesh, rules.spec(
+                ("vehicle",) + (None,) * (x.ndim - 1)), x), tree)
+    else:
+        def vehicles(tree):
+            return tree
 
     decl = engine.model_decl(cfg, tp)
     params = materialize(torch.Generator(device=device).manual_seed(seed),
                          decl)
-    params_v = tree_map(lambda x: x.unsqueeze(0).expand(V, *x.shape),
-                        params)
+    params_v = vehicles(tree_map(
+        lambda x: x.unsqueeze(0).expand(V, *x.shape), params))
     del params
     hook = stage_hook or (lambda name: None)
     q_bits = 8.0 * param_bytes(decl)
@@ -102,7 +137,7 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
     mob, ch = ManhattanParams(), ChannelParams()
     prm = VedsParams(Q=min(q_bits, 2e7), slot=0.1)
     sc = ScenarioParams(n_sov=V, n_opv=8, n_slots=50)
-    step = make_train_step(cfg, None, tp, lr=lr, inline_scheduler=True,
+    step = make_train_step(cfg, mesh, tp, lr=lr, inline_scheduler=True,
                            veds_prm=prm, ch_prm=ch, sched=sched,
                            stage_hook=stage_hook)
     weights = torch.ones((V,), device=device)
@@ -115,8 +150,8 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
         rnd = make_round(round_generator(seed, r, device), sc, mob, ch, prm)
         batch = batch_fn(_generator(seed, 1, r, device),
                          V * batch_per_vehicle, seq, cfg.vocab_size)
-        batch_v = {k: x.reshape(V, batch_per_vehicle, *x.shape[1:])
-                   for k, x in batch.items()}
+        batch_v = vehicles({k: x.reshape(V, batch_per_vehicle, *x.shape[1:])
+                            for k, x in batch.items()})
         hook("scenario")
         params_v, stats = step(params_v, batch_v, rnd, weights)
         with torch.no_grad():
@@ -132,7 +167,20 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
             f"loss={loss:.4f}  ({wall:.1f}s)")
         if on_round is not None:
             on_round(rec)
+    if ckpt and (mesh is None or torch.distributed.get_rank() == 0):
+        save_checkpoint(ckpt, tree_map(lambda x: x[0], params_v),
+                        meta={"arch": cfg.name}, step=rounds)
+        log(f"saved {ckpt}")
     return history
+
+
+def _train_rank(rank: int, cfg: ModelConfig, kw: dict) -> None:
+    """One rank of `--devices N`: a ("data", "model") mesh of (N, 1) over
+    the world, this rank's vehicle trained; rank 0 logs and saves."""
+    log = functools.partial(print, flush=True) if rank == 0 \
+        else (lambda s: None)
+    train(cfg, mesh=make_host_mesh(1), device=world_device(), log=log,
+          **kw)
 
 
 def main(argv=None) -> int:
@@ -151,19 +199,40 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' on request)")
     args = ap.parse_args(argv)
-    if args.devices != 1:
+    N, V = args.devices, args.vehicles
+    model_par = max(1, N // V)
+    if N != 1 and model_par > 1:
         raise NotImplementedError(
-            f"--devices {args.devices}: the port trains on one card; device "
-            f"meshes come with the sharding slice (ROADMAP queue 1 item 7)")
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: the npz checkpoint with bf16 leaves is not ported yet "
-            "(ROADMAP queue 1 item 9: checkpointing)")
-    cfg = get_smoke_config(args.arch).replace(num_vehicles=args.vehicles,
-                                              grad_accum=1)
-    train(cfg, rounds=args.rounds, batch_per_vehicle=args.batch_per_vehicle,
-          seq=args.seq, lr=args.lr, scheduler=args.scheduler, seed=args.seed,
-          device=args.device)
+            f"--devices {N} over {V} vehicles asks for a mesh ({V}, "
+            f"{model_par}), a model axis of {model_par}: the port holds each "
+            f"vehicle's model whole on one card or rank; tensor-parallel "
+            f"layers come with ROADMAP queue 1 item 9")
+    if N not in (1, V):
+        raise ValueError(f"--devices {N}: 1, or one a vehicle "
+                         f"(--vehicles {V})")
+    cfg = get_smoke_config(args.arch).replace(num_vehicles=V, grad_accum=1)
+    kw = dict(rounds=args.rounds, batch_per_vehicle=args.batch_per_vehicle,
+              seq=args.seq, lr=args.lr, scheduler=args.scheduler,
+              seed=args.seed, ckpt=args.ckpt or None)
+    device = resolve_device(args.device)
+    if N == 1:
+        train(cfg, device=device, **kw)
+    elif under_torchrun():
+        world = int(os.environ["WORLD_SIZE"])
+        if world != N:
+            raise ValueError(f"--devices {N} in a torchrun world of {world}")
+        rank = int(os.environ["RANK"])
+        init_world(rank, N, None, device.type)
+        try:
+            _train_rank(rank, cfg, kw)
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        # CPU ranks share the host's cores
+        threads = (max(1, len(os.sched_getaffinity(0)) // N)
+                   if device.type == "cpu" else 0)
+        run_world(_train_rank, N, cfg, kw, device=device.type,
+                  threads=threads)
     return 0
 
 

@@ -11,7 +11,9 @@ CPU, the MoE block's bitwise determinism, and the scheduling service
 neighbours bit for bit, packed and solo masks identical, spill and
 restore bit for bit, no slot graph captured after `warmup()`, and its
 front end (`BatchServer`) dispatching on one thread with no capture and
-its dispatch log replayed bit for bit.
+its dispatch log replayed bit for bit; and the cell-sharded rollout and
+stream with handoff on a one-rank NCCL world against the one-device
+loops, bit for bit.
 Marked
 `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
@@ -1141,3 +1143,43 @@ def test_serve_batch_server_on_card_runs_dispatches_on_one_thread():
         _same_carry(fresh.sessions[s], svc.sessions[s])
     svc.close()
     fresh.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("fused", "veds", "port"),
+                                  ("stream", "madca", "port")],
+                         ids="-".join)
+def test_mesh_on_one_rank_nccl_world_is_the_one_device_loop(case, tmp_path):
+    """`mesh_fused_rollout` / `mesh_stream_rounds` with handoff at
+    `tests/test_mesh_exec.py`'s setting on a one-rank NCCL world: the
+    collectives run (the exchange's all-gathers, `gather_result`) and
+    the result is the one-device loop's bit for bit."""
+    import torch.distributed as dist
+    import torch_mesh_cases as C
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.sharding import mesh_exec
+    require_cuda()
+    rng = np.random.default_rng(0)
+    inp = {"params": {"w": torch.zeros(6, 3)},
+           "data": [{"x": rng.standard_normal((5 + 3 * (i % 3), 6))
+                     .astype(np.float32),
+                     "y": rng.integers(0, 3, 5 + 3 * (i % 3))}
+                    for i in range(8)],
+           "sel": torch.as_tensor(rng.integers(0, 8, (C.R, C.B, 4))),
+           "mb_u": torch.as_tensor(rng.random((C.R, C.B, 4, 4)),
+                                   dtype=torch.float32)}
+    init_world(0, 1, str(tmp_path / "store"), "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        got = C.run_one(inp, case, mesh_exec.fleet_mesh(1), device="cuda")
+        one = C.run_one(inp, case, device="cuda")
+    finally:
+        dist.destroy_process_group()
+    for f in dataclasses.fields(one.fleet):
+        assert torch.equal(getattr(got.fleet, f.name),
+                           getattr(one.fleet, f.name)), f.name
+    for k in one.outputs.keys():
+        assert torch.equal(got.outputs[k], one.outputs[k]), k
+    if case[0] == "fused":
+        assert torch.equal(got.params["w"], one.params["w"])
+        assert torch.equal(got.loss, one.loss)

@@ -28,6 +28,7 @@ from repro.fl.simulator import FLSimConfig as JFLSimConfig
 from repro.launch.serve import ServeConfig as JServeConfig
 from repro.launch.serve import ServeRequest as JServeRequest
 from repro.launch.serve import ServeResponse as JServeResponse
+from repro.sharding.rules import LogicalRules as JLogicalRules
 from repro_torch import resolve_device
 from repro_torch.channel.mobility import ManhattanParams
 from repro_torch.channel.v2x import ChannelParams
@@ -44,6 +45,7 @@ from repro_torch.fl.simulator import FLSimConfig
 from repro_torch.launch.serve import (SchedulingService, ServeConfig,
                                       ServeRequest, ServeResponse,
                                       default_problem, request_draws)
+from repro_torch.sharding.rules import LogicalRules
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -84,6 +86,19 @@ def test_state_dataclasses_match_reference_field_for_field(ours, ref):
     assert [f.name for f in dataclasses.fields(ours)] == \
         [f.name for f in dataclasses.fields(ref)]
     assert ours.__dataclass_params__.frozen
+
+
+def test_logical_rules_match_reference_field_for_field():
+    """`LogicalRules`: the same fields, frozen as the reference's; its
+    table is held entry for entry in `tests/test_torch_sharding_rules.py`."""
+    fo, fr = dataclasses.fields(LogicalRules), dataclasses.fields(
+        JLogicalRules)
+    assert [(f.name, f.default) for f in fo] == \
+        [(f.name, f.default) for f in fr]
+    assert LogicalRules.__dataclass_params__.frozen
+    assert JLogicalRules.__dataclass_params__.frozen
+    assert [m for m in vars(LogicalRules) if not m.startswith("_")] == \
+        [m for m in vars(JLogicalRules) if not m.startswith("_")]
 
 
 @pytest.mark.parametrize("ours,ref", [
@@ -181,7 +196,7 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_reference_package():
     files = _port_files()
-    assert len(files) >= 37
+    assert len(files) >= 61
     for path in files + [ROOT / "chip_smoke.py"]:
         for mod in _imports(path):
             top = mod.split(".")[0]

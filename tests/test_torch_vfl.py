@@ -205,7 +205,8 @@ def test_train_step_schedules_with_the_reference_decisions(setup):
 
 
 def test_vfl_refuses_paths_of_later_slices(setup):
-    """Meshes are still refused; `stream=` runs
+    """A mesh with a model axis larger than 1 is still refused (vehicle
+    meshes run: `tests/test_torch_vfl_mesh.py`); `stream=` runs
     (`tests/test_torch_fused.py`) and refuses only what the reference
     refuses at build time: more than one cell, and fewer SOVs than
     vehicles."""
@@ -219,7 +220,7 @@ def test_vfl_refuses_paths_of_later_slices(setup):
         vfl.make_train_step(cfg, None, "head", stream=StreamConfig(),
                             sc=ScenarioParams(n_sov=V - 1))
     with pytest.raises(NotImplementedError, match="mesh"):
-        vfl.make_vfl_round(cfg, 8, "head")
+        vfl.make_vfl_round(cfg, {"data": V, "model": 2}, "head")
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +240,7 @@ def test_train_main_runs_on_cpu_with_finite_losses(capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--devices", "8"], "one card"),
-    (["--ckpt", "x.npz"], "checkpoint"),
+    (["--arch", "llama-3.2-vision-90b"], "src"),
     (["--arch", "whisper-small"], "src"),
 ])
 def test_train_main_refuses_what_is_not_ported(argv, match):
