@@ -67,6 +67,19 @@ with its kernel launches counted from 0:
   and timed at whisper's encoder, cross and self shapes and at
   llama-3.2-vision's cross shape, beside SDPA under the same mask.
 
+- LLM serving, prefill then decode with caches (`models/engine.py`,
+  `phase_decode`): qwen3-32b at full width cut to 2 repetitions at
+  decode_32k's shape (batch 128, a cache of 32768 slots, 34.4 GB), 128
+  prompts of 64 tokens through `forward(..., last_logit_only=True,
+  seq_shard=True)` (2 `flash_attention` launches), then `decode_step`
+  over the prompts and 64 greedy tokens (no kernel launch), its logits
+  at position 63 held to the prefill's within 5e-2 of max|logit|, each
+  step timed beside its bytes bound; zamba2-2.7b at full width and depth
+  at batch 8 (45 `ssd_scan` and 9 `flash_attention` launches a prefill);
+  then `decode_step` at the smoke configs of seven archs (whisper's and
+  llama-3.2-vision's cross slots from `build_cross_cache`, qwen3's
+  sliding-window ring) on the card against the CPU. `flash_attention`
+  is also timed at qwen3's prefill shape.
 - the scheduling service (`launch/serve.py`): the reference's own
   `ServeConfig()` (madca, B 4, L 4) over 3 waves of 6 sessions on the card
   against the CPU on the same draws, then VEDS with the warm P4 table at
@@ -177,7 +190,7 @@ XLSTM_REPS, XLSTM_LR = 1, 1e-5
 WHISPER_REPS, WHISPER_LR = 12, 1e-22
 # the flash_attention cases of phase_kernels_llm timed beside their bounds
 TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
-               "whisper_cross", "whisper_self", "vlm_cross")
+               "whisper_cross", "whisper_self", "vlm_cross", "qwen3_prefill")
 # the C entry point each dtype must reach: bf16 the tensor-core kernels,
 # fp32 the CUDA-core ones
 FLASH_ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16_sm90",
@@ -236,6 +249,32 @@ SERVE_LOSS_RTOL = SERVE_CARRY_RTOL = 1e-5
 # path beside its one-device loop; the exchange timed MESH_EXCHANGE_REPS
 # times on the run's fleet
 MESH_BATCH, MESH_ROUNDS, MESH_SEED, MESH_EXCHANGE_REPS = 4, 10, 17, 21
+# the serving path (`models/engine.py decode_step`): decode_32k's shape
+# (configs/base.py: batch 128, a cache of 32768 slots) at qwen3-32b's full
+# width cut to VFL_REPS repetitions, prompts of DECODE_PROMPT tokens then
+# DECODE_NEW greedy ones, its decode at the prompt's last position held to
+# the prefill within DECODE_QWEN3_TOL of max|logit| (the loosest bound of
+# tests/test_decode_consistency.py); zamba2-2.7b at full depth with the
+# batch cut to DECODE_ZAMBA2_BATCH (at 128 rows its cache would be 387 GB);
+# the smoke configs card against CPU (DECODE_SMOKE: run -> (prefill vs
+# decode bound, card vs CPU bound)). whisper's card vs CPU is held at one
+# encoder layer ("+enc1"), where the CPU's own logits move by 9.2e-5 of
+# their largest when every weight moves by half an ulp; at its smoke
+# depth they move by 1.6e-3 (an encoder of chaotic fp32 softmaxes at the
+# reference's init, ROADMAP queue 3), so there its distance is logged
+# beside that move, as the CPU tests hold whisper's VFL round at one
+# encoder layer
+DECODE_PROMPT, DECODE_NEW, DECODE_QWEN3_TOL = 64, 64, 5e-2
+DECODE_ZAMBA2_BATCH, DECODE_CPU_TOL = 8, 1e-3
+DECODE_SMOKE = {"qwen3-32b": (1e-3, DECODE_CPU_TOL),
+                "zamba2-2.7b": (5e-3, DECODE_CPU_TOL),
+                "xlstm-1.3b": (5e-3, DECODE_CPU_TOL),
+                "granite-moe-1b-a400m": (5e-2, DECODE_CPU_TOL),
+                "whisper-small+enc1": (5e-3, DECODE_CPU_TOL),
+                "whisper-small": (5e-3, None),
+                "llama4-scout-17b-a16e": (5e-2, DECODE_CPU_TOL),
+                "llama-3.2-vision-90b": (5e-3, DECODE_CPU_TOL),
+                "qwen3-32b+swa": (1e-3, DECODE_CPU_TOL)}
 # the eval loss at init through the kernels may move from the plain
 # versions' by at most SENS_ULP_FACTOR times the largest move that
 # SENS_DRAWS random one-ulp changes of every nonzero bf16 weight make
@@ -1522,6 +1561,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                       granite_shape=(4, 1024, 16, 8, 64),
                       whisper_shape=(4, 1024, 1536, 12, 64),
                       vlm_cross_shape=(4, 1024, 2048, 64, 8, 128),
+                      prefill_shape=(128, 64, 64, 8, 128),
                       fedavg_l=151936 * 5120,
                       fedavg_granite_l=GRANITE_REPS * 32 * 1024 * 512,
                       fedavg_xlstm_l=50304 * 2048):
@@ -1550,6 +1590,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
     gb, gt, gh, gkv, gd = granite_shape
     wb, wt, ws, wh, wd = whisper_shape
     vb, vt, vs, vh, vkv, vd = vlm_cross_shape
+    pb, pt, ph, pkv, pd = prefill_shape
     cases = {
         "main": (B, T, T, H, KV, D, torch.bfloat16, True, None, 0),
         # zamba2's shared attention: 32 heads of 80 (3 output columns a
@@ -1570,6 +1611,10 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
         # 128) onto its 2048 projected patches
         "vlm_cross": (vb, vt, vs, vh, vkv, vd, torch.bfloat16, False, None,
                       0),
+        # qwen3-32b's serving prefill at decode_32k's batch: 128 prompts
+        # of 64 tokens (phase_decode)
+        "qwen3_prefill": (pb, pt, pt, ph, pkv, pd, torch.bfloat16, True,
+                          None, 0),
         "fp32_d80": (2, 200, 260, 4, 2, 80, torch.float32, False, 90, 0),
         "window": (2, 512, 512, 16, 2, 128, torch.bfloat16, True, 128, 0),
         "full_s_ne_t": (2, 256, 384, 8, 2, 64, torch.bfloat16, False, None,
@@ -2429,19 +2474,12 @@ def forward_sensitivity(device, cfg, seq: int, seed: int = 0):
     from repro_torch.fl.vfl import lm_loss
     from repro_torch.launch.train import EVAL_STREAM, _generator
     from repro_torch.models import engine
-    from repro_torch.models.module import materialize, tree_map
+    from repro_torch.models.module import materialize
     params = materialize(torch.Generator(device=device).manual_seed(seed),
                          engine.model_decl(cfg, "head"))
     batch = (src_lm_batch(cfg) or lm_batch)(
         _generator(seed, EVAL_STREAM, 0, device), 8, seq, cfg.vocab_size)
     g = torch.Generator(device=device).manual_seed(seed + 1)
-
-    def one_ulp(x):
-        if x.dtype != torch.bfloat16:
-            return x
-        step = 2 * torch.randint(0, 2, x.shape, generator=g, device=device,
-                                 dtype=torch.int16) - 1
-        return (x.view(torch.int16) + step * (x != 0)).view(torch.bfloat16)
 
     # name: (module, attribute, kernel wrapper, plain version, bound share)
     swap = {"flash_attention": (fa, "flash_attention_fwd",
@@ -2491,7 +2529,7 @@ def forward_sensitivity(device, cfg, seq: int, seed: int = 0):
         if len(runs) > 1:
             routes.update({f"{n} alone": loss({n: swap[n][2]})
                            for n in runs})
-        ulp = [loss({}, tree_map(one_ulp, params))
+        ulp = [loss({}, bf16_ulp_moved(params, g, device))
                for _ in range(SENS_DRAWS)]
     limit = SENS_ULP_FACTOR * max(abs(x - plain) for x in ulp)
     log("sensitivity", f"{cfg.name} eval loss at init "
@@ -2586,10 +2624,8 @@ def phase_vfl_reference(device, arch: str, reps: int, *, atol=None,
                tolerance=tol)
     note = ""
     if update_rtol is not None:
-        g = torch.Generator().manual_seed(23)
-        nudged = tree_map(lambda x: x * (1.0 + 6e-8 * (2.0 * torch.randint(
-            0, 2, x.shape, generator=g) - 1.0)), params)
-        res["cpu_half_ulp_update_rel"] = update_err(run("cpu", nudged))
+        res["cpu_half_ulp_update_rel"] = update_err(
+            run("cpu", half_ulp_moved(params, 23)))
         # a tolerance of the update's norm tells a right update from a
         # wrong one (a zero update reads 1) only where the CPU's own
         # half-ulp move is well below 1
@@ -2609,6 +2645,311 @@ def phase_vfl_reference(device, arch: str, reps: int, *, atol=None,
         f"{upd:.3e} of its norm (tolerance {tol}; the round moved the "
         f"params by up to {moved:.3e}){note}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# LLM decode with caches (`models/engine.py decode_step`): prefill, then
+# decode, at decode_32k's shape; the smoke configs card against CPU
+# ---------------------------------------------------------------------------
+
+def _decode_counts():
+    from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_fwd
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    return {"flash_attention": flash_attention_fwd,
+            "ssd_scan": ssd_scan_fwd, "fedavg_agg": fedavg_agg,
+            "veds_score": veds_dt_score}
+
+
+def _zero_counts():
+    for fn in _decode_counts().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {k: fn.launches for k, fn in _decode_counts().items()}
+
+
+def decode_serve(device, cfg, batch: int, seq_len: int, prompt: int,
+                 new: int, want_prefill, tol=None):
+    """Serving `cfg` as the reference's `launch/specs.py` builds it:
+    `forward(..., last_logit_only=True, seq_shard=True)` over `batch`
+    prompts of `prompt` tokens (a seeded `torch.Generator`), then
+    `decode_step` from a zero cache of `seq_len` slots over the prompt's
+    tokens and `new` greedy tokens, every kernel count set to 0 just
+    before each part. The prefill must launch `want_prefill`, the decode
+    steps no kernel (the reference's decode reaches no Pallas kernel).
+    The decode's logits at the prompt's last position are held to the
+    prefill's within `tol` of max|logit| where given (logged always,
+    with the share of equal argmaxes, beside the same distance between
+    the prefill and a prefill with every bf16 weight moved by one ulp:
+    the model's own sensitivity); every logit must be finite. Times:
+    the prefill (after one untimed call), each step between CUDA events
+    (median), tokens/s, beside the step's bytes bound: the cache, every
+    parameter but the embedding table (B rows of it are read) and the
+    LM head, read once, over the memory rate."""
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize, param_bytes
+    phase = f"decode {cfg.name}"
+    torch.cuda.synchronize()
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    decl = engine.model_decl(cfg, "head")
+    params = materialize(torch.Generator(device=device).manual_seed(0),
+                         decl)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=torch.Generator(device=device)
+                            .manual_seed(1), device=device)
+    cdecl = engine.cache_decl(cfg, batch, seq_len)
+    cache_bytes = param_bytes(cdecl)
+    emb = 0 if cfg.tie_embeddings else \
+        math.prod(decl["embed"]["table"].shape) * cfg.pdtype.itemsize
+    step_bytes = cache_bytes + param_bytes(decl) - emb
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    log(phase, f"{cfg.name} pattern {cfg.pattern} x n_rep {cfg.n_rep} "
+        f"d_model {cfg.d_model} vocab {cfg.vocab_size} {cfg.param_dtype}: "
+        f"{param_bytes(decl) / 1e9:.3f} GB of params; batch {batch}, "
+        f"prompts of {prompt} tokens, then {new} greedy; cache of "
+        f"{seq_len} slots: {cache_bytes / 1e9:.2f} GB")
+
+    def prefill():
+        return engine.forward(params, prompts, cfg, tp="head",
+                              last_logit_only=True, seq_shard=True)[0][:, 0]
+
+    with torch.no_grad():
+        prefill()                                   # untimed
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        ref = prefill()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_counts = _read_counts()
+        # the model's own sensitivity at its init: the prefill again with
+        # every nonzero bf16 weight moved by one ulp, up or down at random
+        kept = params
+        params = bf16_ulp_moved(
+            kept, torch.Generator(device=device).manual_seed(5), device)
+        moved = prefill()
+        params = kept
+        cache = engine.zero_cache(cdecl, device)
+        positions = torch.arange(prompt + new, device=device)
+        finite = torch.ones((), dtype=torch.bool, device=device)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(prompt + new + 1)]
+        torch.cuda.synchronize()
+        _zero_counts()
+        tok = prompts[:, 0]
+        events[0].record()
+        for t in range(prompt + new):
+            logits, cache = engine.decode_step(params, cache, tok,
+                                               positions[t], cfg, None,
+                                               tp="head")
+            events[t + 1].record()
+            finite &= torch.isfinite(logits).all()
+            if t == prompt - 1:
+                at_prompt = logits.clone()
+            tok = prompts[:, t + 1] if t + 1 < prompt else \
+                logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        step_counts = _read_counts()
+    steps_ms = [events[i].elapsed_time(events[i + 1])
+                for i in range(prompt + new)]
+    step_ms = statistics.median(steps_ms)
+    scale = float(ref.abs().max())
+    dist = float((at_prompt - ref).abs().max()) / scale
+    agree = float((at_prompt.argmax(-1) == ref.argmax(-1)).float().mean())
+    ulp_dist = float((moved - ref).abs().max()) / scale
+    ulp_agree = float((moved.argmax(-1) == ref.argmax(-1)).float().mean())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(phase, f"prefill {prefill_ms:.2f} ms ({batch * prompt / prefill_ms * 1e3:.0f} "
+        f"tokens/s), launches {prefill_counts} (expected {want_prefill}); "
+        f"decode {step_ms:.3f} ms a step, median of {prompt + new} (first "
+        f"{steps_ms[0]:.3f}, min {min(steps_ms):.3f}, max "
+        f"{max(steps_ms):.3f}), {batch / step_ms * 1e3:.0f} tokens/s, "
+        f"bytes bound {bound_ms:.3f} ms ({step_bytes / 1e9:.2f} GB a "
+        f"step), launches {step_counts}; peak memory {peak_gb:.2f} GB; "
+        f"{smi_line()}")
+    log(phase, f"decode logits at position {prompt - 1} vs the prefill's: "
+        f"max abs {dist * scale:.4e} = {dist:.4e} of max|logit| "
+        f"{scale:.4e}" + (f" (tolerance {tol})" if tol else " (logged, "
+                          "not bounded)")
+        + f"; argmax equal in {agree:.4f} of the rows. The prefill with "
+        f"every bf16 weight moved by one ulp: {ulp_dist:.4e} of max|logit| "
+        f"from it, argmax equal in {ulp_agree:.4f} of the rows")
+    check(bool(finite) and bool(torch.isfinite(ref).all()),
+          f"{phase}: logits not finite")
+    for k, w in want_prefill.items():
+        check(prefill_counts[k] == w, f"{phase}: prefill launched {k} "
+              f"{prefill_counts[k]} times, expected {w}")
+    check(not any(step_counts.values()), f"{phase}: the decode steps "
+          f"launched {step_counts}, expected no kernel")
+    if tol is not None:
+        check(dist <= tol, f"{phase}: prefill vs decode {dist:.4e} of "
+              f"max|logit| > {tol}")
+    res = dict(batch=batch, seq_len=seq_len, prompt=prompt, new=new,
+               cache_gb=cache_bytes / 1e9, prefill_ms=prefill_ms,
+               prefill_launches=prefill_counts, step_ms=step_ms,
+               steps_ms=steps_ms, tokens_per_s=batch / step_ms * 1e3,
+               step_bytes=step_bytes, bound_ms=bound_ms,
+               step_launches=step_counts, prefill_decode_rel=dist,
+               argmax_agree=agree, prefill_ulp_move_rel=ulp_dist,
+               prefill_ulp_move_argmax_agree=ulp_agree, tolerance=tol,
+               max_memory_gb=peak_gb)
+    del params, kept, cache, ref, moved, logits, at_prompt
+    free()
+    return res
+
+
+def smoke_decode_config(run: str):
+    """(config, force_swa, steps) of a DECODE_SMOKE run, "arch[+opt...]"
+    ("swa": the attention forced to the window-64 ring over 80 tokens;
+    "enc1": one encoder layer): the smoke config in fp32 as
+    `tests/test_decode_consistency.py` sets it, but with the SSM chunk
+    32, a chunk the `ssd_scan` kernels take (the reference test's 8 is
+    not; the chunk does not change the function)."""
+    from repro_torch.configs.registry import get_smoke_config
+    arch, *opts = run.split("+")
+    swa = "swa" in opts
+    cfg = get_smoke_config(arch).replace(
+        compute_dtype="float32", param_dtype="float32", remat=False,
+        ssm_chunk=32, attn_chunk=16, capacity_factor=4.0)
+    if "enc1" in opts:
+        cfg = cfg.replace(encoder_layers=1)
+    return cfg, swa, 80 if swa else 24
+
+
+def smoke_decode(run: str, device, params=None):
+    """(decode logits [2, steps, V], prefill logits [2, steps, V]) of a
+    DECODE_SMOKE run on `device`, on the CPU: its init drawn on the CPU
+    from seed 0 (or `params`), tokens (and `src` = 0.1 N(0, 1) for the
+    audio and vlm families) from seed 1, `decode_step` from a zero cache
+    (the cross slots from `build_cross_cache`); the prefill's attention
+    is the same window as the decode's ring."""
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize, tree_map
+    cfg, swa, steps = smoke_decode_config(run)
+    if params is None:
+        params = materialize(torch.Generator().manual_seed(0),
+                             engine.model_decl(cfg, "head"))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, steps), generator=gen)
+    src = None
+    if cfg.family in ("vlm", "audio"):
+        src = (0.1 * torch.randn(2, cfg.num_src_tokens, cfg.src_dim,
+                                 generator=gen)).to(device)
+    p = tree_map(lambda a: a.to(device), params)
+    toks = toks.to(device)
+    cache = engine.zero_cache(engine.cache_decl(cfg, 2, steps,
+                                                force_swa=swa), device)
+    if src is not None:
+        cache = engine.build_cross_cache(cfg, p, cache, src, "head")
+    pcfg = cfg.replace(pattern=tuple(
+        "attn_swa" if swa and k == "attn" else k for k in cfg.pattern))
+    outs = []
+    with torch.no_grad():
+        for t in range(steps):
+            lg, cache = engine.decode_step(
+                p, cache, toks[:, t], torch.tensor(t, device=device), cfg,
+                None, tp="head", force_swa=swa)
+            outs.append(lg)
+        pre, _ = engine.forward(p, toks, pcfg, tp="head", src=src)
+    return torch.stack(outs, 1).cpu(), pre.cpu()
+
+
+def bf16_ulp_moved(params, g: torch.Generator, device):
+    """Every nonzero bf16 weight moved by one ulp, up or down at random
+    (the signs drawn from `g` on `device`, leaf by leaf); other leaves as
+    they are."""
+    from repro_torch.models.module import tree_map
+
+    def move(x):
+        if x.dtype != torch.bfloat16:
+            return x
+        step = 2 * torch.randint(0, 2, x.shape, generator=g, device=device,
+                                 dtype=torch.int16) - 1
+        return (x.view(torch.int16) + step * (x != 0)).view(torch.bfloat16)
+    return tree_map(move, params)
+
+
+def half_ulp_moved(params, seed: int):
+    """Every fp32 weight moved by half an ulp, x (1 +- 6e-8), the signs
+    drawn from `seed` on the CPU."""
+    from repro_torch.models.module import tree_map
+    g = torch.Generator().manual_seed(seed)
+    return tree_map(lambda x: x * (1.0 + 6e-8 * (2.0 * torch.randint(
+        0, 2, x.shape, generator=g) - 1.0).to(x.device)), params)
+
+
+def phase_decode_reference(device):
+    """`decode_step` at the smoke configs in fp32 (DECODE_SMOKE: the seven
+    archs of `tests/test_decode_consistency.py`, whisper's and vlm's cross
+    slots from `build_cross_cache`, and qwen3 with its attention forced to
+    the window-64 ring over 80 tokens, so that it wraps): the card's
+    logits against the CPU's within DECODE_CPU_TOL of max|logit| (the CPU
+    tests' bound against the reference; for whisper at its smoke depth
+    logged beside the CPU's own half-ulp move instead), and the card's
+    prefill (through the fp32 kernels) against its decode within the
+    reference test's own bound."""
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize
+    out = {}
+    for run, (tol, cpu_tol) in DECODE_SMOKE.items():
+        cfg, _, _ = smoke_decode_config(run)
+        params = materialize(torch.Generator().manual_seed(0),
+                             engine.model_decl(cfg, "head"))
+        cpu, _ = smoke_decode(run, "cpu", params)
+        dec, pre = smoke_decode(run, device, params)
+        steps = cpu.shape[1]
+        scale = float(cpu.abs().max())
+        err = float((dec - cpu).abs().max()) / scale
+        rel = float((dec - pre).abs().max()) / float(pre.abs().max())
+        r = dict(steps=steps, card_vs_cpu=err, prefill_vs_decode=rel,
+                 tolerance=dict(card_vs_cpu=cpu_tol, prefill_vs_decode=tol))
+        note = f"tolerance {cpu_tol}"
+        if cpu_tol is None:
+            moved, _ = smoke_decode(run, "cpu", half_ulp_moved(params, 23))
+            r["cpu_half_ulp_move"] = float((moved - cpu).abs().max()) / scale
+            note = (f"logged: the CPU's own logits move by "
+                    f"{r['cpu_half_ulp_move']:.3e} when every weight moves "
+                    f"by half an ulp")
+        log("decode_reference", f"{run} smoke config, fp32, {steps} steps: "
+            f"card vs CPU logits {err:.3e} of max|logit| ({note}); prefill "
+            f"vs decode on the card {rel:.3e} (tolerance {tol})")
+        check(bool(torch.isfinite(dec).all()), f"decode {run}: not finite")
+        check(cpu_tol is None or err <= cpu_tol, f"decode {run}: card vs "
+              f"CPU {err:.3e} of max|logit| > {cpu_tol}")
+        check(rel < tol, f"decode {run}: prefill vs decode on the card "
+              f"{rel:.3e} of max|logit| >= {tol}")
+        out[run] = r
+    return out
+
+
+def phase_decode(device):
+    """The serving path: qwen3-32b at full width (VFL_REPS repetitions) at
+    decode_32k's batch and cache, then zamba2-2.7b at full width and
+    depth at DECODE_ZAMBA2_BATCH rows (its cache at 128 rows would be
+    387 GB), then the smoke configs card against CPU."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    shape = SHAPES_BY_NAME["decode_32k"]
+    qcfg = vfl_config("qwen3-32b", VFL_REPS)
+
+    def n_attn(c):
+        return c.n_rep * sum(k in ("attn", "attn_swa") for k in c.pattern)
+    qwen3 = decode_serve(device, qcfg, shape.global_batch, shape.seq_len,
+                         DECODE_PROMPT, DECODE_NEW,
+                         {"flash_attention": n_attn(qcfg), "ssd_scan": 0,
+                          "fedavg_agg": 0, "veds_score": 0},
+                         tol=DECODE_QWEN3_TOL)
+    zcfg = vfl_config("zamba2-2.7b", ZAMBA2_REPS)
+    zamba2 = decode_serve(device, zcfg, DECODE_ZAMBA2_BATCH, shape.seq_len,
+                          DECODE_PROMPT, DECODE_NEW,
+                          {"flash_attention": n_attn(zcfg),
+                           "ssd_scan": zcfg.n_rep * zcfg.pattern.count(
+                               "mamba"), "fedavg_agg": 0, "veds_score": 0})
+    return dict(qwen3=qwen3, zamba2=zamba2,
+                smoke=phase_decode_reference(device))
 
 
 # ---------------------------------------------------------------------------
@@ -3347,6 +3688,7 @@ def main(argv=None) -> int:
                                              "v2i_only", *serve_shapes))
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
+    decode = phase_decode(device)
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
     stages = phase_stages(device, setup)
     ref = phase_reference(device)
@@ -3446,6 +3788,11 @@ def main(argv=None) -> int:
                "vfl_whisper": whisper["launches"][name]}
         if name in stream_vfl["launches"]:
             out["stream_vfl_qwen3"] = stream_vfl["launches"][name]
+        if name in ("flash_attention", "ssd_scan"):
+            for arch in ("qwen3", "zamba2"):
+                d = decode[arch]
+                out[f"decode_{arch}_prefill"] = d["prefill_launches"][name]
+                out[f"decode_{arch}_steps"] = d["step_launches"][name]
         if name == "veds_score":
             out["run_fl"] = main_res["launches"][name]
             out["stream_run_fl"] = stream["warm"]["launches"][name]
@@ -3554,7 +3901,7 @@ def main(argv=None) -> int:
         compare=compare, compare_reference=compare_ref,
         stream_compare=stream_compare, mesh=mesh, serve_reference=serve_ref,
         serve=serve, serve_front=serve_front,
-        stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
+        decode=decode, stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
         vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,
         sensitivity=sensitivity,
         vfl_reference=vfl_ref), indent=1, default=str))

@@ -49,9 +49,10 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _pad_to_chunk(v, b, c, log_a, chunk: int):
-    """(chunk, inputs padded along T to a multiple of it)."""
+    """(chunk, inputs padded along T to a multiple of it). The padded
+    steps (v = b = c = 0, log_a = 0) change neither y before them nor the
+    final state."""
     T = v.shape[1]
-    chunk = min(chunk, T)
     pad = (-T) % chunk
     if pad:
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
@@ -80,7 +81,8 @@ def ssd_scan_plain(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     stays finite; so does this, in its gradients too."""
     B, T, H, P = v.shape
     N = b.shape[-1]
-    chunk, v, b, c, log_a = _pad_to_chunk(v, b, c, log_a, chunk)
+    chunk, v, b, c, log_a = _pad_to_chunk(v, b, c, log_a,
+                                          min(chunk, v.shape[1]))
     f32 = torch.float32
     state = torch.zeros((B, H, N, P), dtype=f32, device=v.device) \
         if state0 is None else state0.to(f32)
@@ -178,7 +180,11 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                              f"(the bf16 kernel loads it by cp.async)")
     B, T, H, P = v.shape
     N = b.shape[-1]
-    chunk, vp, bp, cp, lp = _pad_to_chunk(v, b, c, log_a, chunk)
+    # a sequence shorter than a kernel's chunk runs as one such chunk,
+    # padded (the reference's min(chunk, T) may be a chunk the kernels do
+    # not take, e.g. zamba2's 128 over a 64-token prompt)
+    k = chunk if T < chunk and chunk in CHUNKS else min(chunk, T)
+    chunk, vp, bp, cp, lp = _pad_to_chunk(v, b, c, log_a, k)
     if chunk not in CHUNKS or N != STATE_DIM or P != HEAD_DIM:
         raise ValueError(f"ssd_scan: the kernel takes chunk in {CHUNKS} "
                          f"(after min(chunk, T)), N = {STATE_DIM} and P = "

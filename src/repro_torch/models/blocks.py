@@ -1,13 +1,22 @@
 """Sub-block implementations for the unified decoder engine.
 
 Port of `repro/models/blocks.py` (attention, MLP, MoE, Mamba2, mLSTM
-and sLSTM): `<kind>_decl(cfg, tp)` gives the parameter declarations and
-`<kind>_apply(p, x, ...)` the training/prefill forward (residual
-included). On one device every sharding constraint is a no-op and the TP
-mode is always "head" (`sharding/policy.py`); the "row" mode and the
-sequence-sharded core need a model mesh axis and raise (ROADMAP queue 1
-item 9: row-TP attention). The decode caches and every `*_decode` raise
-too (ROADMAP queue 1 item 9: decode and caches).
+and sLSTM). Each sub-block kind provides:
+
+  <kind>_decl(cfg, tp)              -> parameter declarations
+  <kind>_apply(p, x, ...)           -> training/prefill forward (residual
+                                       included)
+  <kind>_decode(p, x, cache, pos, cfg, mesh, ...)
+                                    -> single-token step: (y, cache)
+  <kind>_cache_decl(cfg, n_rep, B, ...) -> its decode cache's declarations
+
+On one device every sharding constraint is a no-op and the TP mode is
+always "head" (`sharding/policy.py`); `*_apply`'s "row" mode needs a
+model mesh axis and raises (ROADMAP queue 1 item 9: the model axis).
+`seq_shard=True` takes the reference's one-device branch, plain
+`flash_attention`. A decode step's K/V append writes into the cache in
+place (`attention._append`); the recurrent kinds return their new
+states, which `engine.decode_step` writes back.
 """
 from __future__ import annotations
 
@@ -70,10 +79,8 @@ def attn_apply(p, x, cfg: ModelConfig, *, tp: str, kind: str = "attn",
     if tp != "head":
         raise NotImplementedError(
             f"attention tp mode {tp!r} needs a model mesh axis; on one "
-            f"device the mode is 'head' (ROADMAP queue 1 item 9: row-TP "
-            f"attention)")
-    if seq_shard:
-        att.seq_sharded_flash_attention()      # raises: needs a mesh axis
+            f"device the mode is 'head' (ROADMAP queue 1 item 9: the model "
+            f"axis, row-TP attention)")
     cross = kind == "cross"
     h = L.rmsnorm(p["ln"], x)
     hsrc = src if cross else None
@@ -85,11 +92,58 @@ def attn_apply(p, x, cfg: ModelConfig, *, tp: str, kind: str = "attn",
     # its heads' copy); on one device the kernel reads KV head h // G in
     # place instead, which computes the same attention
     qg = q.reshape(B, T, KV, H // KV, Dh)
-    out = att.flash_attention(qg, k, v, causal=causal and not cross,
-                              window=window, q_chunk=cfg.attn_chunk)
+    core = att.seq_sharded_flash_attention if seq_shard \
+        else att.flash_attention
+    out = core(qg, k, v, causal=causal and not cross, window=window,
+               q_chunk=cfg.attn_chunk)
     out = out.reshape(B, T, H, Dh)
     y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
     return x + y
+
+
+def attn_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, seq_len: int,
+                    kind: str, dtype):
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    S = min(cfg.window, seq_len) if kind == "attn_swa" else seq_len
+    if kind == "cross":
+        S = cfg.num_src_tokens
+    shp = (n_rep, batch, S, KV, Dh)
+    axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    return {"k": declare(shp, axes, init="zeros", dtype=dtype),
+            "v": declare(shp, axes, init="zeros", dtype=dtype)}
+
+
+def attn_decode(p, x, cache, pos, cfg: ModelConfig, mesh, *, tp: str,
+                kind: str = "attn"):
+    """x [B,d] single token. cache {k,v} [B,S,KV,Dh]. Returns (y, cache),
+    the cache being the input's, with the new K/V row written in place
+    (`cross`: read only, no rope)."""
+    cross = kind == "cross"
+    h = L.rmsnorm(p["ln"], x)
+    B, d = h.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.einsum("bd,dhk->bhk", h, p["wq"].to(x.dtype))
+    if "q_norm" in p:
+        q = L.rmsnorm(p["q_norm"], q)
+    if not cross:
+        k_new = torch.einsum("bd,dhk->bhk", h, p["wk"].to(x.dtype))
+        v_new = torch.einsum("bd,dhk->bhk", h, p["wv"].to(x.dtype))
+        if "k_norm" in p:
+            k_new = L.rmsnorm(p["k_norm"], k_new)
+        q = L.rope(q, pos, cfg.rope_theta)
+        k_new = L.rope(k_new, pos, cfg.rope_theta)
+    qg = q.reshape(B, KV, H // KV, Dh)
+    window = cfg.window if kind == "attn_swa" else None
+    if cross:
+        out = att.decode_cross_attention(mesh, qg, cache["k"], cache["v"])
+        ck, cv = cache["k"], cache["v"]
+    else:
+        out, ck, cv = att.decode_attention(
+            mesh, qg, cache["k"], cache["v"], k_new, v_new, pos,
+            window=window)
+    out = out.reshape(B, H, Dh)
+    y = torch.einsum("bhk,hkd->bd", out, p["wo"].to(x.dtype))
+    return x + y, {"k": ck, "v": cv}
 
 
 # ===========================================================================
@@ -104,6 +158,10 @@ def mlp_decl(cfg: ModelConfig, tp: str):
 
 def mlp_apply(p, x, cfg: ModelConfig, **_):
     return x + L.mlp(p["mlp"], L.rmsnorm(p["ln"], x), act=cfg.act)
+
+
+def mlp_decode(p, x, cache, pos, cfg, mesh, **_):
+    return mlp_apply(p, x, cfg), cache
 
 
 # ===========================================================================
@@ -299,10 +357,23 @@ def moe_apply(p, x, cfg: ModelConfig, groups: int = 16, **_):
     return moe_experts(p, x, h, gate, eidx, cfg), aux
 
 
-def moe_decode(*args, **kwargs):
-    raise NotImplementedError(
-        "moe_decode: MoE decode is not ported yet (ROADMAP queue 1 item 9: "
-        "decode and caches)")
+def moe_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
+    """Decode: every expert applied densely to the (small) token batch x
+    [B,d], each token's outputs weighted by its routing (no capacity, no
+    dropped tokens), plus the shared expert."""
+    h = L.rmsnorm(p["ln"], x)                        # [B,d]
+    gate, eidx, _ = _router(p, h, cfg)               # [B,k]
+    E = cfg.num_experts
+    onehot = (eidx[..., None] == torch.arange(E, device=x.device)) \
+        .to(x.dtype)                                 # [B,k,E]
+    w_tok = torch.einsum("bk,bke->be", gate.to(x.dtype), onehot)
+    gh = F.silu(torch.einsum("bd,edf->ebf", h, p["w_gate"].to(x.dtype)))
+    uh = torch.einsum("bd,edf->ebf", h, p["w_up"].to(x.dtype))
+    ye = torch.einsum("ebf,efd->ebd", gh * uh, p["w_down"].to(x.dtype))
+    y = torch.einsum("ebd,be->bd", ye, w_tok)
+    if "shared" in p:
+        y = y + L.mlp(p["shared"], h, act="silu")
+    return x + y, cache
 
 
 # ===========================================================================
@@ -335,10 +406,10 @@ def _ssd_chunk_scan(xh, bmat, cmat, log_a, chunk: int, state0=None):
     `kernels/ssd_scan` (the CUDA kernel for CUDA tensors, its plain
     version on the CPU; the backward by autograd through the plain
     version), which reads the shared b and c of each batch row in
-    place."""
+    place. The scan's chunk is min(chunk, T), as the reference's; the
+    kernel runs a T below `chunk` as one padded chunk of `chunk`."""
     T = xh.shape[1]
-    chunk = min(chunk, T)
-    assert T % chunk == 0, (T, chunk)
+    assert T % min(chunk, T) == 0, (T, chunk)
     return ssd_scan(xh.contiguous(), bmat.contiguous(), cmat.contiguous(),
                     log_a.contiguous(), chunk, state0)
 
@@ -384,16 +455,43 @@ def mamba_apply(p, x, cfg: ModelConfig, **_):
     return x + torch.einsum("...i,id->...d", y, p["w_out"].to(x.dtype))
 
 
-def mamba_cache_decl(*args, **kwargs):
-    raise NotImplementedError(
-        "mamba_cache_decl: Mamba decode caches are not ported yet (ROADMAP "
-        "queue 1 item 9: decode and caches)")
+def mamba_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
+    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    K = cfg.ssm_conv_k
+    return {
+        "conv": declare((n_rep, batch, K - 1, cfg.d_inner),
+                        ("layers", "batch", "conv_k", "mlp"),
+                        init="zeros", dtype=dtype),
+        "state": declare((n_rep, batch, H, N, Pd),
+                         ("layers", "batch", "ssm_heads", "ssm_state", None),
+                         init="zeros", dtype=torch.float32),
+    }
 
 
-def mamba_decode(*args, **kwargs):
-    raise NotImplementedError(
-        "mamba_decode: Mamba decode is not ported yet (ROADMAP queue 1 "
-        "item 9: decode and caches)")
+def mamba_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
+    """One step of the recurrence: the conv history [B,K-1,di] shifts by
+    the new input, and the fp32 state [B,H,N,P] decays by
+    a = exp(dt * -exp(A_log)) and takes b (dt * x)."""
+    B, d = x.shape
+    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xi, z, bc, dt = _mamba_proj(p, x, cfg)
+    conv, state = cache["conv"], cache["state"]
+    hist = torch.cat([conv, xi[:, None]], dim=1)          # [B,K,di]
+    xc = F.silu(torch.einsum("bki,ki->bi", hist, p["conv_w"].to(x.dtype)))
+    conv_new = hist[:, 1:]
+    xh = xc.reshape(B, H, Pd)
+    bmat, cmat = bc[..., :N], bc[..., N:]
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    a = torch.exp(dt.to(torch.float32) * A)               # [B,H]
+    v = (xh * dt[..., None].to(x.dtype)).to(torch.float32)
+    kv = torch.einsum("bn,bhp->bhnp", bmat.to(torch.float32), v)
+    state_new = a[..., None, None] * state + kv
+    y = torch.einsum("bn,bhnp->bhp", cmat.to(torch.float32), state_new)
+    y = y.to(x.dtype) + xh * p["D"].to(x.dtype)[None, :, None]
+    y = y.reshape(B, cfg.d_inner)
+    y = L.rmsnorm(p["out_norm"], y * F.silu(z))
+    out = x + torch.einsum("bi,id->bd", y, p["w_out"].to(x.dtype))
+    return out, {"conv": conv_new, "state": state_new}
 
 
 # ===========================================================================
@@ -490,16 +588,44 @@ def mlstm_apply(p, x, cfg: ModelConfig, **_):
     return x + torch.einsum("bti,id->btd", y, p["w_out"].to(x.dtype))
 
 
-def mlstm_cache_decl(*args, **kwargs):
-    raise NotImplementedError(
-        "mlstm_cache_decl: mLSTM decode caches are not ported yet (ROADMAP "
-        "queue 1 item 9: decode and caches)")
+def mlstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
+    di = int(cfg.lstm_proj_factor * cfg.d_model)
+    H = cfg.num_heads
+    Pd = di // H
+    return {
+        "C": declare((n_rep, batch, H, Pd, Pd),
+                     ("layers", "batch", None, "row_head_dim", None),
+                     init="zeros", dtype=torch.float32),
+        "n": declare((n_rep, batch, H, Pd),
+                     ("layers", "batch", None, "row_head_dim"),
+                     init="zeros", dtype=torch.float32),
+    }
 
 
-def mlstm_decode(*args, **kwargs):
-    raise NotImplementedError(
-        "mlstm_decode: mLSTM decode is not ported yet (ROADMAP queue 1 "
-        "item 9: decode and caches)")
+def mlstm_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
+    """One step of the matrix memory: C = f C + i k v^T, n = f n + i k,
+    with i = exp(min(log_i, 20)), read by q over max(|q.n|, 1)."""
+    B, d = x.shape
+    h = L.rmsnorm(p["ln"], x)
+    q = torch.einsum("bd,dhp->bhp", h, p["w_q"].to(x.dtype))
+    k = torch.einsum("bd,dhp->bhp", h, p["w_k"].to(x.dtype))
+    v = torch.einsum("bd,dhp->bhp", h, p["w_v"].to(x.dtype))
+    log_f, log_i = _mlstm_gates(p, h)                           # [B,H]
+    Pd = q.shape[-1]
+    f = torch.exp(log_f)[..., None, None]
+    i = torch.exp(torch.clamp_max(log_i, 20.0))[..., None, None]
+    k32, v32 = k.to(torch.float32), v.to(torch.float32)
+    Cm = f * cache["C"] + i * torch.einsum("bhp,bhq->bhpq", k32, v32)
+    n = f[..., 0] * cache["n"] + i[..., 0] * k32
+    qs = q.to(torch.float32) * (Pd ** -0.5)
+    y = torch.einsum("bhp,bhpq->bhq", qs, Cm)
+    den = torch.einsum("bhp,bhp->bh", qs, n)[..., None]
+    y = (y / torch.maximum(torch.abs(den), _one(den))).to(x.dtype)
+    y = y.reshape(B, -1)
+    o = torch.sigmoid(torch.einsum("bd,di->bi", h, p["w_o"].to(x.dtype)))
+    y = L.rmsnorm(p["out_norm"], y) * o
+    out = x + torch.einsum("bi,id->bd", y, p["w_out"].to(x.dtype))
+    return out, {"C": Cm, "n": n}
 
 
 # ===========================================================================
@@ -559,13 +685,23 @@ def slstm_apply(p, x, cfg: ModelConfig, **_):
     return x + torch.einsum("btd,de->bte", y, p["w_out"].to(x.dtype))
 
 
-def slstm_cache_decl(*args, **kwargs):
-    raise NotImplementedError(
-        "slstm_cache_decl: sLSTM decode caches are not ported yet (ROADMAP "
-        "queue 1 item 9: decode and caches)")
+def slstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
+    H = cfg.num_heads
+    Pd = cfg.d_model // H
+    shp = (n_rep, batch, H, Pd)
+    ax = ("layers", "batch", None, None)
+    return {k: declare(shp, ax, init="zeros", dtype=torch.float32)
+            for k in ("h", "c", "n", "m")}
 
 
-def slstm_decode(*args, **kwargs):
-    raise NotImplementedError(
-        "slstm_decode: sLSTM decode is not ported yet (ROADMAP queue 1 "
-        "item 9: decode and caches)")
+def slstm_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
+    """One step of `_slstm_cell` from the cached (h, c, n, m); from a zero
+    cache m starts at 0, as in `slstm_apply`."""
+    hin = L.rmsnorm(p["ln"], x)
+    gx = torch.einsum("bd,dhq->bhq", hin, p["w_in"].to(x.dtype))
+    state = (cache["h"], cache["c"], cache["n"], cache["m"])
+    h, c, n, m = _slstm_cell(p, gx, state)
+    B = x.shape[0]
+    y = h.to(x.dtype).reshape(B, -1)
+    out = x + torch.einsum("bd,de->be", y, p["w_out"].to(x.dtype))
+    return out, {"h": h, "c": c, "n": n, "m": m}

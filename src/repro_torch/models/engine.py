@@ -19,9 +19,17 @@ reference's encoder scan is not. `llm_params_from_jax` carries the
 reference's parameters across. The weight-tied "shared" trees (zamba2)
 are used by every repetition, so their gradients sum over the uses.
 `forward`'s aux is the sum of every MoE sub-block's load-balance loss
-over the positions and repetitions, in the reference's order. Decoding
-and its caches (`build_cross_cache` included) raise (ROADMAP queue 1
-item 9: decode and caches).
+over the positions and repetitions, in the reference's order.
+
+Decode, as the reference's: `cache_decl` declares a cache that mirrors
+"blocks" (a list with one tree a pattern position, each leaf stacked
+[n_rep, ...], an empty dict for the stateless kinds), `zero_cache`
+materialises it with zeros on a device, `build_cross_cache` fills the
+cross-attention slots from the source memory, and `decode_step` takes
+one token a row at position `pos`. The step updates the cache it is
+given in place and returns it: the K/V rows are written into the
+stacked leaves (no copy of the cache), the recurrent states copied over
+their slots.
 """
 from __future__ import annotations
 
@@ -108,8 +116,10 @@ def model_decl(cfg: ModelConfig, tp: str) -> Dict[str, Any]:
 def llm_params_from_jax(tree, device=None):
     """The reference's parameter tree (`repro.models.engine`, as numpy
     arrays: dicts and lists) as the port's, on `device` (CUDA unless
-    named), keeping every leaf's dtype. numpy has no bfloat16 of its
-    own: a bfloat16 leaf is read through an exact float32 view and cast
+    named), keeping every leaf's dtype. It carries any such tree of
+    arrays, the reference's decode caches (`cache_decl` materialised, a
+    `decode_step`'s result) included. numpy has no bfloat16 of its own:
+    a bfloat16 leaf is read through an exact float32 view and cast
     back."""
     device = resolve_device(device)
 
@@ -153,10 +163,22 @@ def source_memory(params, cfg: ModelConfig, src: Optional[torch.Tensor],
     return src.to(cfg.dtype)
 
 
-def build_cross_cache(*args, **kwargs):
-    raise NotImplementedError(
-        "build_cross_cache: the cross-attention decode cache is not ported "
-        "yet (ROADMAP queue 1 item 9: decode and caches)")
+def build_cross_cache(cfg: ModelConfig, params, cache, src, tp: str):
+    """Populate the cross-attention K/V cache slots from the source memory
+    (VLM/audio decode: the encoder runs once, its K/V are static). Each
+    repetition's wk/wv project the memory; the results take the cache's
+    dtype. Returns a new list; the other positions keep their trees."""
+    mem = source_memory(params, cfg, src, tp)
+    new_cache = list(cache)
+    for i, kind in enumerate(cfg.pattern):
+        if kind != "cross":
+            continue
+        bp = params["blocks"][i]
+        ks = torch.einsum("bsd,rdhk->rbshk", mem, bp["wk"].to(mem.dtype))
+        vs = torch.einsum("bsd,rdhk->rbshk", mem, bp["wv"].to(mem.dtype))
+        new_cache[i] = {"k": ks.to(cache[i]["k"].dtype),
+                        "v": vs.to(cache[i]["v"].dtype)}
+    return new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -220,3 +242,78 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
     else:
         logits = L.unembed(params["lm_head"], x)
     return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def cache_decl(cfg: ModelConfig, batch: int, seq_len: int, *,
+               force_swa: bool = False):
+    dt = cfg.dtype
+    out = []
+    for kind in cfg.pattern:
+        kind = effective_kind(kind, force_swa)
+        if kind in ("attn", "attn_swa", "cross"):
+            out.append(B.attn_cache_decl(cfg, cfg.n_rep, batch, seq_len,
+                                         kind, dt))
+        elif kind == "mamba":
+            out.append(B.mamba_cache_decl(cfg, cfg.n_rep, batch, dt))
+        elif kind == "mlstm":
+            out.append(B.mlstm_cache_decl(cfg, cfg.n_rep, batch, dt))
+        elif kind == "slstm":
+            out.append(B.slstm_cache_decl(cfg, cfg.n_rep, batch, dt))
+        else:
+            out.append({})
+    return out
+
+
+def zero_cache(decl, device=None):
+    """The declared cache, every leaf zeros of its shape and dtype, on
+    `device` (CUDA unless named)."""
+    device = resolve_device(device)
+    return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                          device=device), decl)
+
+
+_DECODE = {
+    "attn": functools.partial(B.attn_decode, kind="attn"),
+    "attn_swa": functools.partial(B.attn_decode, kind="attn_swa"),
+    "cross": functools.partial(B.attn_decode, kind="cross"),
+    "mlp": B.mlp_decode,
+    "moe": B.moe_decode,
+    "mamba": B.mamba_decode,
+    "mlstm": B.mlstm_decode,
+    "slstm": B.slstm_decode,
+}
+
+
+def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                cfg: ModelConfig, mesh, *, tp: str,
+                force_swa: bool = False) -> Tuple[torch.Tensor, Any]:
+    """tokens [B] -> (logits [B,V] f32, cache). pos: the 0-dim integer
+    tensor of tokens so far, on the cache's device; it is never read on
+    the host, so a step makes no host sync.
+
+    The input cache is updated in place and returned: it holds the
+    values of the reference's new cache. Attention writes its new K/V row
+    into the stacked leaves; each recurrent state is copied over its
+    repetition's slot."""
+    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    for r in range(cfg.n_rep):
+        for i, kind in enumerate(cfg.pattern):
+            ek = effective_kind(kind, force_swa)
+            p = params["shared"].get(str(i)) or tree_map(
+                lambda a: a[r], params["blocks"][i])
+            slot = {k: v[r] for k, v in cache[i].items()}
+            kw = dict(tp=tp) if ek in ("attn", "attn_swa", "cross") else {}
+            x, new = _DECODE[ek](p, x, slot, pos, cfg, mesh, **kw)
+            for k, v in new.items():
+                if v is not slot[k]:
+                    slot[k].copy_(v)
+    x = L.rmsnorm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = L.unembed_tied(params["embed"], x)
+    else:
+        logits = L.unembed(params["lm_head"], x)
+    return logits, cache

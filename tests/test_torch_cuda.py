@@ -925,6 +925,33 @@ def test_ssd_scan_bf16_kernel_matches_plain_version(B, T, H, chunk, state0,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,chunk,dtype", [(64, 128, torch.bfloat16),
+                                           (24, 32, torch.float32)])
+def test_ssd_scan_short_sequence_runs_one_padded_kernel_chunk(T, chunk,
+                                                             dtype):
+    """T below the chunk: the reference's min(chunk, T) (64, 24) is no
+    kernel chunk, so the kernel runs one chunk of `chunk` over the
+    sequence padded with steps that change neither y nor the state; held
+    to the plain version at min(chunk, T) as the other cases of its
+    dtype are."""
+    require_cuda()
+    v, b, c, la = _ssd(2, T, 8, dtype, 31)
+    before = ssd_scan_fwd.launches
+    y, s = ssd_scan_fwd(v, b, c, la, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_fwd.launches == before + 1 and y.shape == v.shape
+    ry, rs = ssd_scan_plain(v, b, c, la, chunk)
+    ys = float(ry.float().abs().max())
+    if dtype == torch.bfloat16:
+        diff = (y.float() - ry.float()).abs()
+        assert bool((diff <= 2.0 ** -7 * ry.float().abs() + 1e-3 * ys).all())
+        assert float((s - rs).abs().max()) <= 5e-5 * float(rs.abs().max())
+    else:
+        torch.testing.assert_close(y, ry, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(s, rs, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
 def test_ssd_scan_function_gradients_on_card():
     """The Function (kernel forward, backward by autograd through the
     plain version) against autograd through the plain version, both on
@@ -1183,3 +1210,109 @@ def test_mesh_on_one_rank_nccl_world_is_the_one_device_loop(case, tmp_path):
     if case[0] == "fused":
         assert torch.equal(got.params["w"], one.params["w"])
         assert torch.equal(got.loss, one.loss)
+
+
+def _smoke_decode(arch, device, steps=24, force_swa=False, **replace):
+    """The smoke config of `arch` in fp32 (the CPU tests' setting, with
+    the SSM chunk 32, a chunk the `ssd_scan` kernels take), its init
+    drawn on the CPU from seed 0, prefill logits and `steps` decode
+    steps' logits on `device` from a zero cache."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize, tree_map
+    cfg = get_smoke_config(arch).replace(
+        compute_dtype="float32", param_dtype="float32", remat=False,
+        ssm_chunk=32, attn_chunk=16, capacity_factor=4.0, **replace)
+    params = tree_map(lambda a: a.to(device), materialize(
+        torch.Generator().manual_seed(0), engine.model_decl(cfg, "head")))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, steps), generator=gen) \
+        .to(device)
+    src = None
+    if cfg.family in ("vlm", "audio"):
+        src = (0.1 * torch.randn(2, cfg.num_src_tokens, cfg.src_dim,
+                                 generator=gen)).to(device)
+    cache = engine.zero_cache(engine.cache_decl(cfg, 2, steps,
+                                                force_swa=force_swa), device)
+    if src is not None:
+        cache = engine.build_cross_cache(cfg, params, cache, src, "head")
+    outs = []
+    with torch.no_grad():
+        for t in range(steps):
+            lg, cache = engine.decode_step(
+                params, cache, toks[:, t], torch.tensor(t, device=device),
+                cfg, None, tp="head", force_swa=force_swa)
+            outs.append(lg)
+        pcfg = cfg.replace(pattern=tuple(
+            "attn_swa" if force_swa and k == "attn" else k
+            for k in cfg.pattern))
+        prefill, _ = engine.forward(params, toks, pcfg, tp="head", src=src)
+    return torch.stack(outs, 1).cpu(), prefill.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,force_swa,tol,replace", [
+    ("qwen3-32b", False, 1e-3, {}), ("zamba2-2.7b", False, 5e-3, {}),
+    ("xlstm-1.3b", False, 5e-3, {}),
+    ("granite-moe-1b-a400m", False, 5e-2, {}),
+    ("whisper-small", False, 5e-3, {"encoder_layers": 1}),
+    ("qwen3-32b", True, 1e-3, {})], ids=lambda v: str(v))
+def test_decode_step_on_card_matches_cpu(arch, force_swa, tol, replace):
+    """`decode_step` over the smoke config in fp32 (qwen3's forced ring
+    over 80 tokens, so that it wraps), card against CPU within 1e-3 of
+    the largest logit (`tests/test_torch_decode.py`'s bound against the
+    reference); on the card the prefill (through the fp32 kernels)
+    against the decode within `tests/test_decode_consistency.py`'s
+    bound. whisper at one encoder layer: at its smoke depth its encoder
+    is chaotic at the init (the CPU's own logits move by 1.6e-3 under a
+    half-ulp change of the weights), as `tests/test_torch_encdec.py`
+    holds its VFL round at one encoder layer."""
+    require_cuda()
+    steps = 80 if force_swa else 24
+    cpu, _ = _smoke_decode(arch, "cpu", steps, force_swa, **replace)
+    dec, prefill = _smoke_decode(arch, "cuda", steps, force_swa, **replace)
+    scale = float(cpu.abs().max())
+    assert bool(torch.isfinite(dec).all())
+    torch.testing.assert_close(dec, cpu, atol=1e-3 * scale, rtol=0)
+    rel = float((dec - prefill).abs().max()) / float(prefill.abs().max())
+    assert rel < tol, f"{arch}: prefill/decode rel={rel}"
+
+
+@pytest.mark.cuda
+def test_decode_step_appends_in_place_without_host_sync():
+    """One bf16 step of the qwen3 smoke config on the card: the K/V cache
+    leaves keep their storage (the new row is written in place, not the
+    cache copied), the row at `pos` is written, and the step makes no
+    host sync (it runs under `torch.cuda.set_sync_debug_mode("error")`);
+    a zamba2 step (Mamba2 states, the tied attention) too."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize, tree_leaves
+    require_cuda()
+    for arch in ("qwen3-32b", "zamba2-2.7b", "granite-moe-1b-a400m"):
+        cfg = get_smoke_config(arch)
+        params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                             engine.model_decl(cfg, "head"))
+        cache = engine.zero_cache(engine.cache_decl(cfg, 2, 32), "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (3, 2), device="cuda")
+        pos = [torch.tensor(t, device="cuda") for t in range(3)]
+        ptrs = [a.data_ptr() for a in tree_leaves(cache)]
+        with torch.no_grad():
+            engine.decode_step(params, cache, toks[0], pos[0], cfg, None,
+                               tp="head")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for t in (1, 2):
+                    logits, out = engine.decode_step(
+                        params, cache, toks[t], pos[t], cfg, None,
+                        tp="head")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert out is cache
+        assert [a.data_ptr() for a in tree_leaves(cache)] == ptrs
+        attn = cfg.pattern.index("attn")
+        k = cache[attn]["k"]
+        assert bool(k[:, :, :3].abs().amax(dim=(0, 1, 3, 4)).gt(0).all())
+        assert not bool(k[:, :, 3:].any())
+        assert bool(torch.isfinite(logits).all())

@@ -187,10 +187,28 @@ def test_source_memory_and_its_gradients_match_reference(arch, out_tol,
 
 
 def test_source_memory_without_src_is_none_and_decode_cache_waits():
-    _, cfg = _cfgs(WHISPER, **F32)
+    """No src, no memory. The decode cache's cross slots are built from
+    the memory: each repetition's wk and wv applied to it, in the cache's
+    dtype (here bf16 from fp32 params: within half a bf16 ulp), the
+    other slots untouched."""
+    jcfg, cfg = _cfgs(WHISPER, **F32)
     assert engine.source_memory({}, cfg, None, "head") is None
-    with pytest.raises(NotImplementedError, match="decode"):
-        engine.build_cross_cache(cfg, {}, [], None, "head")
+    params = _port(j_materialize(jax.random.key(5),
+                                 jengine.model_decl(jcfg, "head")))
+    src = tt(src_batch(jcfg, BATCH, 8))
+    cache = engine.zero_cache(engine.cache_decl(
+        cfg.replace(compute_dtype="bfloat16"), BATCH, 16), "cpu")
+    out = engine.build_cross_cache(cfg, params, cache, src, "head")
+    ci = cfg.pattern.index("cross")
+    mem = engine.source_memory(params, cfg, src, "head")
+    for r in range(cfg.n_rep):
+        for key, w in (("k", "wk"), ("v", "wv")):
+            want = torch.einsum("bsd,dhk->bshk", mem,
+                                params["blocks"][ci][w][r])
+            assert out[ci][key].dtype == torch.bfloat16
+            torch.testing.assert_close(out[ci][key][r].float(), want,
+                                       rtol=2 ** -8, atol=0.0)
+    assert all(out[i] is cache[i] for i in range(len(cache)) if i != ci)
 
 
 @pytest.mark.parametrize("arch", [WHISPER, VLM])

@@ -162,10 +162,6 @@ def test_attention_core_matches_reference_banded_and_dense():
                    causal=causal, window=window, q_chunk=64, kv_chunk=32,
                    skip_masked_blocks=skip)
         _close(ours, ref, atol=2e-5, rtol=2e-5)
-    with pytest.raises(NotImplementedError):
-        att.decode_attention()
-    with pytest.raises(NotImplementedError):
-        att.seq_sharded_flash_attention()
 
 
 @pytest.mark.parametrize("kind", ["attn", "attn_swa", "cross"])
@@ -191,12 +187,21 @@ def test_attn_apply_matches_reference(kind):
 
 
 def test_attn_apply_refuses_row_tp_and_seq_shard():
-    _, cfg = _cfgs()
+    """Row-TP needs a model mesh axis and raises, naming it; seq_shard
+    takes the reference's one-device branch (plain flash attention), so
+    the block matches the reference's with seq_shard and equals its own
+    output without it bit for bit."""
+    jcfg, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match="row"):
         B.attn_apply({}, torch.zeros(1, 4, 256), cfg, tp="row")
-    with pytest.raises(NotImplementedError):
-        B.attn_apply({}, torch.zeros(1, 4, 256), cfg, tp="head",
-                     seq_shard=True)
+    p = j_materialize(jax.random.key(1), jB.attn_decl(jcfg, "head"))
+    x = _x((BATCH, SEQ, jcfg.d_model), 23)
+    ref = jB.attn_apply(p, jnp.asarray(x), jcfg, tp="head",
+                        positions=jL.rope_positions(SEQ), seq_shard=True)
+    kw = dict(tp="head", positions=L.rope_positions(SEQ))
+    ours = B.attn_apply(_port(p), tt(x), cfg, seq_shard=True, **kw)
+    _close_scaled(ours, ref)
+    assert torch.equal(ours, B.attn_apply(_port(p), tt(x), cfg, **kw))
 
 
 def test_mlp_apply_matches_reference():
@@ -291,13 +296,12 @@ def test_forward_in_bf16_is_finite_and_near_fp32():
 
 
 def test_model_decl_refuses_families_of_later_slices():
-    """Every sub-block kind declares; the xLSTM decode paths and their
-    caches raise, naming decode (ROADMAP queue 1 item 9)."""
-    jcfg, cfg = _cfgs()
-    for fn in (B.mlstm_decode, B.slstm_decode, B.mlstm_cache_decl,
-               B.slstm_cache_decl):
-        with pytest.raises(NotImplementedError, match="decode"):
-            fn()
+    """Every sub-block kind declares, applies and decodes, as in the
+    reference's tables; `effective_kind` forces the ring as the
+    reference's does."""
+    assert sorted(engine._DECLS) == sorted(jengine._DECLS)
+    assert sorted(engine._APPLY) == sorted(engine._DECODE) \
+        == sorted(jengine._DECODE)
     for kind, swa in [("attn", True), ("attn", False), ("mlp", True),
                       ("cross", True)]:
         assert engine.effective_kind(kind, swa) == \

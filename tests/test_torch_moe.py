@@ -227,9 +227,21 @@ def test_moe_apply_gradients_match_jax_grad(arch):
                                    rtol=0)
 
 
-def test_moe_decode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="decode and caches"):
-        B.moe_decode()
+def test_moe_decode_is_not_ported_yet(single_mesh):
+    """Ported since: `moe_decode` (every expert dense over the token
+    batch, weighted by its routing, no capacity; llama4-scout's shared
+    expert) against the reference's, output within 1e-5 of its largest
+    magnitude, the (empty) cache passed through."""
+    for arch in (GRANITE, SCOUT):
+        jcfg, cfg, jp, p = _block(arch)
+        x = _x((3, jcfg.d_model), 5)
+        ry, rc = jB.moe_decode(jp, jnp.asarray(x), {}, jnp.int32(3), jcfg,
+                               single_mesh)
+        y, c = B.moe_decode(p, tt(x), {}, torch.tensor(3), cfg, None)
+        ry = np.asarray(ry)
+        np.testing.assert_allclose(tn(y), ry, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(ry).max()))
+        assert c == rc == {}
 
 
 # ---------------------------------------------------------------------------

@@ -201,14 +201,24 @@ def test_mamba_apply_gradients_match_jax_grad():
 
 def test_mamba_softplus_and_decode_paths():
     """The softplus is jax's (logaddexp(x, 0), no cut-off at 20), and the
-    decode paths raise naming their slice."""
+    decode path steps the recurrence that `mamba_apply` scans: from the
+    zero cache of `mamba_cache_decl`, two steps give the first two
+    outputs of the prefill (fp32, 1e-5 of their largest magnitude)."""
     x = np.array([-30.0, -1.0, 0.0, 3.0, 19.0, 25.0, 80.0], np.float32)
     np.testing.assert_allclose(tn(B._softplus(tt(x))),
                                np.asarray(jax.nn.softplus(x)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="decode"):
-        B.mamba_decode()
-    with pytest.raises(NotImplementedError, match="decode"):
-        B.mamba_cache_decl()
+    jcfg, cfg = _cfgs(**F32)
+    p = _port(j_materialize(jax.random.key(3), jB.mamba_decl(jcfg, "head")))
+    xs = tt(_x((BATCH, 2, cfg.d_model), 6))
+    decl = B.mamba_cache_decl(cfg, 1, BATCH, torch.float32)
+    cache = {k: torch.zeros(d.shape[1:], dtype=d.dtype)
+             for k, d in decl.items()}
+    assert decl["state"].dtype == torch.float32
+    want = B.mamba_apply(p, xs, cfg.replace(ssm_chunk=2))
+    for t in range(2):
+        y, cache = B.mamba_decode(p, xs[:, t], cache, torch.tensor(t), cfg,
+                                  None)
+        _close_scaled(y, tn(want[:, t]), 1e-5)
 
 
 def test_ssd_chunk_scan_keeps_the_reference_contract():

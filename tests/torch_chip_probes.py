@@ -7,6 +7,7 @@ needed):
     python3 tests/torch_chip_probes.py lr-sweep xlstm-1.3b [e]
     python3 tests/torch_chip_probes.py lr-sweep whisper-small [e]
     python3 tests/torch_chip_probes.py bitwise    # schedulers, card vs CPU
+    python3 tests/torch_chip_probes.py decode     # smoke decode, card vs CPU
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -26,6 +27,13 @@ non-finite eval loss (with `e`, from 10^-e down); this is how `XLSTM_LR` and
 `WHISPER_LR` were set. `grads xlstm-1.3b` and `grads whisper-small` log
 the eval loss at init with each sub-block's largest output, and each
 vehicle's gradients of rounds 0 and 1, as for granite.
+
+`decode [run ...]`: `chip_smoke.smoke_decode` of each DECODE_SMOKE run
+(all, or those named), card against CPU step by step (the largest
+logit difference over max|logit|), beside the CPU's own move when every
+weight moves by half an ulp (x (1 +- 6e-8)), and the card's prefill
+against its decode: how far the fp32 decode's card-vs-CPU distance is
+the model's conditioning at its init.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -239,9 +247,35 @@ def bitwise(device) -> None:
         baselines._log2 = kept
 
 
+def decode(device, *runs) -> None:
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize
+    for run in runs or tuple(cs.DECODE_SMOKE):
+        cfg, _, _ = cs.smoke_decode_config(run)
+        params = materialize(torch.Generator().manual_seed(0),
+                             engine.model_decl(cfg, "head"))
+        cpu, _ = cs.smoke_decode(run, "cpu", params)
+        moved, _ = cs.smoke_decode(run, "cpu", cs.half_ulp_moved(params, 23))
+        card, pre = cs.smoke_decode(run, device, params)
+        scale = float(cpu.abs().max())
+
+        def by_step(a):
+            return [float((a[:, t] - cpu[:, t]).abs().max()) / scale
+                    for t in range(cpu.shape[1])]
+        card_s, moved_s = by_step(card), by_step(moved)
+        cs.log("probe decode", f"{run}: card vs CPU {max(card_s):.3e} of "
+               f"max|logit| {scale:.3e}, the CPU's half-ulp move "
+               f"{max(moved_s):.3e}, card prefill vs decode "
+               f"{float((card - pre).abs().max()) / float(pre.abs().max()):.3e}"
+               f"; by step, card: "
+               f"{' '.join(f'{e:.1e}' for e in card_s)}; half-ulp: "
+               f"{' '.join(f'{e:.1e}' for e in moved_s)}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise}
+    probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
+              "decode": decode}
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)
