@@ -74,12 +74,14 @@ with its kernel launches counted from 0:
   seq_shard=True)` (2 `flash_attention` launches), then `decode_step`
   over the prompts and 64 greedy tokens (no kernel launch), its logits
   at position 63 held to the prefill's within 5e-2 of max|logit|, each
-  step timed beside its bytes bound; zamba2-2.7b at full width and depth
-  at batch 8 (45 `ssd_scan` and 9 `flash_attention` launches a prefill);
-  then `decode_step` at the smoke configs of seven archs (whisper's and
-  llama-3.2-vision's cross slots from `build_cross_cache`, qwen3's
-  sliding-window ring) on the card against the CPU. `flash_attention`
-  is also timed at qwen3's prefill shape.
+  step timed beside two bytes bounds (every slot, as the plain
+  algorithm reads them, and the valid slots only); zamba2-2.7b at full
+  width and depth at batch 8 (45 `ssd_scan` and 9 `flash_attention`
+  launches a prefill); then `decode_step` at the smoke configs of seven
+  archs (whisper's and llama-3.2-vision's cross slots from
+  `build_cross_cache`, qwen3's sliding-window ring) on the card against
+  the CPU. `flash_attention` is also timed at qwen3's prefill shape,
+  `ssd_scan` held at zamba2's (one padded chunk).
 - the scheduling service (`launch/serve.py`): the reference's own
   `ServeConfig()` (madca, B 4, L 4) over 3 waves of 6 sessions on the card
   against the CPU on the same draws, then VEDS with the warm P4 table at
@@ -262,8 +264,9 @@ MESH_BATCH, MESH_ROUNDS, MESH_SEED, MESH_EXCHANGE_REPS = 4, 10, 17, 21
 # their largest when every weight moves by half an ulp; at its smoke
 # depth they move by 1.6e-3 (an encoder of chaotic fp32 softmaxes at the
 # reference's init, ROADMAP queue 3), so there its distance is logged
-# beside that move, as the CPU tests hold whisper's VFL round at one
-# encoder layer
+# beside that move and beside the card with the encoder's attention
+# through its plain version instead of the kernel, as the CPU tests hold
+# whisper's VFL round at one encoder layer
 DECODE_PROMPT, DECODE_NEW, DECODE_QWEN3_TOL = 64, 64, 5e-2
 DECODE_ZAMBA2_BATCH, DECODE_CPU_TOL = 8, 1e-3
 DECODE_SMOKE = {"qwen3-32b": (1e-3, DECODE_CPU_TOL),
@@ -1789,11 +1792,13 @@ def ssd_bound_ms(v, b, chunk: int):
 def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
     """ssd_scan against its plain version on the card: at the zamba2
     path's shape (v [4, 1024, 80, 64], b/c [4, 1024, 64], chunk 128) in
-    bf16 and fp32, at a ragged T (pad path), at H = 1 (the Pallas
-    layout), with an initial state at the smoke config's chunk, and at
-    chunk 128 with dt ~ 0.7 (zamba2's init), where the reference model's
-    jnp scan overflows; timed at the main shape beside its bound. log_a =
-    -softplus(normal) elsewhere, so a chunk of 128 decays by ~100 too.
+    bf16 and fp32, at a ragged T (pad path), at zamba2's serving prefill
+    (v [8, 64, 80, 64] bf16: a T below the chunk, one padded chunk), at
+    H = 1 (the Pallas layout), with an initial state at the smoke
+    config's chunk, and at chunk 128 with dt ~ 0.7 (zamba2's init), where
+    the reference model's jnp scan overflows; timed at the main shape
+    beside its bound. log_a = -softplus(normal) elsewhere, so a chunk of
+    128 decays by ~100 too.
     Each error is reported as max abs and as a share of the output's
     largest entry. fp32 y is held within 5e-5 of max|y| (the kernel's
     products and its cumsum sum in other orders; entries near 0 cancel);
@@ -1825,6 +1830,8 @@ def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
         "overflow_dt07": (2, 512, 8, C, torch.float32, False),
         "ragged_bf16": (2, 1000, 8, C, torch.bfloat16, True),
         "overflow_dt07_bf16": (2, 512, 8, C, torch.bfloat16, False),
+        # zamba2's serving prefill: 64 tokens run as one padded chunk
+        "serve_prefill": (8, 64, H, C, torch.bfloat16, False),
     }
     res = {}
     for label, (b_, t, h, c, dtype, with_s0) in cases.items():
@@ -2686,11 +2693,15 @@ def decode_serve(device, cfg, batch: int, seq_len: int, prompt: int,
     the prefill and a prefill with every bf16 weight moved by one ulp:
     the model's own sensitivity); every logit must be finite. Times:
     the prefill (after one untimed call), each step between CUDA events
-    (median), tokens/s, beside the step's bytes bound: the cache, every
-    parameter but the embedding table (B rows of it are read) and the
-    LM head, read once, over the memory rate."""
+    (median), tokens/s, beside two bytes bounds: the plain algorithm's,
+    which reads every slot of the cache as the reference's decode does
+    (the cache, every parameter but the embedding table, of which B rows
+    are read, and the LM head, read once, over the memory rate), and the
+    function's, which needs of each self-attention cache only the slots
+    0..pos written so far (the median over the timed steps' positions)."""
     from repro_torch.models import engine
-    from repro_torch.models.module import materialize, param_bytes
+    from repro_torch.models.module import (materialize, param_bytes,
+                                           tree_leaves)
     phase = f"decode {cfg.name}"
     torch.cuda.synchronize()
     free()
@@ -2707,6 +2718,20 @@ def decode_serve(device, cfg, batch: int, seq_len: int, prompt: int,
         math.prod(decl["embed"]["table"].shape) * cfg.pdtype.itemsize
     step_bytes = cache_bytes + param_bytes(decl) - emb
     bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+
+    def needed_bytes(pos):
+        n = param_bytes(decl) - emb
+        for kind, c in zip(cfg.pattern, cdecl):
+            for d in tree_leaves(c):
+                size = math.prod(d.shape) * d.dtype.itemsize
+                if kind != "cross" and "cache_seq" in d.axes:
+                    S = d.shape[d.axes.index("cache_seq")]
+                    size = size // S * min(pos + 1, S)
+                n += size
+        return n
+    needed_ms = [needed_bytes(t) / PEAK_BYTES_PER_S * 1e3
+                 for t in range(prompt + new)]
+    valid_bound_ms = statistics.median(needed_ms)
     log(phase, f"{cfg.name} pattern {cfg.pattern} x n_rep {cfg.n_rep} "
         f"d_model {cfg.d_model} vocab {cfg.vocab_size} {cfg.param_dtype}: "
         f"{param_bytes(decl) / 1e9:.3f} GB of params; batch {batch}, "
@@ -2763,13 +2788,19 @@ def decode_serve(device, cfg, batch: int, seq_len: int, prompt: int,
     ulp_dist = float((moved - ref).abs().max()) / scale
     ulp_agree = float((moved.argmax(-1) == ref.argmax(-1)).float().mean())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(phase, f"prefill {prefill_ms:.2f} ms ({batch * prompt / prefill_ms * 1e3:.0f} "
-        f"tokens/s), launches {prefill_counts} (expected {want_prefill}); "
+    log(phase, f"prefill {prefill_ms:.2f} ms "
+        f"({batch * prompt / prefill_ms * 1e3:.0f} tokens/s), launches "
+        f"{prefill_counts} (expected {want_prefill}); "
         f"decode {step_ms:.3f} ms a step, median of {prompt + new} (first "
         f"{steps_ms[0]:.3f}, min {min(steps_ms):.3f}, max "
         f"{max(steps_ms):.3f}), {batch / step_ms * 1e3:.0f} tokens/s, "
-        f"bytes bound {bound_ms:.3f} ms ({step_bytes / 1e9:.2f} GB a "
-        f"step), launches {step_counts}; peak memory {peak_gb:.2f} GB; "
+        f"the plain algorithm's bytes bound (every slot) {bound_ms:.3f} ms "
+        f"({step_bytes / 1e9:.2f} GB a step), the function's (the valid "
+        f"slots) {valid_bound_ms:.4f} ms median ({needed_ms[0]:.4f} at "
+        f"position 0 to {needed_ms[-1]:.4f} at {prompt + new - 1}): the "
+        f"step is {step_ms / bound_ms:.2f}x and "
+        f"{step_ms / valid_bound_ms:.1f}x them; launches {step_counts}; "
+        f"peak memory {peak_gb:.2f} GB; "
         f"{smi_line()}")
     log(phase, f"decode logits at position {prompt - 1} vs the prefill's: "
         f"max abs {dist * scale:.4e} = {dist:.4e} of max|logit| "
@@ -2793,6 +2824,8 @@ def decode_serve(device, cfg, batch: int, seq_len: int, prompt: int,
                prefill_launches=prefill_counts, step_ms=step_ms,
                steps_ms=steps_ms, tokens_per_s=batch / step_ms * 1e3,
                step_bytes=step_bytes, bound_ms=bound_ms,
+               valid_slots_bound_ms=valid_bound_ms,
+               valid_slots_bound_ms_range=[needed_ms[0], needed_ms[-1]],
                step_launches=step_counts, prefill_decode_rel=dist,
                argmax_agree=agree, prefill_ulp_move_rel=ulp_dist,
                prefill_ulp_move_argmax_agree=ulp_agree, tolerance=tol,
@@ -2882,6 +2915,25 @@ def half_ulp_moved(params, seed: int):
         0, 2, x.shape, generator=g) - 1.0).to(x.device)), params)
 
 
+@contextlib.contextmanager
+def plain_flash_attention():
+    """The models' `flash_attention` through its plain version, not the
+    kernel, while the block runs: a witness that takes the kernel out of
+    a path and leaves every other operation as it was."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.models import attention
+    kept = attention._fa
+
+    def plain(q, k, v, *, causal, window, q_offset, bwd_chunk):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)[0]
+    attention._fa = plain
+    try:
+        yield
+    finally:
+        attention._fa = kept
+
+
 def phase_decode_reference(device):
     """`decode_step` at the smoke configs in fp32 (DECODE_SMOKE: the seven
     archs of `tests/test_decode_consistency.py`, whisper's and vlm's cross
@@ -2889,34 +2941,73 @@ def phase_decode_reference(device):
     the window-64 ring over 80 tokens, so that it wraps): the card's
     logits against the CPU's within DECODE_CPU_TOL of max|logit| (the CPU
     tests' bound against the reference; for whisper at its smoke depth
-    logged beside the CPU's own half-ulp move instead), and the card's
+    logged instead, beside two witnesses: the CPU's own move under a
+    half-ulp change of the weights, and the card with the encoder's
+    `flash_attention` through its plain version, not the kernel, against
+    the CPU: an encoder that amplifies any rounding gives it a distance
+    like the kernel's, a kernel fault a much smaller one), and the card's
     prefill (through the fp32 kernels) against its decode within the
     reference test's own bound."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.models import engine
-    from repro_torch.models.module import materialize
+    from repro_torch.models.module import materialize, tree_map
     out = {}
     for run, (tol, cpu_tol) in DECODE_SMOKE.items():
         cfg, _, _ = smoke_decode_config(run)
         params = materialize(torch.Generator().manual_seed(0),
                              engine.model_decl(cfg, "head"))
         cpu, _ = smoke_decode(run, "cpu", params)
+        n0 = flash_attention_fwd.launches
         dec, pre = smoke_decode(run, device, params)
+        n_flash = flash_attention_fwd.launches - n0
         steps = cpu.shape[1]
         scale = float(cpu.abs().max())
         err = float((dec - cpu).abs().max()) / scale
         rel = float((dec - pre).abs().max()) / float(pre.abs().max())
         r = dict(steps=steps, card_vs_cpu=err, prefill_vs_decode=rel,
+                 flash_attention_launches=n_flash,
                  tolerance=dict(card_vs_cpu=cpu_tol, prefill_vs_decode=tol))
         note = f"tolerance {cpu_tol}"
         if cpu_tol is None:
             moved, _ = smoke_decode(run, "cpu", half_ulp_moved(params, 23))
             r["cpu_half_ulp_move"] = float((moved - cpu).abs().max()) / scale
+            # the encoder's memory itself, kernel against plain version
+            src = (0.1 * torch.randn(2, cfg.num_src_tokens, cfg.src_dim,
+                                     generator=torch.Generator()
+                                     .manual_seed(2))).to(device)
+            p = tree_map(lambda a: a.to(device), params)
+            with torch.no_grad():
+                mem = engine.source_memory(p, cfg, src, "head")
+                with plain_flash_attention():
+                    mem_plain = engine.source_memory(p, cfg, src, "head")
+            r["encoder_memory_kernel_vs_plain"] = \
+                float((mem - mem_plain).abs().max()) / \
+                float(mem_plain.abs().max())
+            del p
+            n0 = flash_attention_fwd.launches
+            with plain_flash_attention():
+                plain, _ = smoke_decode(run, device, params)
+            check(n_flash > 0 and flash_attention_fwd.launches == n0,
+                  f"decode {run}: the kernel ran {n_flash} times, the "
+                  f"witness without it {flash_attention_fwd.launches - n0}")
+            r["card_plain_attention_vs_cpu"] = \
+                float((plain - cpu).abs().max()) / scale
+            r["card_kernel_vs_plain_attention"] = \
+                float((dec - plain).abs().max()) / scale
             note = (f"logged: the CPU's own logits move by "
                     f"{r['cpu_half_ulp_move']:.3e} when every weight moves "
-                    f"by half an ulp")
+                    f"by half an ulp; the card with the plain attention, "
+                    f"not the kernel, is "
+                    f"{r['card_plain_attention_vs_cpu']:.3e} from the CPU "
+                    f"and {r['card_kernel_vs_plain_attention']:.3e} from "
+                    f"the card with the kernel; the encoder's memory with "
+                    f"the kernel is "
+                    f"{r['encoder_memory_kernel_vs_plain']:.3e} of its max "
+                    f"from the plain version's")
         log("decode_reference", f"{run} smoke config, fp32, {steps} steps: "
             f"card vs CPU logits {err:.3e} of max|logit| ({note}); prefill "
-            f"vs decode on the card {rel:.3e} (tolerance {tol})")
+            f"vs decode on the card {rel:.3e} (tolerance {tol}); "
+            f"{n_flash} flash_attention launches")
         check(bool(torch.isfinite(dec).all()), f"decode {run}: not finite")
         check(cpu_tol is None or err <= cpu_tol, f"decode {run}: card vs "
               f"CPU {err:.3e} of max|logit| > {cpu_tol}")

@@ -183,7 +183,7 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     # a sequence shorter than a kernel's chunk runs as one such chunk,
     # padded (the reference's min(chunk, T) may be a chunk the kernels do
     # not take, e.g. zamba2's 128 over a 64-token prompt)
-    k = chunk if T < chunk and chunk in CHUNKS else min(chunk, T)
+    k = chunk if chunk in CHUNKS else min(chunk, T)
     chunk, vp, bp, cp, lp = _pad_to_chunk(v, b, c, log_a, k)
     if chunk not in CHUNKS or N != STATE_DIM or P != HEAD_DIM:
         raise ValueError(f"ssd_scan: the kernel takes chunk in {CHUNKS} "

@@ -97,8 +97,8 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
-def _decode_core(q, ck, cv, valid) -> Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]:
+def _decode_core(q, ck, cv, valid, over: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q [B,KV,G,D]; ck/cv [B,S,KV,D]; valid [B,S] -> partial (m, l, o):
     the row maxima and sums of the masked scores [B,KV,G] and the
     unnormalised output [B,KV,G,D], all float32.
@@ -107,16 +107,21 @@ def _decode_core(q, ck, cv, valid) -> Tuple[torch.Tensor, torch.Tensor,
     scores are batched products against strided views of the cache, one
     KV head at a time over the rows (head k of ck is [B, S, D] with row
     stride KV*D), or one row at a time over the heads where the rows are
-    fewer (row b of ck, [S, KV, D], read as [KV, D, S]), whichever loop is
-    shorter. The probabilities are cast to the cache's dtype before the
-    PV product, as the reference's are."""
+    fewer (row b of ck, [S, KV, D], read as [KV, D, S]): `over` "heads"
+    or "rows", by default whichever loop is shorter (zamba2's step at 8
+    rows and 32 KV heads is faster over the rows: PERF.md, measured by
+    `tests/torch_chip_probes.py decode-loops`). The probabilities are
+    cast to the cache's dtype before the PV product, as the reference's
+    are."""
     B, KV, G, D = q.shape
     scale = 1.0 / (D ** 0.5)
-    if KV <= B:     # per head: batch over the rows
+    if over is None:
+        over = "heads" if KV <= B else "rows"
+    if over == "heads":     # batch over the rows
         parts = [(q[:, k], ck[:, :, k].transpose(1, 2), cv[:, :, k],
                   valid[:, None, :]) for k in range(KV)]
         dim = 1
-    else:           # per row: batch over the heads
+    else:                   # batch over the heads
         parts = [(q[b], ck[b].permute(1, 2, 0), cv[b].transpose(0, 1),
                   valid[b][None, None, :]) for b in range(B)]
         dim = 0

@@ -1212,70 +1212,40 @@ def test_mesh_on_one_rank_nccl_world_is_the_one_device_loop(case, tmp_path):
         assert torch.equal(got.loss, one.loss)
 
 
-def _smoke_decode(arch, device, steps=24, force_swa=False, **replace):
-    """The smoke config of `arch` in fp32 (the CPU tests' setting, with
-    the SSM chunk 32, a chunk the `ssd_scan` kernels take), its init
-    drawn on the CPU from seed 0, prefill logits and `steps` decode
-    steps' logits on `device` from a zero cache."""
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.models import engine
-    from repro_torch.models.module import materialize, tree_map
-    cfg = get_smoke_config(arch).replace(
-        compute_dtype="float32", param_dtype="float32", remat=False,
-        ssm_chunk=32, attn_chunk=16, capacity_factor=4.0, **replace)
-    params = tree_map(lambda a: a.to(device), materialize(
-        torch.Generator().manual_seed(0), engine.model_decl(cfg, "head")))
-    gen = torch.Generator().manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (2, steps), generator=gen) \
-        .to(device)
-    src = None
-    if cfg.family in ("vlm", "audio"):
-        src = (0.1 * torch.randn(2, cfg.num_src_tokens, cfg.src_dim,
-                                 generator=gen)).to(device)
-    cache = engine.zero_cache(engine.cache_decl(cfg, 2, steps,
-                                                force_swa=force_swa), device)
-    if src is not None:
-        cache = engine.build_cross_cache(cfg, params, cache, src, "head")
-    outs = []
-    with torch.no_grad():
-        for t in range(steps):
-            lg, cache = engine.decode_step(
-                params, cache, toks[:, t], torch.tensor(t, device=device),
-                cfg, None, tp="head", force_swa=force_swa)
-            outs.append(lg)
-        pcfg = cfg.replace(pattern=tuple(
-            "attn_swa" if force_swa and k == "attn" else k
-            for k in cfg.pattern))
-        prefill, _ = engine.forward(params, toks, pcfg, tp="head", src=src)
-    return torch.stack(outs, 1).cpu(), prefill.cpu()
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,force_swa,tol,replace", [
-    ("qwen3-32b", False, 1e-3, {}), ("zamba2-2.7b", False, 5e-3, {}),
-    ("xlstm-1.3b", False, 5e-3, {}),
-    ("granite-moe-1b-a400m", False, 5e-2, {}),
-    ("whisper-small", False, 5e-3, {"encoder_layers": 1}),
-    ("qwen3-32b", True, 1e-3, {})], ids=lambda v: str(v))
-def test_decode_step_on_card_matches_cpu(arch, force_swa, tol, replace):
-    """`decode_step` over the smoke config in fp32 (qwen3's forced ring
-    over 80 tokens, so that it wraps), card against CPU within 1e-3 of
-    the largest logit (`tests/test_torch_decode.py`'s bound against the
+@pytest.mark.parametrize("run", [
+    "qwen3-32b", "zamba2-2.7b", "xlstm-1.3b", "granite-moe-1b-a400m",
+    "whisper-small+enc1", "llama4-scout-17b-a16e", "llama-3.2-vision-90b",
+    "qwen3-32b+swa"])
+def test_decode_step_on_card_matches_cpu(run, monkeypatch):
+    """`decode_step` over a smoke config in fp32 as `chip_smoke.py
+    phase_decode_reference` runs it (`smoke_decode`; qwen3's forced ring
+    over 80 tokens, so that it wraps; whisper's and vlm's cross slots
+    from `build_cross_cache`), card against CPU within 1e-3 of the
+    largest logit (`tests/test_torch_decode.py`'s bound against the
     reference); on the card the prefill (through the fp32 kernels)
     against the decode within `tests/test_decode_consistency.py`'s
     bound. whisper at one encoder layer: at its smoke depth its encoder
     is chaotic at the init (the CPU's own logits move by 1.6e-3 under a
     half-ulp change of the weights), as `tests/test_torch_encdec.py`
     holds its VFL round at one encoder layer."""
+    from pathlib import Path
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize
     require_cuda()
-    steps = 80 if force_swa else 24
-    cpu, _ = _smoke_decode(arch, "cpu", steps, force_swa, **replace)
-    dec, prefill = _smoke_decode(arch, "cuda", steps, force_swa, **replace)
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    tol, cpu_tol = chip_smoke.DECODE_SMOKE[run]
+    cfg, _, _ = chip_smoke.smoke_decode_config(run)
+    params = materialize(torch.Generator().manual_seed(0),
+                         engine.model_decl(cfg, "head"))
+    cpu, _ = chip_smoke.smoke_decode(run, "cpu", params)
+    dec, prefill = chip_smoke.smoke_decode(run, "cuda", params)
     scale = float(cpu.abs().max())
     assert bool(torch.isfinite(dec).all())
-    torch.testing.assert_close(dec, cpu, atol=1e-3 * scale, rtol=0)
+    torch.testing.assert_close(dec, cpu, atol=cpu_tol * scale, rtol=0)
     rel = float((dec - prefill).abs().max()) / float(prefill.abs().max())
-    assert rel < tol, f"{arch}: prefill/decode rel={rel}"
+    assert rel < tol, f"{run}: prefill/decode rel={rel}"
 
 
 @pytest.mark.cuda

@@ -97,12 +97,14 @@ def _as(x, dtype):
     return jnp.asarray(x), tt(x)
 
 
+@pytest.mark.parametrize("over", [None, "heads", "rows"])
 @pytest.mark.parametrize("B_,KV", [(3, 2), (2, 4)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_core_matches_reference(dtype, B_, KV):
+def test_decode_core_matches_reference(dtype, B_, KV, over):
     """(m, l, o) of the masked scores, products accumulated in fp32 and
     the probabilities cast to the cache's dtype before PV; looped over
-    the KV heads (KV <= B) or over the rows (KV > B)."""
+    the KV heads or over the rows (by default the KV heads where KV <= B,
+    else the rows), each at both shapes."""
     G, D, S = 4, 32, 40
     q, qt = _as(_x((B_, KV, G, D), 0), dtype)
     ck, ckt = _as(_x((B_, S, KV, D), 1), dtype)
@@ -110,7 +112,7 @@ def test_decode_core_matches_reference(dtype, B_, KV):
     valid = np.random.default_rng(3).uniform(size=(B_, S)) < 0.6
     valid[:, 0] = True
     ref = jatt._decode_core(q, ck, cv, jnp.asarray(valid))
-    ours = att._decode_core(qt, ckt, cvt, tt(valid))
+    ours = att._decode_core(qt, ckt, cvt, tt(valid), over)
     tol = BF16_TOL if dtype == "bfloat16" else ATTN_TOL
     for a, b in zip(ours, ref):
         assert a.dtype == torch.float32 and tuple(a.shape) == b.shape

@@ -8,6 +8,7 @@ needed):
     python3 tests/torch_chip_probes.py lr-sweep whisper-small [e]
     python3 tests/torch_chip_probes.py bitwise    # schedulers, card vs CPU
     python3 tests/torch_chip_probes.py decode     # smoke decode, card vs CPU
+    python3 tests/torch_chip_probes.py decode-loops [pairs]
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -34,6 +35,16 @@ logit difference over max|logit|), beside the CPU's own move when every
 weight moves by half an ulp (x (1 +- 6e-8)), and the card's prefill
 against its decode: how far the fp32 decode's card-vs-CPU distance is
 the model's conditioning at its init.
+
+`decode-loops [pairs]`: zamba2-2.7b's decode step at full depth,
+`chip_smoke.DECODE_ZAMBA2_BATCH` rows and decode_32k's 32768-slot cache
+(bf16, the init of `chip_smoke.decode_serve`), with
+`models/attention.py _decode_core`'s two loops: over the 32 KV heads,
+each batched over the rows, and over the 8 rows, each batched over the
+heads (the one it takes at these sizes), in the order A B B A
+repeated `pairs` (3) times after one warm-up of each; a segment is 32
+steps from position 0 between CUDA events. Logs each segment's ms a
+step, the medians, and the two loops' largest logit difference.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -272,10 +283,67 @@ def decode(device, *runs) -> None:
                f"{' '.join(f'{e:.1e}' for e in moved_s)}")
 
 
+def decode_loops(device, pairs: str = "3") -> None:
+    import functools
+    import statistics
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.models import attention, engine
+    from repro_torch.models.module import materialize, tree_leaves
+    cfg = cs.vfl_config("zamba2-2.7b", cs.ZAMBA2_REPS)
+    B, steps = cs.DECODE_ZAMBA2_BATCH, 32
+    params = materialize(torch.Generator(device=device).manual_seed(0),
+                         engine.model_decl(cfg, "head"))
+    cache = engine.zero_cache(engine.cache_decl(
+        cfg, B, SHAPES_BY_NAME["decode_32k"].seq_len), device)
+    toks = torch.randint(0, cfg.vocab_size, (B, steps), device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(1))
+    pos = torch.arange(steps, device=device)
+    core = attention._decode_core
+    cores = {over: functools.partial(core, over=over)
+             for over in ("heads", "rows")}
+
+    def segment(name):
+        for a in tree_leaves(cache):        # the same steps each time
+            a.zero_()
+        attention._decode_core = cores[name]
+        try:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            with torch.no_grad():
+                start.record()
+                for t in range(steps):
+                    logits, _ = engine.decode_step(
+                        params, cache, toks[:, t], pos[t], cfg, None,
+                        tp="head")
+                end.record()
+            torch.cuda.synchronize()
+        finally:
+            attention._decode_core = core
+        return start.elapsed_time(end) / steps, logits
+
+    _, ref = segment("heads")
+    _, rows = segment("rows")
+    times = {"heads": [], "rows": []}
+    for _ in range(int(pairs)):
+        for name in ("heads", "rows", "rows", "heads"):
+            ms, _ = segment(name)
+            times[name].append(ms)
+            cs.log("probe decode-loops", f"{name}: {ms:.3f} ms a step")
+    cs.log("probe decode-loops", f"zamba2-2.7b, B {B}, {steps} steps a "
+           f"segment: median ms a step, KV-head loop "
+           f"{statistics.median(times['heads']):.3f} "
+           f"{sorted(times['heads'])}, row loop "
+           f"{statistics.median(times['rows']):.3f} "
+           f"{sorted(times['rows'])}; last logits' largest difference "
+           f"{float((ref - rows).abs().max()):.3e} of max|logit| "
+           f"{float(ref.abs().max()):.3e}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
-              "decode": decode}
+              "decode": decode, "decode-loops": decode_loops}
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)
