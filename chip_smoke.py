@@ -97,6 +97,20 @@ with its kernel launches counted from 0:
   service bit for bit, and `main()` with no `--device`, each dispatch
   checked to run on the server's executor thread, to capture no slot
   graph and to launch `veds_score` T times a packed round.
+- the model mesh axis (`sharding/model_axis.py`, `phase_model_axis`):
+  qwen3-32b at full width (2 repetitions) split over a model axis, (a)
+  on a one-rank NCCL world, bit for bit the path without a mesh (the
+  serving prefill and 16 decode steps at decode_32k's batch and cache,
+  and a smoke VFL round); (b) on two ranks sharing the one card over
+  gloo (NCCL refuses two ranks on a card): the serving path in head mode
+  (128 prompts of 64 tokens, 16 steps, the 32768-slot cache cut over the
+  ranks) and in forced row mode (8 prompts of 4096 tokens through the
+  sequence-sharded core, 16 steps), held to the one-rank path (5e-2 of
+  max|logit|, argmax in 0.9 of the rows); (c) one VFL round of
+  `launch/train.py`'s `train` on a (2, 2) mesh of four ranks on the
+  card against the one-process round (masks identical, each leaf's
+  update within 0.25 of its norm). Shared-card walls are logged, not
+  compared: the ranks measure no tensor-parallel speed-up.
 - the sharded rollout (`sharding/mesh_exec.py`, `phase_mesh`) on a
   one-rank NCCL world: 4 cells of the `rsu_grid` with handoff at fig10's
   width (VEDS with warm P4), 10 rounds through `fused_rollout` and
@@ -190,6 +204,23 @@ GRANITE_REPS, GRANITE_LR = 24, 1e-15
 # be positive
 XLSTM_REPS, XLSTM_LR = 1, 1e-5
 WHISPER_REPS, WHISPER_LR = 12, 1e-22
+# the model mesh axis (phase_model_axis): qwen3-32b's serving path as
+# (batch, prompt, cache slots, decode steps) in head mode at decode_32k's
+# batch and cache, and in forced row mode with prompts long enough for the
+# sequence-sharded core (T >= 4 attn_chunk), on MA_SERVE_RANKS ranks of
+# the one card; held to the one-rank path within MA_TOL of max|logit|
+# (phase_decode's bound for bf16 at two layers) with argmax equal in at
+# least MA_ARGMAX of the rows; one VFL round on a (MA_VFL_VEHICLES,
+# MA_VFL_MODEL) mesh (MA_VFL_BATCH sequences of VFL_SEQ tokens a vehicle)
+# held to one process: masks identical, each leaf's
+# update within MA_VFL_UPDATE_TOL of its norm (bf16: each rank's partial
+# sums are rounded to bf16 before the all-reduce)
+MA_HEAD, MA_ROW = (128, 64, 32768, 16), (8, 4096, 4096, 16)
+MA_SERVE_RANKS, MA_TOL, MA_ARGMAX = 2, 5e-2, 0.9
+MA_VFL_VEHICLES, MA_VFL_MODEL, MA_VFL_UPDATE_TOL = 2, 2, 0.25
+# the (2, 2) round's batch a vehicle, cut from VFL_BATCH's 4 sequences to
+# 2: four ranks of 4 x 1024 tokens ran out of the card's 80 GB
+MA_VFL_BATCH = 2
 # the flash_attention cases of phase_kernels_llm timed beside their bounds
 TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
                "whisper_cross", "whisper_self", "vlm_cross", "qwen3_prefill")
@@ -1867,9 +1898,7 @@ def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
                  max_abs_err=err, rel_err=err / ys, y_max_abs=ys,
                  state_max_abs_err=st_err, state_rel_err=st_err / ss,
                  tolerance=tol, entry=entry)
-        if label == "main":
-            r.update(zip(("smem_bytes", "ctas_per_sm"),
-                         sm90_resources("ssd_scan", c)))
+        if label in ("main", "serve_prefill"):
             r["ms"] = time_ms(lambda: ssd_scan_fwd(v, b, cm, la, c), 20,
                               samples=7, warmup=2)
             r["plain_ms"] = time_ms(lambda: ssd_scan_plain(v, b, cm, la, c),
@@ -1877,6 +1906,9 @@ def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
             (r["bound_ms"], r["bound_by"], r["flops"],
              r["bytes"]) = ssd_bound_ms(v, b, c)
             r["library_ms"] = None   # no PyTorch call computes the scan
+        if label == "main":
+            r.update(zip(("smem_bytes", "ctas_per_sm"),
+                         sm90_resources("ssd_scan", c)))
             # the scan's part of a layer's backward on the VFL path:
             # forward (the remat recompute) and backward of the Function
             ins = [x.detach().requires_grad_() for x in (v, b, cm, la)]
@@ -1896,8 +1928,9 @@ def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
             f"(tolerance {tol})" + (
                 f" kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP); "
-                f"Function forward + backward {r['fn_fwd_bwd_ms']:.3f} ms; "
+                f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP)"
+                if "ms" in r else "") + (
+                f"; Function forward + backward {r['fn_fwd_bwd_ms']:.3f} ms; "
                 f"{r['smem_bytes']} B shared memory, {r['ctas_per_sm']} "
                 f"CTA(s) an SM" if label == "main" else ""))
         del v, b, cm, la, y, ry
@@ -3044,6 +3077,468 @@ def phase_decode(device):
 
 
 # ---------------------------------------------------------------------------
+# the model mesh axis (`sharding/model_axis.py`): a one-rank NCCL world,
+# then two and four ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+def _named(tree, prefix=""):
+    """{path: leaf} of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_named(v, f"{prefix}/{k}"))
+    return out
+
+
+def _logit_distance(ours, ref):
+    """(max|ours - ref| / max|ref|, the share of rows whose argmax agrees)
+    of two logit tensors [..., V]."""
+    scale = float(ref.abs().max())
+    dist = float((ours - ref).abs().max()) / scale
+    agree = float((ours.argmax(-1) == ref.argmax(-1)).float().mean())
+    return dist, agree
+
+
+def serve_logits(params, cfg, tp: str, prompts, cache_len: int, steps: int,
+                 mesh=None):
+    """The serving path of `decode_serve` on `params` (this rank's block
+    over `mesh`): the prefill's last-position logits [B, V]
+    (`forward(..., last_logit_only=True, seq_shard=True)`), then
+    `decode_step` over the prompts' first `steps` tokens from a zero
+    cache of `cache_len` slots ([steps, B, V]); the walls of the prefill
+    and of the steps (ms, after a device synchronisation), the
+    `flash_attention` launches of the prefill and of the steps, and the
+    cache's bytes on this rank."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.models import engine
+    device = prompts.device
+    with torch.no_grad():
+        _sync(device)
+        flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        pre = engine.forward(params, prompts, cfg, tp=tp,
+                             last_logit_only=True, seq_shard=True,
+                             mesh=mesh)[0][:, 0]
+        _sync(device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = flash_attention_fwd.launches
+        cache = engine.zero_cache(engine.cache_decl(cfg, prompts.shape[0],
+                                                    cache_len), device,
+                                  mesh=mesh)
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in _named(cache).values())
+        positions = torch.arange(steps, device=device)
+        out = []
+        _sync(device)
+        flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        for t in range(steps):
+            logits, cache = engine.decode_step(params, cache, prompts[:, t],
+                                               positions[t], cfg, mesh,
+                                               tp=tp)
+            out.append(logits)
+        _sync(device)
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return dict(prefill=pre, decode=torch.stack(out), prefill_ms=prefill_ms,
+                step_ms=step_ms, prefill_launches=prefill_launches,
+                step_launches=flash_attention_fwd.launches,
+                cache_gb=cache_bytes / 1e9)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gb(device, reset: bool = False) -> float:
+    """The peak memory allocated on `device` since the last reset (GB; 0
+    off the card), and with `reset` a new reset."""
+    if device.type != "cuda":
+        return 0.0
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
+def _rank_device(device_type: str):
+    """A rank's device: card 0, shared by the ranks (a CPU rehearsal: the
+    CPU)."""
+    return torch.device("cuda", 0) if device_type == "cuda" \
+        else torch.device("cpu")
+
+
+@contextlib.contextmanager
+def _alloc_conf(conf: str):
+    """PYTORCH_CUDA_ALLOC_CONF set to `conf` for the processes spawned in
+    the block (ranks sharing the card: less memory lost to
+    fragmentation), restored after."""
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+
+
+def _ma_prompts(batch: int, length: int, vocab: int, device):
+    return torch.randint(0, vocab, (batch, length), device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(1))
+
+
+def _ma_params(cfg, device):
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize
+    return materialize(torch.Generator(device=device).manual_seed(0),
+                       engine.model_decl(cfg, "head"))
+
+
+def _model_axis_serve_rank(rank: int, out_dir: str, cfg, shapes,
+                           device_type: str) -> None:
+    """One rank of a (1, world) mesh on the shared card: `cfg`'s serving
+    path in head mode and in row mode (`shapes`: the (batch, prompt,
+    cache slots, steps) of each) on this rank's block of the seeded
+    parameters; rank 0 saves the logits, every rank its walls, launches
+    and peak memory."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import engine
+    from repro_torch.sharding.model_axis import shard_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = _rank_device(device_type)
+    mesh = make_host_mesh(torch.distributed.get_world_size())
+    res = {}
+    for tp, (batch, prompt, cache_len, steps) in zip(("head", "row"),
+                                                     shapes):
+        _peak_gb(device, reset=True)
+        params = shard_params(mesh, _ma_params(cfg, device),
+                              engine.model_decl(cfg, tp))
+        r = serve_logits(params, cfg, tp, _ma_prompts(
+            batch, prompt, cfg.vocab_size, device), cache_len, steps, mesh)
+        r["max_memory_gb"] = _peak_gb(device)
+        if rank == 0:
+            torch.save({k: r.pop(k).cpu() for k in ("prefill", "decode")},
+                       f"{out_dir}/{tp}_logits.pt")
+        else:
+            del r["prefill"], r["decode"]
+        res[tp] = r
+        del params
+    torch.save(res, f"{out_dir}/serve_rank{rank}.pt")
+
+
+@contextlib.contextmanager
+def round0_params():
+    """Inside the block, `launch/train.py`'s first step records in the
+    yielded dict vehicle 0's parameters before ("old") and after ("new")
+    round 0 and its mask, as `round0_share` wraps `make_train_step`."""
+    import repro_torch.launch.train as tr
+    from repro_torch.models.module import tree_map
+    make, out = tr.make_train_step, {}
+
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+
+        def first_recorded(params_v, *rest):
+            new_v, stats = step(params_v, *rest)
+            if "new" not in out:
+                out["old"] = tree_map(lambda x: x[0].clone(), params_v)
+                out["new"] = tree_map(lambda x: x[0].clone(), new_v)
+                out["mask"] = stats["mask"].tolist()
+            return new_v, stats
+        return first_recorded
+    tr.make_train_step = wrapped
+    try:
+        yield out
+    finally:
+        tr.make_train_step = make
+
+
+def _model_axis_vfl_rank(rank: int, out_dir: str, cfg, model: int,
+                         batch: int, seq: int, lr: float,
+                         device_type: str) -> None:
+    """One rank of a (vehicles, `model`) mesh on the shared card: one
+    round of `launch/train.py`'s `train` for `cfg` (this rank's block of
+    its vehicle's model); the ranks of vehicle 0 save their blocks, every
+    rank its mask, loss, stage walls, launches and peak memory."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = _rank_device(device_type)
+    mesh = make_host_mesh(model)
+    stages = []
+    mark = [time.perf_counter()]
+
+    def hook(name):
+        _sync(device)
+        now = time.perf_counter()
+        stages.append((name, (now - mark[0]) * 1e3))
+        mark[0] = now
+    _peak_gb(device, reset=True)
+    flash_attention_fwd.launches = veds_dt_score.launches = 0
+    with round0_params() as got:
+        hist = train(cfg, rounds=1, batch_per_vehicle=batch, seq=seq,
+                     lr=lr, seed=0, device=device, log=lambda m: None,
+                     stage_hook=hook, mesh=mesh)
+    res = dict(mask=got["mask"], loss=hist[0]["loss"],
+               wall_s=hist[0]["wall_s"], stages=stages,
+               launches={"flash_attention": flash_attention_fwd.launches,
+                         "veds_score": veds_dt_score.launches},
+               max_memory_gb=_peak_gb(device))
+    if mesh.get_local_rank("data") == 0:
+        torch.save({k: {n: x.cpu() for n, x in _named(got[k]).items()}
+                    for k in ("old", "new")},
+                   f"{out_dir}/vfl_block{mesh.get_local_rank('model')}.pt")
+    torch.save(res, f"{out_dir}/vfl_rank{rank}.pt")
+
+
+def _whole_leaves(blocks, decl):
+    """Each leaf of the per-rank `blocks` (one `_leaves` dict a model
+    coordinate, on the CPU) joined along the dims its logical axes split
+    over the model axis."""
+    from repro_torch.sharding.rules import default_rules
+    rules = default_rules()
+    axes = {k: d.axes for k, d in _named(decl).items()}
+    out = {}
+    for k, x in blocks[0].items():
+        dims = [i for i, a in enumerate(axes[k])
+                if rules.mesh_axis(a) == "model"]
+        out[k] = torch.cat([b[k] for b in blocks], dims[0]) if dims else x
+    return out
+
+
+def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
+                     batch=MA_VFL_BATCH, seq=VFL_SEQ, lr=VFL_LR):
+    """The model mesh axis (`sharding/model_axis.py` and the split layers
+    of `models/`), qwen3-32b at full width cut to VFL_REPS repetitions:
+    (a) a one-rank NCCL world, a (1, 1) mesh: the serving path (prefill
+    and MA_HEAD's decode steps at decode_32k's batch and cache) and one
+    smoke VFL round through the model-axis code, each bit for bit the
+    path without a mesh; (b) MA_SERVE_RANKS ranks on the one card over
+    gloo (`run_world(shared_card=True)`), a (1, 2) mesh: the serving path
+    in head mode (MA_HEAD: the cache's sequence cut over the ranks) and
+    in forced row mode (MA_ROW: prompts long enough for the
+    sequence-sharded core), each against the one-rank path on the same
+    parameters and prompts (logits within MA_TOL of max|logit|, argmax
+    equal in at least MA_ARGMAX of the rows, `flash_attention` launches
+    as predicted); (c) one VFL round of `train` on a (MA_VFL_VEHICLES,
+    MA_VFL_MODEL) mesh, four ranks on the card, against the one-process
+    round at the same seed: masks identical, each leaf's update within
+    MA_VFL_UPDATE_TOL of its norm. Each multi-rank run and its one-rank
+    counterpart run one after the other. Ranks that share a card measure
+    no tensor-parallel speed-up: their walls are logged beside the
+    one-rank path's, not compared. `cfg` (qwen3-32b's by default), the
+    serving shapes and the VFL batch may be cut to rehearse the phase on
+    the CPU (gloo ranks on the CPU, no launch counted)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.fl.vfl import make_vfl_round
+    from repro_torch.launch.mesh import init_world, make_host_mesh, run_world
+    from repro_torch.launch.train import train
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize, tree_leaves, tree_map
+    phase = "model_axis"
+    cfg = cfg or vfl_config("qwen3-32b", VFL_REPS)
+    vcfg = cfg.replace(num_vehicles=MA_VFL_VEHICLES)
+    on_card = device.type == "cuda"
+    n_attn = cfg.n_rep * sum(k == "attn" for k in cfg.pattern)
+    out = {}
+    free()
+    # (a) a one-rank NCCL world: the model-axis code with a group of one
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(0, 1, f"{tmp}/store", device.type)
+        try:
+            check(dist.get_backend() == ("nccl" if on_card else "gloo"),
+                  f"{phase}: not NCCL")
+            mesh = make_host_mesh(1)
+            params = _ma_params(cfg, device)
+            b, prompt, cache_len, steps = head
+            prompts = _ma_prompts(b, prompt, cfg.vocab_size, device)
+            one = serve_logits(params, cfg, "head", prompts, cache_len, steps)
+            one = {k: v.cpu() if torch.is_tensor(v) else v
+                   for k, v in one.items()}
+            free()
+            on_mesh = serve_logits(params, cfg, "head", prompts, cache_len,
+                                   steps, mesh)
+            for k in ("prefill", "decode"):
+                check(torch.equal(on_mesh[k].cpu(), one[k]), f"{phase}: the "
+                      f"(1, 1) mesh's {k} logits differ from the path "
+                      f"without a mesh")
+            # the one-rank walls from the second, warm run
+            one.update({k: v for k, v in on_mesh.items()
+                        if not torch.is_tensor(v)})
+            del params, on_mesh
+            free()
+            scfg = get_smoke_config("qwen3-32b").replace(num_vehicles=1,
+                                                         grad_accum=1)
+            sp = materialize(torch.Generator(device=device).manual_seed(3),
+                             engine.model_decl(scfg, "head"))
+            sp_v = tree_map(lambda x: x[None], sp)
+            sb = lm_batch(torch.Generator(device=device).manual_seed(4), 4,
+                          128, scfg.vocab_size)
+            sb_v = {k: x[None] for k, x in sb.items()}
+            m, w = torch.ones(1, device=device), torch.ones(1, device=device)
+            r0 = make_vfl_round(scfg, None, "head", lr=lr)(sp_v, sb_v, m, w)
+            r1 = make_vfl_round(scfg, mesh, "head", lr=lr)(sp_v, sb_v, m, w)
+            check(all(torch.equal(x, y) for x, y in zip(tree_leaves(r0),
+                                                        tree_leaves(r1))),
+                  f"{phase}: the smoke VFL round on the (1, 1) mesh differs "
+                  f"from the round without a mesh")
+            del sp, sp_v, r0, r1
+        finally:
+            dist.destroy_process_group()
+    log(phase, f"(a) one-rank NCCL world, (1, 1) mesh: {cfg.name} prefill "
+        f"{b} x {prompt} and {steps} decode steps (cache {cache_len}) and "
+        f"a smoke VFL round bit for bit the path without a mesh; one rank: "
+        f"prefill {one['prefill_ms']:.1f} ms, a step {one['step_ms']:.2f} ms")
+    out["one_rank_head"] = {k: v for k, v in one.items()
+                            if not torch.is_tensor(v)}
+    free()
+    # (b) two ranks on the one card: head mode, then forced row mode
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with _alloc_conf("expandable_segments:True"):
+            run_world(_model_axis_serve_rank, MA_SERVE_RANKS, tmp, cfg,
+                      (head, row), device.type, device=device.type,
+                      shared_card=on_card, timeout_s=600)
+        world_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/serve_rank{r}.pt", weights_only=False)
+                 for r in range(MA_SERVE_RANKS)]
+        got = {tp: torch.load(f"{tmp}/{tp}_logits.pt", weights_only=False)
+               for tp in ("head", "row")}
+    b, prompt, cache_len, steps = row
+    params = _ma_params(cfg, device)
+    row_one = serve_logits(params, cfg, "head", _ma_prompts(
+        b, prompt, cfg.vocab_size, device), cache_len, steps)
+    row_one = {k: v.cpu() if torch.is_tensor(v) else v
+               for k, v in row_one.items()}
+    del params
+    free()
+    refs = {"head": one, "row": row_one}
+    # per rank: head mode runs each layer's kernel on its H/n heads, row
+    # mode on its T/n queries (the sequence-sharded core); no kernel in
+    # the decode steps
+    want = {"head": (n_attn, 0), "row": (n_attn, 0)}
+    res = {"world_s": world_s}
+    launches = {tp: [(x[tp]["prefill_launches"], x[tp]["step_launches"])
+                     for x in ranks] for tp in ("head", "row")}
+    for tp in ("head", "row"):
+        ref = refs[tp]
+        dists = {k: _logit_distance(got[tp][k], ref[k])
+                 for k in ("prefill", "decode")}
+        rows = torch.cat([got[tp]["prefill"][None], got[tp]["decode"]])
+        ref_rows = torch.cat([ref["prefill"][None], ref["decode"]])
+        dist_all, agree = _logit_distance(rows, ref_rows)
+        r = dict(distance=dists, distance_all=dist_all, argmax_agree=agree,
+                 ranks=[x[tp] for x in ranks],
+                 one_rank={k: v for k, v in ref.items()
+                           if not torch.is_tensor(v)})
+        res[tp] = r
+        b, p, c, s = head if tp == "head" else row
+        log(phase, f"(b) {tp} mode, {MA_SERVE_RANKS} ranks on one card "
+            f"over gloo, batch {b}, prompts of {p}, {s} steps, cache {c} "
+            f"({[round(x[tp]['cache_gb'], 2) for x in ranks]} GB a rank): "
+            f"prefill {dists['prefill'][0]:.4e} of max|logit| (argmax "
+            f"{dists['prefill'][1]:.4f}), decode {dists['decode'][0]:.4e} "
+            f"(argmax {dists['decode'][1]:.4f}), all {dist_all:.4e}, argmax "
+            f"equal in {agree:.4f} of the {rows.shape[0] * rows.shape[1]} "
+            f"rows; walls rank 0 prefill {ranks[0][tp]['prefill_ms']:.1f} ms"
+            f", a step {ranks[0][tp]['step_ms']:.2f} ms (one rank: "
+            f"{ref['prefill_ms']:.1f}, {ref['step_ms']:.2f}); flash launches "
+            f"a rank {launches[tp]}"
+            f" (expected {want[tp]}); peak memory a rank "
+            f"{[round(x[tp]['max_memory_gb'], 2) for x in ranks]} GB; "
+            f"{smi_line()}")
+        check(dist_all <= MA_TOL, f"{phase}: {tp} mode logits "
+              f"{dist_all:.4e} of max|logit| from one rank > {MA_TOL}")
+        check(agree >= MA_ARGMAX, f"{phase}: {tp} mode argmax equal in "
+              f"{agree:.4f} of the rows < {MA_ARGMAX}")
+        for got_launches in launches[tp] if on_card else ():
+            check(got_launches == want[tp], f"{phase}: {tp} mode flash "
+                  f"launches {got_launches}, expected {want[tp]}")
+    out["serve"] = res
+    del got, refs, one, row_one
+    free()
+    # (c) one VFL round on a (2, 2) mesh, four ranks on the card
+    n = MA_VFL_VEHICLES * MA_VFL_MODEL
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with _alloc_conf("expandable_segments:True"):
+            run_world(_model_axis_vfl_rank, n, tmp, vcfg, MA_VFL_MODEL,
+                      batch, seq, lr, device.type, device=device.type,
+                      shared_card=on_card, timeout_s=900)
+        world_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/vfl_rank{r}.pt", weights_only=False)
+                 for r in range(n)]
+        blocks = [torch.load(f"{tmp}/vfl_block{m}.pt", weights_only=False)
+                  for m in range(MA_VFL_MODEL)]
+    decl = engine.model_decl(vcfg, "head")
+    new = _whole_leaves([b["new"] for b in blocks], decl)
+    old = _whole_leaves([b["old"] for b in blocks], decl)
+    del blocks
+    _peak_gb(device, reset=True)
+    with round0_params() as mine:
+        hist = train(vcfg, rounds=1, batch_per_vehicle=batch, seq=seq,
+                     lr=lr, seed=0, device=device, log=lambda m: None)
+    one_peak = _peak_gb(device)
+    one_new, one_old = _named(mine["new"]), _named(mine["old"])
+    upd, equal, total = {}, 0, 0
+    for k in one_new:
+        a, b0 = new[k].to(device), one_new[k]
+        check(torch.equal(old[k].to(device), one_old[k]),
+              f"{phase}: the ranks' initial {k} is not one process's")
+        step = (b0.float() - one_old[k].float()).norm()
+        upd[k] = float((a.float() - b0.float()).norm() / step) \
+            if float(step) > 0 else float((a.float() - b0.float()).norm())
+        equal += int((a == b0).sum())
+        total += a.numel()
+    worst = max(upd, key=upd.get)
+    masks = [x["mask"] for x in ranks]
+    res = dict(world_s=world_s, masks=masks, one_mask=mine["mask"],
+               update_distance=upd, equal_share=equal / total,
+               ranks=ranks, one_wall_s=hist[0]["wall_s"],
+               one_loss=hist[0]["loss"], one_max_memory_gb=one_peak)
+    out["vfl"] = res
+    log(phase, f"(c) one VFL round, ({MA_VFL_VEHICLES}, {MA_VFL_MODEL}) mesh, "
+        f"{n} ranks on one card over gloo, {cfg.name} {cfg.n_rep} reps, "
+        f"{batch} x {seq} tokens a vehicle, lr {lr}: masks "
+        f"{masks} (one process {mine['mask']}); losses "
+        f"{[round(x['loss'], 4) for x in ranks]} (one process "
+        f"{hist[0]['loss']:.4f}); updates' distance from one process's, "
+        f"norm-wise: worst {upd[worst]:.4e} ({worst}); bf16 entries equal "
+        f"{equal / total:.4f}; walls {[round(x['wall_s'], 2) for x in ranks]}"
+        f" s a rank (one process {hist[0]['wall_s']:.2f} s), stages rank 0 "
+        f"{[(s, round(ms, 1)) for s, ms in ranks[0]['stages']]}; launches "
+        f"{[x['launches'] for x in ranks]}; peak memory a rank "
+        f"{[round(x['max_memory_gb'], 2) for x in ranks]} GB (one process "
+        f"{one_peak:.2f}); the world {world_s:.1f} s; {smi_line()}")
+    check(all(m == mine["mask"] for m in masks), f"{phase}: masks {masks} "
+          f"differ from one process's {mine['mask']}")
+    check(upd[worst] <= MA_VFL_UPDATE_TOL, f"{phase}: {worst}'s update "
+          f"{upd[worst]:.4e} from one process's > {MA_VFL_UPDATE_TOL}")
+    # per rank and round: each attention forward and its remat
+    # recomputation, and the eval forward; one veds_score a slot
+    want = {"flash_attention": n_attn * 3, "veds_score": VFL_SLOTS}
+    for x in ranks if on_card else ():
+        check(x["launches"] == want, f"{phase}: launches {x['launches']}, "
+              f"expected {want}")
+    del new, old, one_new, one_old, mine
+    free()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the scheduling service (`launch/serve.py`): the reference's own
 # configuration card against CPU, and VEDS with warm P4 at fig10's width
 # ---------------------------------------------------------------------------
@@ -3780,6 +4275,7 @@ def main(argv=None) -> int:
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
     decode = phase_decode(device)
+    model_axis = phase_model_axis(device)
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
     stages = phase_stages(device, setup)
     ref = phase_reference(device)
@@ -3884,6 +4380,19 @@ def main(argv=None) -> int:
                 d = decode[arch]
                 out[f"decode_{arch}_prefill"] = d["prefill_launches"][name]
                 out[f"decode_{arch}_steps"] = d["step_launches"][name]
+        if name in ("flash_attention", "veds_score"):
+            # a rank's launches on the model axis's paths (ranks sharing
+            # the card over gloo)
+            ma = model_axis
+            if name == "flash_attention":
+                for tp in ("head", "row"):
+                    out[f"model_axis_{tp}_prefill_per_rank"] = [
+                        x["prefill_launches"] for x in ma["serve"][tp][
+                            "ranks"]]
+                    out[f"model_axis_{tp}_steps_per_rank"] = [
+                        x["step_launches"] for x in ma["serve"][tp]["ranks"]]
+            out["model_axis_vfl_per_rank"] = [
+                x["launches"][name] for x in ma["vfl"]["ranks"]]
         if name == "veds_score":
             out["run_fl"] = main_res["launches"][name]
             out["stream_run_fl"] = stream["warm"]["launches"][name]
@@ -3981,7 +4490,11 @@ def main(argv=None) -> int:
         "max_abs_err": max_err(ssd_kernels),
         "rel_err": max_err(ssd_kernels, "rel_err"),
         **timed(ss, shape={"v": ss["shape_v"], "bc": ss["shape_bc"],
-                           "chunk": ss["chunk"]})}]}
+                           "chunk": ss["chunk"]}),
+        "serve_prefill_shape": timed(
+            ssd_kernels["serve_prefill"],
+            shape={"v": ssd_kernels["serve_prefill"]["shape_v"],
+                   "chunk": ssd_kernels["serve_prefill"]["chunk"]})}]}
     out = ROOT / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
@@ -3992,7 +4505,8 @@ def main(argv=None) -> int:
         compare=compare, compare_reference=compare_ref,
         stream_compare=stream_compare, mesh=mesh, serve_reference=serve_ref,
         serve=serve, serve_front=serve_front,
-        decode=decode, stream_vfl=stream_vfl, vfl=vfl, vfl_zamba2=zamba2,
+        decode=decode, model_axis=model_axis, stream_vfl=stream_vfl,
+        vfl=vfl, vfl_zamba2=zamba2,
         vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,
         sensitivity=sensitivity,
         vfl_reference=vfl_ref), indent=1, default=str))

@@ -24,11 +24,19 @@ size}` mapping) the vehicles are the ranks of the mesh's vehicle axes
 replica ([1, ...] leaves), runs its local SGD and aggregates with two
 all-reduces over those axes, as the reference's shard_map body psums:
 den = sum of the weights, num = sum of fp32(x) * w / max(den, 1e-9),
-the old leaf kept where den = 0, cast to the leaf's dtype. A model axis
-larger than 1 raises (ROADMAP queue 1 item 9).
+the old leaf kept where den = 0, cast to the leaf's dtype.
+
+On a (V, M) ("data", "model") mesh each rank holds its vehicle's block
+of the model (`sharding.model_axis.shard_params`), runs its local SGD
+with the model axis's collectives (the vocab-parallel loss included)
+and aggregates over the vehicle group of its model coordinate: the same
+two all-reduces, leaf block by leaf block. Every replicated leaf gets
+its whole gradient on every rank, so the ranks of a vehicle keep equal
+copies.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Mapping, Optional, Tuple
 
 import torch
@@ -37,25 +45,22 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.veds import veds_round
 from repro_torch.kernels.fedavg_agg.ops import fedavg_agg_tree
-from repro_torch.models import engine
+from repro_torch.models import blocks, engine
 from repro_torch.models import layers as L
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.model_axis import model_axis
 from repro_torch.sharding.rules import mesh_shape
 
 
 def vehicle_axes(mesh, num_vehicles: int) -> Tuple[str, ...]:
     """Mesh axes that carry the federation dimension: none for one
     vehicle, else the pod axis, the data axis or both, whichever has
-    `num_vehicles` ranks (the reference's rule). `mesh` None is one
-    process holding every vehicle."""
+    `num_vehicles` ranks (the reference's rule; a model axis beside them
+    splits each vehicle's model). `mesh` None is one process holding
+    every vehicle."""
     if mesh is None:
         return ()
     sizes = mesh_shape(mesh)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: a model axis larger than 1 needs tensor-parallel "
-            f"layers, which the port does not have yet (ROADMAP queue 1 "
-            f"item 9)")
     data, pod = sizes.get("data", 1), sizes.get("pod", 1)
     if num_vehicles == 1:
         return ()
@@ -73,23 +78,36 @@ def _vehicle_group(mesh, v_axes):
     """(process group, this rank's vehicle index) of the vehicle axes."""
     if len(v_axes) == 1 and not isinstance(mesh, Mapping):
         return mesh.get_group(v_axes[0]), mesh.get_local_rank(v_axes[0])
+    if model_axis(mesh).size > 1:
+        raise NotImplementedError(
+            f"vehicles over the axes {v_axes} beside a model axis: the "
+            f"round takes one vehicle axis beside a model axis")
     # both pod and data (or a mapping): the vehicles are the whole world
     return dist.group.WORLD, dist.get_rank()
 
 
-def lm_loss(params, batch, cfg: ModelConfig, tp: str) -> torch.Tensor:
+def lm_loss(params, batch, cfg: ModelConfig, tp: str,
+            mesh=None) -> torch.Tensor:
+    """The LM loss (+ 0.01 the MoE aux loss); over a model axis
+    (`mesh`) vocab-parallel, from this rank's logit columns."""
     logits, aux = engine.forward(params, batch["tokens"], cfg, tp=tp,
-                                 src=batch.get("src"))
-    loss = L.softmax_cross_entropy(logits, batch["labels"])
+                                 src=batch.get("src"), mesh=mesh,
+                                 gather_logits=False)
+    loss = L.softmax_cross_entropy(logits, batch["labels"], mesh=mesh)
     return loss + 0.01 * aux
 
 
 def _local_sgd(params, batch, cfg: ModelConfig, tp: str,
-               loss_fn: Callable, lr: float, out=None):
+               loss_fn: Callable, lr: float, out=None, mesh=None):
     """One FL local update (eq. 2) with microbatch gradient accumulation.
     With `out` (a tree of tensors shaped like `params`), the new
-    parameters are written there and `out` is returned."""
+    parameters are written there and `out` is returned. Over a model
+    axis (`mesh`) `params` is this rank's block and `loss_fn` takes
+    `mesh=`."""
     A = max(cfg.grad_accum, 1)
+    ax = model_axis(mesh)
+    if ax.size > 1:
+        loss_fn = functools.partial(loss_fn, mesh=ax)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     tree = tree_unflatten(params, leaves)
     acc = None
@@ -124,9 +142,13 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     weights). `stage_hook(name)`, if given, is called after the
     "local_sgd" and "aggregate" stages (a caller may time them). Over
     the vehicle axes of a mesh (`vehicle_axes`), params_v and batch_v
-    hold this rank's vehicle ([1, ...] leaves)."""
+    hold this rank's vehicle ([1, ...] leaves), over a model axis its
+    block of the vehicle's model."""
     V = cfg.num_vehicles
+    if mesh is not None:
+        blocks.require_model_axis(cfg, mesh_shape(mesh).get("model", 1))
     v_axes = vehicle_axes(mesh, V)
+    ax = model_axis(mesh)
     hook = stage_hook or (lambda name: None)
 
     if v_axes:
@@ -134,7 +156,8 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
 
         def round_fn(params_v, batch_v, mask, weights):
             p = _vehicle(params_v, 0)
-            new = _local_sgd(p, _vehicle(batch_v, 0), cfg, tp, loss_fn, lr)
+            new = _local_sgd(p, _vehicle(batch_v, 0), cfg, tp, loss_fn, lr,
+                             mesh=ax)
             hook("local_sgd")
             w = (mask[idx] * weights[idx]).to(torch.float32)
             den = w.clone()
@@ -155,7 +178,8 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     if V == 1:
         def round_fn(params_v, batch_v, mask, weights):
             p = _vehicle(params_v, 0)
-            new = _local_sgd(p, _vehicle(batch_v, 0), cfg, tp, loss_fn, lr)
+            new = _local_sgd(p, _vehicle(batch_v, 0), cfg, tp, loss_fn, lr,
+                             mesh=ax)
             hook("local_sgd")
             m = (mask[0] * weights[0] > 0).to(torch.float32)
             # (nw - old) in the params' dtype, the rest in float32, as

@@ -10,8 +10,14 @@ network, and parallel test workers must not collide on a port. Under
 
 No fallback: a CUDA world needs one card a rank and raises otherwise, a
 missing NCCL raises, and a world that cannot be initialized raises; none
-of them drops to gloo or to the CPU. (`make_production_mesh`, the
-reference's TPU pod topology, comes with `launch/specs.py`; ROADMAP
+of them drops to gloo or to the CPU. The one exception is asked for by
+name: `shared_card=True` places every rank of a small world on card 0
+over gloo (NCCL refuses two ranks on one card), to rehearse a model axis
+on a machine with one card, as the reference rehearses on forced host
+devices. Its tensors stay on the card; gloo runs `all_reduce` (SUM,
+MAX), `all_gather` and `broadcast` on them through host memory
+(README.md), so it measures no tensor-parallel speed. (`make_production_mesh`,
+the reference's TPU pod topology, comes with `launch/specs.py`; ROADMAP
 queue 1 item 9.)
 """
 from __future__ import annotations
@@ -40,23 +46,29 @@ def under_torchrun() -> bool:
 
 
 def init_world(rank: int, world_size: int, store: Optional[str],
-               device) -> torch.device:
+               device, shared_card: bool = False) -> torch.device:
     """Start or join a world of `world_size` ranks as `rank`, through the
     `file://` store at `store` (None: the `env://` variables `torchrun`
     sets). `device` "cuda" gives an NCCL world with rank r on card r;
-    "cpu" a gloo world. Returns the rank's device. A world already
+    "cpu" a gloo world; "cuda" with `shared_card` a gloo world with every
+    rank on card 0. Returns the rank's device. A world already
     initialized must be the one asked for."""
     dev = torch.device(device)
+    if shared_card and dev.type != "cuda":
+        raise ValueError("shared_card places the ranks on one CUDA card")
     if dev.type == "cuda":
-        check_cards(world_size)
+        check_cards(1 if shared_card else world_size)
     if dist.is_initialized():
         if dist.get_world_size() != world_size or dist.get_rank() != rank:
             raise RuntimeError(
                 f"a world of {dist.get_world_size()} ranks (this one "
                 f"{dist.get_rank()}) is already initialized; asked for rank "
                 f"{rank} of {world_size}")
-        return _rank_device(dev, rank)
-    if dev.type == "cuda":
+        return torch.device("cuda", 0) if shared_card \
+            else _rank_device(dev, rank)
+    if shared_card:
+        backend = "gloo"
+    elif dev.type == "cuda":
         if not dist.is_nccl_available():
             raise RuntimeError("this torch has no NCCL; a CUDA world needs "
                                "it (no fallback to gloo)")
@@ -65,7 +77,9 @@ def init_world(rank: int, world_size: int, store: Optional[str],
         backend = "gloo"
     else:
         raise ValueError(f"no world over {dev.type} devices")
-    dev = _rank_device(dev, rank)
+    dev = torch.device("cuda", 0) if shared_card else _rank_device(dev, rank)
+    if shared_card:
+        torch.cuda.set_device(dev)
     kw = {}
     if backend == "nccl":
         torch.cuda.set_device(dev)
@@ -113,11 +127,12 @@ def _die_with_parent() -> None:
         libc.prctl(1, signal.SIGKILL)        # PR_SET_PDEATHSIG
 
 
-def _rank_main(rank, fn, world_size, store, device, threads, args):
+def _rank_main(rank, fn, world_size, store, device, threads, shared_card,
+               args):
     _die_with_parent()
     if threads:
         torch.set_num_threads(threads)
-    init_world(rank, world_size, store, device)
+    init_world(rank, world_size, store, device, shared_card)
     try:
         fn(rank, *args)
     finally:
@@ -126,21 +141,26 @@ def _rank_main(rank, fn, world_size, store, device, threads, args):
 
 def run_world(fn: Callable, world_size: int, *args, device="cuda",
               timeout_s: Optional[float] = None, threads: int = 0,
-              store_dir: Optional[str] = None) -> None:
+              store_dir: Optional[str] = None,
+              shared_card: bool = False) -> None:
     """Spawn `world_size` ranks, each running `fn(rank, *args)` in a world
     initialized by `init_world` (`fn` and `args` must pickle: `fn` a
     module-level function). Raises if a rank fails (the others are
     ended) or, with `timeout_s`, when the ranks have not all finished in
     time (every rank is killed). `threads` > 0 sets each rank's torch
     intra-op threads. The `file://` store lives in `store_dir` (a fresh
-    temporary directory by default)."""
+    temporary directory by default). `shared_card` puts every rank on
+    card 0 over gloo (`init_world`)."""
     import torch.multiprocessing as mp
     if torch.device(device).type == "cuda":
-        check_cards(world_size)           # before any rank starts
+        check_cards(1 if shared_card else world_size)  # before any rank
+    elif shared_card:
+        raise ValueError("shared_card places the ranks on one CUDA card")
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
         store = str(Path(tmp) / "store")
         ctx = mp.start_processes(
-            _rank_main, args=(fn, world_size, store, device, threads, args),
+            _rank_main, args=(fn, world_size, store, device, threads,
+                              shared_card, args),
             nprocs=world_size, join=False, start_method="spawn")
         try:
             if timeout_s is None:

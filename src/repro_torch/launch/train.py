@@ -22,13 +22,15 @@ whisper-small's full width and depth).
 
 `--devices N` follows the reference's mesh (V, max(1, N // V)) of
 ("data", "model"): N = 1 is one process holding every vehicle (the
-aggregation is the `fedavg_agg` kernel on the card); N = V runs one rank
-a vehicle over a `torch.distributed` world, spawned here (one card a
-rank, or with `--device cpu` one gloo process a rank) or joined under
-`torchrun`, and aggregates with all-reduces (`fl/vfl.py`). Rank 0
-prints the round lines. A model axis larger than 1 raises (ROADMAP
-queue 1 item 9), as does any other N; on CUDA so does an N above the
-card count. `--ckpt PATH` saves vehicle 0's params after the last round
+aggregation is the `fedavg_agg` kernel on the card); N = V M runs a
+world of N ranks, spawned here (one card a rank, or with `--device cpu`
+one gloo process a rank) or joined under `torchrun`: each vehicle's
+model split over M ranks (`attention_tp_mode(H, M)`: head-parallel
+attention where M divides the heads, else row-parallel), aggregated with
+all-reduces over the vehicle axis (`fl/vfl.py`). Rank 0 prints the round
+lines. Any other N raises, as does a model axis over Mamba2 or the
+xLSTM (ROADMAP queue 1 item 9); on CUDA so does an N above the card
+count. `--ckpt PATH` saves vehicle 0's params after the last round
 (`checkpoint/np_ckpt.py`, the reference's npz layout):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -62,7 +64,10 @@ from repro_torch.fl.vfl import lm_loss, make_train_step, vehicle_axes
 from repro_torch.launch.mesh import (init_world, make_host_mesh, run_world,
                                      under_torchrun)
 from repro_torch.models import engine
+from repro_torch.models.blocks import require_model_axis
 from repro_torch.models.module import materialize, param_bytes, tree_map
+from repro_torch.sharding.model_axis import (gather_params, model_axis,
+                                             shard_params)
 from repro_torch.sharding.policy import attention_tp_mode
 from repro_torch.sharding.mesh_exec import world_device
 from repro_torch.sharding.rules import default_rules, shard_tree
@@ -99,8 +104,10 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
     Over a mesh whose vehicle axes hold the V vehicles (`mesh`, this
     rank's world; `fl.vfl.vehicle_axes`) this rank trains its vehicle:
     every rank draws the same scenario, schedule and batches, and keeps
-    its vehicle's block. `ckpt` saves vehicle 0's params after the last
-    round (from rank 0)."""
+    its vehicle's block, and over a model axis its block of that
+    vehicle's model (`sharding.model_axis.shard_params`). `ckpt` saves
+    vehicle 0's params after the last round (gathered whole, from rank
+    0)."""
     if batch_fn is None:
         if cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
@@ -111,7 +118,8 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
         batch_fn = lm_batch
     device = resolve_device(device)
     V = cfg.num_vehicles
-    tp = attention_tp_mode(cfg.num_heads, 1)
+    ax = model_axis(mesh)
+    tp = attention_tp_mode(cfg.num_heads, ax.size)
     sched = get_scheduler(scheduler)
     if vehicle_axes(mesh, V):
         rules = default_rules()
@@ -126,6 +134,8 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
     decl = engine.model_decl(cfg, tp)
     params = materialize(torch.Generator(device=device).manual_seed(seed),
                          decl)
+    if ax.size > 1:
+        params = shard_params(mesh, params, decl)
     params_v = vehicles(tree_map(
         lambda x: x.unsqueeze(0).expand(V, *x.shape), params))
     del params
@@ -156,7 +166,7 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
         params_v, stats = step(params_v, batch_v, rnd, weights)
         with torch.no_grad():
             loss = float(lm_loss(tree_map(lambda x: x[0], params_v),
-                                 eval_batch, cfg, tp))
+                                 eval_batch, cfg, tp, mesh=ax))
         hook("eval")
         wall = time.perf_counter() - t0
         rec = dict(round=r, n_success=int(stats["n_success"]),
@@ -167,20 +177,24 @@ def train(cfg: ModelConfig, *, rounds: int, batch_per_vehicle: int,
             f"loss={loss:.4f}  ({wall:.1f}s)")
         if on_round is not None:
             on_round(rec)
-    if ckpt and (mesh is None or torch.distributed.get_rank() == 0):
-        save_checkpoint(ckpt, tree_map(lambda x: x[0], params_v),
-                        meta={"arch": cfg.name}, step=rounds)
-        log(f"saved {ckpt}")
+    if ckpt:
+        last = gather_params(ax, tree_map(lambda x: x[0], params_v), decl)
+        if mesh is None or torch.distributed.get_rank() == 0:
+            save_checkpoint(ckpt, last, meta={"arch": cfg.name},
+                            step=rounds)
+            log(f"saved {ckpt}")
     return history
 
 
-def _train_rank(rank: int, cfg: ModelConfig, kw: dict) -> None:
-    """One rank of `--devices N`: a ("data", "model") mesh of (N, 1) over
-    the world, this rank's vehicle trained; rank 0 logs and saves."""
+def _train_rank(rank: int, cfg: ModelConfig, model_par: int,
+                kw: dict) -> None:
+    """One rank of `--devices N`: a ("data", "model") mesh of (N / M, M)
+    over the world, this rank's block of its vehicle trained; rank 0
+    logs and saves."""
     log = functools.partial(print, flush=True) if rank == 0 \
         else (lambda s: None)
-    train(cfg, mesh=make_host_mesh(1), device=world_device(), log=log,
-          **kw)
+    train(cfg, mesh=make_host_mesh(model_par), device=world_device(),
+          log=log, **kw)
 
 
 def main(argv=None) -> int:
@@ -201,16 +215,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     N, V = args.devices, args.vehicles
     model_par = max(1, N // V)
-    if N != 1 and model_par > 1:
-        raise NotImplementedError(
-            f"--devices {N} over {V} vehicles asks for a mesh ({V}, "
-            f"{model_par}), a model axis of {model_par}: the port holds each "
-            f"vehicle's model whole on one card or rank; tensor-parallel "
-            f"layers come with ROADMAP queue 1 item 9")
-    if N not in (1, V):
-        raise ValueError(f"--devices {N}: 1, or one a vehicle "
-                         f"(--vehicles {V})")
+    if N not in (1, V * model_par):
+        raise ValueError(f"--devices {N}: 1, or one a vehicle (--vehicles "
+                         f"{V}), or a multiple of it (a model axis)")
     cfg = get_smoke_config(args.arch).replace(num_vehicles=V, grad_accum=1)
+    if N > 1:
+        require_model_axis(cfg, model_par)
     kw = dict(rounds=args.rounds, batch_per_vehicle=args.batch_per_vehicle,
               seq=args.seq, lr=args.lr, scheduler=args.scheduler,
               seed=args.seed, ckpt=args.ckpt or None)
@@ -224,14 +234,14 @@ def main(argv=None) -> int:
         rank = int(os.environ["RANK"])
         init_world(rank, N, None, device.type)
         try:
-            _train_rank(rank, cfg, kw)
+            _train_rank(rank, cfg, model_par, kw)
         finally:
             torch.distributed.destroy_process_group()
     else:
         # CPU ranks share the host's cores
         threads = (max(1, len(os.sched_getaffinity(0)) // N)
                    if device.type == "cpu" else 0)
-        run_world(_train_rank, N, cfg, kw, device=device.type,
+        run_world(_train_rank, N, cfg, model_par, kw, device=device.type,
                   threads=threads)
     return 0
 

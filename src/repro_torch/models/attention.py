@@ -13,8 +13,13 @@ KV-head repeat):
   `q_chunk`/`kv_chunk` are tile sizes of its jnp scans. Here the kernel
   picks its own tiles; `q_chunk` sets the backward's query-row chunk and
   `kv_chunk` is accepted for the same call signature.
-* `seq_sharded_flash_attention`, the reference's one-device branch:
-  `flash_attention` itself.
+* `seq_sharded_flash_attention`, the reference's sequence-parallel core
+  (`attention.py:250`): over a model axis of n ranks each rank takes
+  its T/n queries at their offset against the whole K and V through the
+  same kernel, and the outputs are all-gathered on the sequence axis;
+  otherwise (one rank, T not a multiple of n, T below 4 q_chunk, not
+  causal, a window) `flash_attention` itself, as the reference falls
+  back.
 * Decode: one new token a row against a K/V cache, full (the new row
   written at `min(pos, S - 1)`) or a sliding-window ring of width S
   (written at `pos % S`). The reference computes it in jnp, outside any
@@ -24,11 +29,14 @@ KV-head repeat):
   row, not the cache. `pos` is a 0-dim integer tensor on the cache's
   device, and nothing here reads it on the host.
 
-A mesh is `None` or anything `sharding.rules.mesh_shape` reads. Without
-a `model` axis, or with one of size 1, decode runs the local path, as
-the reference's does; a `model` axis larger than 1 (flash-decode over
-a sequence-sharded cache) raises (ROADMAP queue 1 item 9: the model
-axis).
+A mesh is anything `sharding.model_axis.model_axis` reads. Without a
+`model` axis, or with one of size 1, decode runs the local path, as the
+reference's does. Over a model axis of n ranks the cache's sequence dim
+is cut into n blocks of S/n slots (`cache_seq`): only the rank that
+owns the new row's slot writes it, each rank's `_decode_core` gives a
+partial (m, l, o) over its slots, and they are merged by an all-reduce
+MAX of m and an all-reduce SUM of (o, l) times exp(m - max), the
+reference's flash-decode (`attention.py:336`, `:390`).
 """
 from __future__ import annotations
 
@@ -37,7 +45,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention as _fa
-from repro_torch.sharding.rules import mesh_shape
+from repro_torch.sharding.model_axis import (all_reduce_max, all_reduce_sum,
+                                             copy_to, gather_from,
+                                             model_axis, scatter_to)
 
 NEG_INF = -1e30
 
@@ -58,31 +68,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def seq_sharded_flash_attention(q, k, v, *, causal: bool = True,
                                 window: Optional[int] = None,
                                 q_chunk: int = 512, kv_chunk: int = 1024,
-                                q_offset: int = 0) -> torch.Tensor:
-    """The sequence-parallel core of the reference (`attention.py:250`)
-    on one device, where it has no `model` axis to shard the queries
-    over and falls back to `flash_attention` with the same arguments."""
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           q_chunk=q_chunk, kv_chunk=kv_chunk,
-                           q_offset=q_offset)
+                                q_offset: int = 0, mesh=None) -> torch.Tensor:
+    """The sequence-parallel core of the reference (`attention.py:250`):
+    over a model axis of n ranks, rank i attends queries [i T/n,
+    (i+1) T/n) at `q_offset + i T/n` to the whole (replicated) K and V,
+    and the outputs are all-gathered on the sequence axis. The
+    gradients follow the same split: each rank's query block takes its
+    own rows' gradient, and K's and V's are summed over the ranks. Falls
+    back to `flash_attention` where the reference does."""
+    ax = model_axis(mesh)
+    T = q.shape[1]
+    n = ax.size
+    if n <= 1 or T % n or T < 4 * q_chunk or not causal or window:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               q_offset=q_offset)
+    t_loc = T // n
+    out = flash_attention(scatter_to(q, ax, 1), copy_to(k, ax),
+                          copy_to(v, ax), causal=True, window=None,
+                          q_chunk=min(q_chunk, t_loc), kv_chunk=kv_chunk,
+                          q_offset=q_offset + ax.rank * t_loc)
+    return gather_from(out, ax, 1)
 
 
 # ---------------------------------------------------------------------------
 # decode (single new token, KV cache)
 # ---------------------------------------------------------------------------
-
-def _model_axis(mesh) -> int:
-    return 1 if mesh is None else mesh_shape(mesh).get("model", 1)
-
-
-def _require_local(mesh, what: str) -> None:
-    n = _model_axis(mesh)
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} over a model mesh axis of {n} (flash-decode over a "
-            f"sequence-sharded cache) is not ported yet (ROADMAP queue 1 "
-            f"item 9: the model axis)")
-
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [N, M, K] @ b [N, K, P] -> [N, M, P] in float32, accumulated in
@@ -138,25 +149,40 @@ def _decode_core(q, ck, cv, valid, over: Optional[str] = None
             torch.stack(os_, dim))
 
 
-def _append(cache: torch.Tensor, new: torch.Tensor,
-            idx: torch.Tensor) -> torch.Tensor:
+def _append(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+            owner: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write `new` [B,KV,D] at sequence index `idx` (a 0-dim integer
     tensor on the cache's device) of `cache` [B,S,KV,D], in place (one
-    row moved, not the cache); returns `cache`. The reference's `owner`
-    mask serves its sequence-sharded cache, which the port does not
-    have."""
-    return cache.index_copy_(1, idx.reshape(1), new[:, None].to(cache.dtype))
+    row moved, not the cache); returns `cache`. With `owner` (a 0-dim
+    bool tensor) the row is written only where it is true, and the old
+    row is written back elsewhere: the reference's masked append into
+    a sequence-sharded cache, with no host sync."""
+    idx = idx.reshape(1)
+    new = new[:, None].to(cache.dtype)
+    if owner is not None:
+        new = torch.where(owner, new, cache.index_select(1, idx))
+    return cache.index_copy_(1, idx, new)
 
 
-def _valid_slots(pos: torch.Tensor, S: int, window: Optional[int]):
-    """[S] validity of the cache's slots after the token at `pos` was
-    written: the full cache holds positions 0..pos, the ring its last
-    min(window, pos + 1) entries."""
-    slots = torch.arange(S, device=pos.device)
+def _valid_slots(pos: torch.Tensor, S: int, window: Optional[int],
+                 off: int = 0, n: Optional[int] = None):
+    """Validity of the cache's slots off .. off + n - 1 (all S by
+    default) after the token at `pos` was written: the full cache holds
+    positions 0..pos, the ring its last min(window, pos + 1) entries."""
+    slots = off + torch.arange(S if n is None else n, device=pos.device)
     if window is None:
         return slots <= pos
     age = torch.remainder(pos - slots, S)
     return ((pos - age) >= 0) & (age < torch.clamp_max(pos + 1, window))
+
+
+def _merge(m, l, o, ax, dtype) -> torch.Tensor:
+    """The ranks' partial (m, l, o) merged: m by an all-reduce MAX, then
+    l and o, each times exp(m - max), by one all-reduce SUM."""
+    corr = torch.exp(m - all_reduce_max(m, ax))
+    lo = all_reduce_sum(torch.cat([o * corr[..., None],
+                                   (l * corr)[..., None]], dim=-1), ax)
+    return (lo[..., :-1] / torch.clamp_min(lo[..., -1:], 1e-37)).to(dtype)
 
 
 def decode_attention_local(q, cache_k, cache_v, k_new, v_new, pos, *,
@@ -179,19 +205,40 @@ def decode_attention_local(q, cache_k, cache_v, k_new, v_new, pos, *,
 
 def decode_attention(mesh, q, cache_k, cache_v, k_new, v_new, pos, *,
                      window: Optional[int] = None):
-    """Decode attention over a cache whose sequence dim the reference
-    shards over `model` (flash-decode). With no `model` axis larger than
-    1 it is `decode_attention_local`, as in the reference."""
-    _require_local(mesh, "decode_attention")
-    return decode_attention_local(q, cache_k, cache_v, k_new, v_new, pos,
-                                  window=window)
+    """Flash-decode over a cache whose sequence dim is cut over the model
+    axis (the reference's `attention.py:336`): q, k_new, v_new whole on
+    every rank, cache_k/cache_v this rank's [B, S/n, KV, D] block of the
+    S slots. The owner of the slot the new row goes to (`min(pos, S-1)`,
+    or `pos % S` on the ring) writes it at its local index; the ranks'
+    partial softmax statistics are merged (`_merge`). With no model
+    axis larger than 1 it is `decode_attention_local`."""
+    ax = model_axis(mesh)
+    if ax.size == 1:
+        return decode_attention_local(q, cache_k, cache_v, k_new, v_new,
+                                      pos, window=window)
+    s_loc = cache_k.shape[1]
+    S, off = s_loc * ax.size, ax.rank * s_loc
+    gidx = torch.clamp_max(pos, S - 1) if window is None \
+        else torch.remainder(pos, S)
+    owner = (gidx >= off) & (gidx < off + s_loc)
+    lidx = torch.clamp(gidx - off, 0, s_loc - 1)
+    ck = _append(cache_k, k_new, lidx, owner)
+    cv = _append(cache_v, v_new, lidx, owner)
+    valid = _valid_slots(pos, S, window, off, s_loc)
+    valid = valid[None].expand(q.shape[0], s_loc)
+    m, l, o = _decode_core(q, ck, cv, valid)
+    return _merge(m, l, o, ax, q.dtype), ck, cv
 
 
 def decode_cross_attention(mesh, q, cache_k, cache_v) -> torch.Tensor:
     """Cross-attention decode: q [B,KV,G,D] onto the static K/V
-    [B,S_src,KV,D] of the source memory (no append, every slot valid)."""
-    _require_local(mesh, "decode_cross_attention")
+    [B,S_src,KV,D] of the source memory (no append, every slot valid);
+    over a model axis each rank holds S_src/n of the slots and the
+    partial statistics are merged (the reference's `attention.py:390`)."""
+    ax = model_axis(mesh)
     valid = torch.ones((q.shape[0], cache_k.shape[1]), dtype=torch.bool,
                        device=q.device)
     m, l, o = _decode_core(q, cache_k, cache_v, valid)
-    return (o / torch.clamp_min(l[..., None], 1e-37)).to(q.dtype)
+    if ax.size == 1:
+        return (o / torch.clamp_min(l[..., None], 1e-37)).to(q.dtype)
+    return _merge(m, l, o, ax, q.dtype)

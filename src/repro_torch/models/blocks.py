@@ -10,11 +10,33 @@ and sLSTM). Each sub-block kind provides:
                                     -> single-token step: (y, cache)
   <kind>_cache_decl(cfg, n_rep, B, ...) -> its decode cache's declarations
 
-On one device every sharding constraint is a no-op and the TP mode is
-always "head" (`sharding/policy.py`); `*_apply`'s "row" mode needs a
-model mesh axis and raises (ROADMAP queue 1 item 9: the model axis).
-`seq_shard=True` takes the reference's one-device branch, plain
-`flash_attention`. A decode step's K/V append writes into the cache in
+Over a model mesh axis (`mesh`, anything `sharding.model_axis.model_axis`
+reads; None is one device) each rank holds its block of the parameters
+under their logical axes (`model_axis.shard_params`) and the sub-blocks
+run the reference's GSPMD partitioning written out, its TP modes
+(`sharding/policy.py`):
+
+* attention, "head": this rank's H/n query heads; `wk`/`wv` are
+  replicated, so every rank computes all KV heads and keeps those of its
+  query heads; `flash_attention` on the local heads; `wo` by heads, the
+  partial outputs summed. "row": `x` cut on d (`row_in`), the partial
+  q, k, v summed, the core replicated (or sequence-sharded with
+  `seq_shard`, `attention.seq_sharded_flash_attention`), `wo` cut on
+  head_dim (`row_head_dim`), summed. Decode takes q whole, as the
+  reference's flash-decode over the sequence-sharded cache does.
+* MLP: columns of `w_gate`/`w_up`, rows of `w_down` (`layers.mlp`).
+* MoE: the router and the capacity plan are replicated, so every rank
+  keeps the same slots; each rank runs its E/n experts and the combine
+  is summed.
+* Mamba2, the mLSTM and the sLSTM split over their own axes with
+  reductions of their own; over a model axis they raise (ROADMAP queue 1
+  item 9, next: the model axis of Mamba2 and the mLSTM).
+
+Each replicated tensor that enters split work passes `copy_to` (its
+gradient is summed over the ranks) and each partial result
+`reduce_from`, so every rank's replicated parameters get the whole
+gradient. On one device every constraint is a no-op and "row" computes
+what "head" does. A decode step's K/V append writes into the cache in
 place (`attention._append`); the recurrent kinds return their new
 states, which `engine.decode_step` writes back.
 """
@@ -28,6 +50,9 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import attention as att
 from repro_torch.models import layers as L
 from repro_torch.models.module import declare
+from repro_torch.sharding.model_axis import (LOCAL, ModelAxis, copy_to,
+                                             gather_from, model_axis,
+                                             reduce_from, scatter_to)
 
 
 def constrain(x, spec_entries):
@@ -58,14 +83,32 @@ def attn_decl(cfg: ModelConfig, tp: str, cross: bool = False):
     return p
 
 
-def _qkv(p, cfg: ModelConfig, x, src, positions, tp: str, cross: bool):
-    """Project + norm + rope. Returns q [B,T,H,Dh], k/v [B,S,KV,Dh]."""
-    kv_in = src if cross else x
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"].to(x.dtype))
+def _qkv(p, cfg: ModelConfig, h, src, positions, tp: str, cross: bool,
+         ax: ModelAxis = LOCAL):
+    """Project + norm + rope. Returns q [B,T,H,Dh], k/v [B,S,KV,Dh].
+    Over a model axis, head mode: q of this rank's H/n heads from
+    `copy_to(h)`, and every KV head (`wk`, `wv`, `k_norm` are whole on
+    every rank; `q_norm`'s scale acts on the local heads only, so it
+    passes `copy_to`); row mode: this rank's d/n columns of h (and of the
+    source memory) against its rows of wq, wk, wv, the partial q, k, v
+    summed, then the norms and rope on whole tensors."""
+    kv_in = src if cross else h
+    row = ax.size > 1 and tp == "row"
+    if row:
+        hq = scatter_to(h, ax, -1)
+        kv_in = scatter_to(kv_in, ax, -1) if cross else hq
+    else:
+        hq = copy_to(h, ax)
+
+    def proj(x, w, eq):
+        y = torch.einsum(eq, x, w.to(h.dtype))
+        return reduce_from(y, ax) if row else y
+    q = proj(hq, p["wq"], "btd,dhk->bthk")
+    k = proj(kv_in, p["wk"], "bsd,dhk->bshk")
+    v = proj(kv_in, p["wv"], "bsd,dhk->bshk")
     if "q_norm" in p:
-        q = L.rmsnorm(p["q_norm"], q)
+        scale = p["q_norm"]["scale"]
+        q = L.rmsnorm({"scale": scale if row else copy_to(scale, ax)}, q)
         k = L.rmsnorm(p["k_norm"], k)
     if not cross and positions is not None:
         q = L.rope(q, positions, cfg.rope_theta)
@@ -73,32 +116,56 @@ def _qkv(p, cfg: ModelConfig, x, src, positions, tp: str, cross: bool):
     return q, k, v
 
 
+def _local_kv(k, v, H: int, ax: ModelAxis):
+    """The KV heads of this rank's H/n query heads (head mode), as
+    (k, v, G): the block of whole KV heads, G query heads each, where
+    the local query heads hold whole groups; else K and V repeated to
+    the local query heads, G = 1 (the reference repeats to H and shards
+    the heads)."""
+    KV = k.shape[2]
+    G = H // KV
+    h0, hl = ax.block(H)
+    if hl % G == 0:
+        return (k.narrow(2, h0 // G, hl // G), v.narrow(2, h0 // G, hl // G),
+                G)
+    idx = torch.arange(h0, h0 + hl, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx), 1
+
+
 def attn_apply(p, x, cfg: ModelConfig, *, tp: str, kind: str = "attn",
                src=None, positions=None, causal: bool = True,
-               seq_shard: bool = False):
-    if tp != "head":
-        raise NotImplementedError(
-            f"attention tp mode {tp!r} needs a model mesh axis; on one "
-            f"device the mode is 'head' (ROADMAP queue 1 item 9: the model "
-            f"axis, row-TP attention)")
+               seq_shard: bool = False, mesh=None):
+    ax = model_axis(mesh)
     cross = kind == "cross"
     h = L.rmsnorm(p["ln"], x)
-    hsrc = src if cross else None
-    q, k, v = _qkv(p, cfg, h, hsrc, positions, tp, cross)
-    B, T, H, Dh = q.shape
-    KV = k.shape[2]
     window = cfg.window if kind == "attn_swa" else None
-    # the reference repeats K and V to H heads (each shard then holds
-    # its heads' copy); on one device the kernel reads KV head h // G in
-    # place instead, which computes the same attention
-    qg = q.reshape(B, T, KV, H // KV, Dh)
-    core = att.seq_sharded_flash_attention if seq_shard \
-        else att.flash_attention
-    out = core(qg, k, v, causal=causal and not cross, window=window,
-               q_chunk=cfg.attn_chunk)
+    causal = causal and not cross
+    q, k, v = _qkv(p, cfg, h, src, positions, tp, cross, ax)
+    B, T, H, Dh = q.shape
+    if ax.size > 1 and tp == "head":
+        k, v, G = _local_kv(copy_to(k, ax), copy_to(v, ax),
+                            cfg.num_heads, ax)
+        out = att.flash_attention(q.reshape(B, T, H // G, G, Dh), k, v,
+                                  causal=causal, window=window,
+                                  q_chunk=cfg.attn_chunk)
+    else:
+        # the reference repeats K and V to H heads in head mode; the
+        # kernel reads KV head h // G in place instead, which computes
+        # the same attention
+        KV = k.shape[2]
+        qg = q.reshape(B, T, KV, H // KV, Dh)
+        if seq_shard:
+            out = att.seq_sharded_flash_attention(
+                qg, k, v, causal=causal, window=window,
+                q_chunk=cfg.attn_chunk, mesh=ax)
+        else:
+            out = att.flash_attention(qg, k, v, causal=causal,
+                                      window=window, q_chunk=cfg.attn_chunk)
     out = out.reshape(B, T, H, Dh)
+    if ax.size > 1 and tp == "row":
+        out = scatter_to(out, ax, -1)
     y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
-    return x + y
+    return x + reduce_from(y, ax)
 
 
 def attn_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, seq_len: int,
@@ -115,35 +182,48 @@ def attn_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, seq_len: int,
 
 def attn_decode(p, x, cache, pos, cfg: ModelConfig, mesh, *, tp: str,
                 kind: str = "attn"):
-    """x [B,d] single token. cache {k,v} [B,S,KV,Dh]. Returns (y, cache),
-    the cache being the input's, with the new K/V row written in place
-    (`cross`: read only, no rope)."""
+    """x [B,d] single token. cache {k,v} [B,S,KV,Dh] (over a model axis
+    this rank's S/n slots). Returns (y, cache), the cache being the
+    input's, with the new K/V row written in place (`cross`: read only,
+    no rope). Over a model axis q is made whole on every rank (head
+    mode: the local heads all-gathered; row mode: the partial sums
+    reduced) and the attention output is cut again for `wo`."""
+    ax = model_axis(mesh)
     cross = kind == "cross"
     h = L.rmsnorm(p["ln"], x)
     B, d = h.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = torch.einsum("bd,dhk->bhk", h, p["wq"].to(x.dtype))
+    row = ax.size > 1 and tp == "row"
+    hp = scatter_to(h, ax, -1) if row else h
+
+    def proj(w):
+        y = torch.einsum("bd,dhk->bhk", hp, w.to(x.dtype))
+        return reduce_from(y, ax) if row else y
+    q = proj(p["wq"])
     if "q_norm" in p:
         q = L.rmsnorm(p["q_norm"], q)
     if not cross:
-        k_new = torch.einsum("bd,dhk->bhk", h, p["wk"].to(x.dtype))
-        v_new = torch.einsum("bd,dhk->bhk", h, p["wv"].to(x.dtype))
+        k_new, v_new = proj(p["wk"]), proj(p["wv"])
         if "k_norm" in p:
             k_new = L.rmsnorm(p["k_norm"], k_new)
         q = L.rope(q, pos, cfg.rope_theta)
         k_new = L.rope(k_new, pos, cfg.rope_theta)
+    if ax.size > 1 and tp == "head":
+        q = gather_from(q, ax, 1)
     qg = q.reshape(B, KV, H // KV, Dh)
     window = cfg.window if kind == "attn_swa" else None
     if cross:
-        out = att.decode_cross_attention(mesh, qg, cache["k"], cache["v"])
+        out = att.decode_cross_attention(ax, qg, cache["k"], cache["v"])
         ck, cv = cache["k"], cache["v"]
     else:
         out, ck, cv = att.decode_attention(
-            mesh, qg, cache["k"], cache["v"], k_new, v_new, pos,
+            ax, qg, cache["k"], cache["v"], k_new, v_new, pos,
             window=window)
     out = out.reshape(B, H, Dh)
+    if ax.size > 1:
+        out = scatter_to(out, ax, -1 if row else 1)
     y = torch.einsum("bhk,hkd->bd", out, p["wo"].to(x.dtype))
-    return x + y, {"k": ck, "v": cv}
+    return x + reduce_from(y, ax), {"k": ck, "v": cv}
 
 
 # ===========================================================================
@@ -156,12 +236,13 @@ def mlp_decl(cfg: ModelConfig, tp: str):
                               gated=cfg.act == "silu")}
 
 
-def mlp_apply(p, x, cfg: ModelConfig, **_):
-    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln"], x), act=cfg.act)
+def mlp_apply(p, x, cfg: ModelConfig, mesh=None, **_):
+    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln"], x), act=cfg.act,
+                     mesh=mesh)
 
 
 def mlp_decode(p, x, cache, pos, cfg, mesh, **_):
-    return mlp_apply(p, x, cfg), cache
+    return mlp_apply(p, x, cfg, mesh=mesh), cache
 
 
 # ===========================================================================
@@ -327,53 +408,103 @@ def moe_plan(gate, eidx, cfg: ModelConfig):
         valid
 
 
-def moe_experts(p, x, h, gate, eidx, cfg: ModelConfig):
+def _local_slots(plan, E: int, ax: ModelAxis):
+    """The global plan (`moe_plan`) cut to this rank's E/n experts: their
+    slots' tokens, validity and gates, and each token's slots among them
+    (positions local, the others not valid)."""
+    tok_idx, slot_valid, gates_ec, pos, valid = plan
+    C = tok_idx.shape[1] // E
+    e0, el = ax.block(E)
+    lo, hi = e0 * C, (e0 + el) * C
+    return (tok_idx[:, lo:hi], slot_valid[:, lo:hi], gates_ec[:, lo:hi],
+            torch.clamp(pos - lo, 0, hi - lo - 1),
+            valid & (pos >= lo) & (pos < hi))
+
+
+def moe_experts(p, x, h, gate, eidx, cfg: ModelConfig, mesh=None):
     """The dispatch half of `moe_apply`, given the routing (`moe_plan`):
     x + the experts' gated outputs (+ the shared expert). Each token's
-    outputs are summed in expert order (`_Combine`)."""
+    outputs are summed in expert order (`_Combine`). Over a model axis
+    the plan is the global one (every rank keeps the same slots), this
+    rank runs its block of the experts (`w_*` [E/n, ...]) and the
+    partial combines are summed."""
     B, T, d = x.shape
     G, n, k = eidx.shape
     E = cfg.num_experts
-    tok_idx, slot_valid, gates_ec, pos, valid = moe_plan(gate, eidx, cfg)
-    C = tok_idx.shape[1] // E
-    xb = _Dispatch.apply(h.reshape(G, n, d), tok_idx, pos, valid) \
-        .reshape(G, E, C, d)
+    ax = model_axis(mesh)
+    plan = moe_plan(copy_to(gate, ax), eidx, cfg)
+    if ax.size > 1:
+        plan = _local_slots(plan, E, ax)
+    tok_idx, slot_valid, gates_ec, pos, valid = plan
+    el = p["w_gate"].shape[0]
+    C = tok_idx.shape[1] // el
+    xb = _Dispatch.apply(copy_to(h, ax).reshape(G, n, d), tok_idx, pos,
+                         valid).reshape(G, el, C, d)
     gh = F.silu(torch.einsum("gecd,edf->gecf", xb,
                              p["w_gate"].to(x.dtype)))
     uh = torch.einsum("gecd,edf->gecf", xb, p["w_up"].to(x.dtype))
     yb = torch.einsum("gecf,efd->gecd", gh * uh, p["w_down"].to(x.dtype))
-    yb = yb * gates_ec.reshape(G, E, C, 1).to(yb.dtype)
-    out = _Combine.apply(yb.reshape(G, E * C, d), tok_idx, slot_valid, pos,
+    yb = yb * gates_ec.reshape(G, el, C, 1).to(yb.dtype)
+    out = _Combine.apply(yb.reshape(G, el * C, d), tok_idx, slot_valid, pos,
                          valid).reshape(B, T, d)
+    out = reduce_from(out, ax)
     if "shared" in p:
-        out = out + L.mlp(p["shared"], h, act="silu")
+        out = out + L.mlp(p["shared"], h, act="silu", mesh=ax)
     return x + out
 
 
-def moe_apply(p, x, cfg: ModelConfig, groups: int = 16, **_):
+def moe_apply(p, x, cfg: ModelConfig, groups: int = 16, mesh=None, **_):
     """Group-local sort-based dispatch, per-group capacity dropping,
     standard token-choice top-k. Returns (x + MoE(x), aux)."""
     h, gate, eidx, aux = moe_route(p, x, cfg, groups)
-    return moe_experts(p, x, h, gate, eidx, cfg), aux
+    return moe_experts(p, x, h, gate, eidx, cfg, mesh=mesh), aux
 
 
 def moe_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """Decode: every expert applied densely to the (small) token batch x
     [B,d], each token's outputs weighted by its routing (no capacity, no
-    dropped tokens), plus the shared expert."""
+    dropped tokens), plus the shared expert. Over a model axis each rank
+    applies its E/n experts and the outputs are summed, as the
+    reference's docstring says of its GSPMD split."""
+    ax = model_axis(mesh)
     h = L.rmsnorm(p["ln"], x)                        # [B,d]
     gate, eidx, _ = _router(p, h, cfg)               # [B,k]
     E = cfg.num_experts
     onehot = (eidx[..., None] == torch.arange(E, device=x.device)) \
         .to(x.dtype)                                 # [B,k,E]
     w_tok = torch.einsum("bk,bke->be", gate.to(x.dtype), onehot)
+    if ax.size > 1:
+        w_tok = w_tok.narrow(1, *ax.block(E))
     gh = F.silu(torch.einsum("bd,edf->ebf", h, p["w_gate"].to(x.dtype)))
     uh = torch.einsum("bd,edf->ebf", h, p["w_up"].to(x.dtype))
     ye = torch.einsum("ebf,efd->ebd", gh * uh, p["w_down"].to(x.dtype))
-    y = torch.einsum("ebd,be->bd", ye, w_tok)
+    y = reduce_from(torch.einsum("ebd,be->bd", ye, w_tok), ax)
     if "shared" in p:
-        y = y + L.mlp(p["shared"], h, act="silu")
+        y = y + L.mlp(p["shared"], h, act="silu", mesh=ax)
     return x + y, cache
+
+
+_LOCAL_ONLY = {"mamba": "Mamba2", "mlstm": "the mLSTM", "slstm": "the sLSTM"}
+
+
+def _local_only(mesh, what: str, n: int = 0) -> None:
+    """Mamba2, the mLSTM and the sLSTM split over axes of their own
+    (`ssm_heads`, `d_inner`, `row_head_dim`) with reductions of their
+    own: over a model axis they raise."""
+    n = n or model_axis(mesh).size
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} over a model axis of {n} is not ported yet (ROADMAP "
+            f"queue 1 item 9, next step: the model axis of Mamba2 and the "
+            f"mLSTM); run the model whole on one card or rank")
+
+
+def require_model_axis(cfg: ModelConfig, n: int) -> None:
+    """Raise up front if `cfg` has a sub-block kind that a model axis of
+    `n` ranks cannot split yet."""
+    for kind in cfg.pattern:
+        if kind in _LOCAL_ONLY:
+            _local_only(None, _LOCAL_ONLY[kind], n)
 
 
 # ===========================================================================
@@ -432,7 +563,8 @@ def _mamba_proj(p, x, cfg: ModelConfig):
     return xi, z, bc, dt
 
 
-def mamba_apply(p, x, cfg: ModelConfig, **_):
+def mamba_apply(p, x, cfg: ModelConfig, mesh=None, **_):
+    _local_only(mesh, "Mamba2")
     B, T, d = x.shape
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     xi, z, bc, dt = _mamba_proj(p, x, cfg)
@@ -472,6 +604,7 @@ def mamba_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of the recurrence: the conv history [B,K-1,di] shifts by
     the new input, and the fp32 state [B,H,N,P] decays by
     a = exp(dt * -exp(A_log)) and takes b (dt * x)."""
+    _local_only(mesh, "Mamba2")
     B, d = x.shape
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     xi, z, bc, dt = _mamba_proj(p, x, cfg)
@@ -561,7 +694,8 @@ def _mlstm_chunk(Cm, n, qc, kc, vc, lf, li, scale: float, dtype):
     return Cm, n, out.to(dtype)
 
 
-def mlstm_apply(p, x, cfg: ModelConfig, **_):
+def mlstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
+    _local_only(mesh, "the mLSTM")
     B, T, d = x.shape
     h = L.rmsnorm(p["ln"], x)
     q = torch.einsum("btd,dhp->bthp", h, p["w_q"].to(x.dtype))
@@ -605,6 +739,7 @@ def mlstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
 def mlstm_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of the matrix memory: C = f C + i k v^T, n = f n + i k,
     with i = exp(min(log_i, 20)), read by q over max(|q.n|, 1)."""
+    _local_only(mesh, "the mLSTM")
     B, d = x.shape
     h = L.rmsnorm(p["ln"], x)
     q = torch.einsum("bd,dhp->bhp", h, p["w_q"].to(x.dtype))
@@ -664,11 +799,12 @@ def _slstm_cell(p, gx, state):
     return h_new, c_new, n_new, m_new
 
 
-def slstm_apply(p, x, cfg: ModelConfig, **_):
+def slstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
     """The recurrence is a Python loop over the T steps, h kept in float32
     and cast to x's dtype after it, as the reference's scan emits it. The
     float32 copies of r and b are made once: the reference's cast in each
     step gives the same values."""
+    _local_only(mesh, "the sLSTM")
     B, T, d = x.shape
     H = cfg.num_heads
     Pd = d // H
@@ -697,6 +833,7 @@ def slstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
 def slstm_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of `_slstm_cell` from the cached (h, c, n, m); from a zero
     cache m starts at 0, as in `slstm_apply`."""
+    _local_only(mesh, "the sLSTM")
     hin = L.rmsnorm(p["ln"], x)
     gx = torch.einsum("bd,dhq->bhq", hin, p["w_in"].to(x.dtype))
     state = (cache["h"], cache["c"], cache["n"], cache["m"])

@@ -30,6 +30,15 @@ one token a row at position `pos`. The step updates the cache it is
 given in place and returns it: the K/V rows are written into the
 stacked leaves (no copy of the cache), the recurrent states copied over
 their slots.
+
+Over a model mesh axis (`mesh`: a ("data", "model") `DeviceMesh`, or
+anything `sharding.model_axis.model_axis` reads) every function takes
+this rank's block of the parameters (`model_axis.shard_params(mesh,
+params, model_decl(cfg, tp))`) and, for decode, of the cache
+(`zero_cache(..., mesh=mesh)`: S/n slots a rank, `cache_seq`). The
+logits returned are the whole vocab's (all-gathered), except where
+`forward(..., gather_logits=False)` leaves each rank its columns for the
+vocab-parallel loss (`layers.softmax_cross_entropy(..., mesh=mesh)`).
 """
 from __future__ import annotations
 
@@ -45,7 +54,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.module import Declared, declare, tree_map
+from repro_torch.sharding.model_axis import all_reduce_sum, model_axis
 from repro_torch.sharding.policy import pad_vocab
+from repro_torch.sharding.rules import default_rules
 
 _DECLS = {
     "attn": lambda cfg, tp: B.attn_decl(cfg, tp),
@@ -137,7 +148,7 @@ def llm_params_from_jax(tree, device=None):
 # ---------------------------------------------------------------------------
 
 def _encode(params, cfg: ModelConfig, src: torch.Tensor,
-            tp: str) -> torch.Tensor:
+            tp: str, mesh=None) -> torch.Tensor:
     """Whisper-style bidirectional encoder over stub frame embeddings:
     no rope, no causal mask, no remat."""
     enc = params["encoder"]
@@ -145,13 +156,13 @@ def _encode(params, cfg: ModelConfig, src: torch.Tensor,
     for r in range(cfg.encoder_layers):
         blk = tree_map(lambda a: a[r], enc["blocks"])
         x = B.attn_apply(blk["attn"], x, cfg, tp=tp, kind="attn",
-                         causal=False, positions=None)
-        x = B.mlp_apply(blk["mlp"], x, cfg)
+                         causal=False, positions=None, mesh=mesh)
+        x = B.mlp_apply(blk["mlp"], x, cfg, mesh=mesh)
     return L.rmsnorm(enc["final_norm"], x)
 
 
 def source_memory(params, cfg: ModelConfig, src: Optional[torch.Tensor],
-                  tp: str) -> Optional[torch.Tensor]:
+                  tp: str, mesh=None) -> Optional[torch.Tensor]:
     """What the `cross` sub-blocks attend to: the projected patches
     (vlm), the encoded frames (audio), or `src` itself."""
     if src is None:
@@ -159,16 +170,25 @@ def source_memory(params, cfg: ModelConfig, src: Optional[torch.Tensor],
     if cfg.family == "vlm":
         return L.linear(params["projector"], src.to(cfg.dtype))
     if cfg.encoder_layers:
-        return _encode(params, cfg, src, tp)
+        return _encode(params, cfg, src, tp, mesh)
     return src.to(cfg.dtype)
 
 
-def build_cross_cache(cfg: ModelConfig, params, cache, src, tp: str):
+def build_cross_cache(cfg: ModelConfig, params, cache, src, tp: str,
+                      mesh=None):
     """Populate the cross-attention K/V cache slots from the source memory
     (VLM/audio decode: the encoder runs once, its K/V are static). Each
     repetition's wk/wv project the memory; the results take the cache's
-    dtype. Returns a new list; the other positions keep their trees."""
-    mem = source_memory(params, cfg, src, tp)
+    dtype. Over a model axis each rank projects its block of the source
+    slots (row mode: from its d/n columns, the partial sums reduced).
+    Returns a new list; the other positions keep their trees."""
+    ax = model_axis(mesh)
+    mem = source_memory(params, cfg, src, tp, ax)
+    row = ax.size > 1 and tp == "row"
+    if ax.size > 1:
+        mem = mem.narrow(1, *ax.block(mem.shape[1]))
+        if row:
+            mem = mem.narrow(2, *ax.block(mem.shape[2]))
     new_cache = list(cache)
     for i, kind in enumerate(cfg.pattern):
         if kind != "cross":
@@ -176,6 +196,8 @@ def build_cross_cache(cfg: ModelConfig, params, cache, src, tp: str):
         bp = params["blocks"][i]
         ks = torch.einsum("bsd,rdhk->rbshk", mem, bp["wk"].to(mem.dtype))
         vs = torch.einsum("bsd,rdhk->rbshk", mem, bp["wv"].to(mem.dtype))
+        if row:
+            ks, vs = all_reduce_sum(ks, ax), all_reduce_sum(vs, ax)
         new_cache[i] = {"k": ks.to(cache[i]["k"].dtype),
                         "v": vs.to(cache[i]["v"].dtype)}
     return new_cache
@@ -200,21 +222,27 @@ _APPLY = {
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
             src: Optional[torch.Tensor] = None,
             last_logit_only: bool = False,
-            seq_shard: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            seq_shard: bool = False, mesh=None,
+            gather_logits: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,T] -> (logits [B,T,V] f32, aux scalar).
 
-    last_logit_only: unembed just the final position (serving prefill)."""
+    last_logit_only: unembed just the final position (serving prefill).
+    Over a model axis (`mesh`) `params` are this rank's block; with
+    `gather_logits=False` the logits are this rank's vocab columns."""
+    ax = model_axis(mesh)
     Bsz, T = tokens.shape
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
-    memory = source_memory(params, cfg, src, tp)
+    x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
+    memory = source_memory(params, cfg, src, tp, ax)
     positions = L.rope_positions(T, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def apply_one(kind, p, x):
         fn = _APPLY[kind]
-        kw = {}
+        kw = dict(mesh=ax)
         if kind in ("attn", "attn_swa", "cross"):
-            kw = dict(tp=tp, positions=None if kind == "cross" else positions,
+            kw.update(tp=tp,
+                      positions=None if kind == "cross" else positions,
                       src=memory if kind == "cross" else None,
                       seq_shard=seq_shard and kind != "cross")
 
@@ -237,11 +265,17 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
     x = L.rmsnorm(params["final_norm"], x)
     if last_logit_only:
         x = x[:, -1:]
-    if cfg.tie_embeddings:
-        logits = L.unembed_tied(params["embed"], x)
-    else:
-        logits = L.unembed(params["lm_head"], x)
+    logits = _logits(params, x, cfg, ax)
+    if gather_logits:
+        logits = L.gather_logits(logits, ax)
     return logits, aux
+
+
+def _logits(params, x, cfg: ModelConfig, ax):
+    """This rank's vocab columns of the LM head's logits."""
+    if cfg.tie_embeddings:
+        return L.unembed_tied(params["embed"], x, mesh=ax)
+    return L.unembed(params["lm_head"], x, mesh=ax)
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +302,19 @@ def cache_decl(cfg: ModelConfig, batch: int, seq_len: int, *,
     return out
 
 
-def zero_cache(decl, device=None):
+def zero_cache(decl, device=None, mesh=None):
     """The declared cache, every leaf zeros of its shape and dtype, on
-    `device` (CUDA unless named)."""
+    `device` (CUDA unless named); over a model axis (`mesh`) this rank's
+    block of it: each dim whose logical axis maps to the model axis
+    (`cache_seq`) cut to 1/n."""
     device = resolve_device(device)
-    return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+    n = model_axis(mesh).size
+    rules = default_rules()
+
+    def local(d):
+        return tuple(s // n if rules.mesh_axis(a) == "model" else s
+                     for s, a in zip(d.shape, d.axes))
+    return tree_map(lambda d: torch.zeros(local(d), dtype=d.dtype,
                                           device=device), decl)
 
 
@@ -298,8 +340,10 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     The input cache is updated in place and returned: it holds the
     values of the reference's new cache. Attention writes its new K/V row
     into the stacked leaves; each recurrent state is copied over its
-    repetition's slot."""
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    repetition's slot. Over a model axis `params` and `cache` are this
+    rank's blocks and the logits are the whole vocab's."""
+    ax = model_axis(mesh)
+    x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
     for r in range(cfg.n_rep):
         for i, kind in enumerate(cfg.pattern):
             ek = effective_kind(kind, force_swa)
@@ -307,13 +351,9 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                 lambda a: a[r], params["blocks"][i])
             slot = {k: v[r] for k, v in cache[i].items()}
             kw = dict(tp=tp) if ek in ("attn", "attn_swa", "cross") else {}
-            x, new = _DECODE[ek](p, x, slot, pos, cfg, mesh, **kw)
+            x, new = _DECODE[ek](p, x, slot, pos, cfg, ax, **kw)
             for k, v in new.items():
                 if v is not slot[k]:
                     slot[k].copy_(v)
     x = L.rmsnorm(params["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = L.unembed_tied(params["embed"], x)
-    else:
-        logits = L.unembed(params["lm_head"], x)
-    return logits, cache
+    return L.gather_logits(_logits(params, x, cfg, ax), ax), cache

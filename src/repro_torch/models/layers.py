@@ -5,6 +5,14 @@ Port of `repro/models/layers.py`. Every `*_decl` returns a tree of
 plain function over materialized params, with the reference's dtype
 rules: norms and RoPE compute in float32 and return the input's dtype,
 and logits come out in float32.
+
+Over a model mesh axis (`mesh`: anything `sharding.model_axis.model_axis`
+reads; None is one device) each rank holds its block of the parameters
+(`model_axis.shard_params`): the embedding and the LM head by vocab
+rows, the MLP's `w_gate`/`w_up` by columns and `w_down` by rows. The
+embedding is a masked lookup of the local rows summed over the axis, the
+LM head gives this rank's vocab logits (`gather_logits` joins them), the
+loss runs vocab-parallel, and the MLP sums its partial outputs.
 """
 from __future__ import annotations
 
@@ -14,6 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import declare
+from repro_torch.sharding.model_axis import (all_reduce_max, copy_to,
+                                             gather_from, model_axis,
+                                             reduce_from)
 
 
 # ---------------------------------------------------------------------------
@@ -74,8 +85,18 @@ def embed_decl(vocab: int, dim: int):
                              init="normal", scale=0.02)}
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["table"])
+def embed(p, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The rows of `tokens`; over a model axis each rank looks up the
+    tokens among its vocab rows (zeros for the others) and the ranks'
+    rows are summed."""
+    ax = model_axis(mesh)
+    if ax.size == 1:
+        return F.embedding(tokens.long(), p["table"])
+    rows = p["table"].shape[0]
+    t = tokens.long() - ax.rank * rows
+    own = (t >= 0) & (t < rows)
+    e = F.embedding(torch.where(own, t, 0), p["table"])
+    return reduce_from(torch.where(own[..., None], e, 0), ax)
 
 
 def unembed_decl(vocab: int, dim: int):
@@ -116,12 +137,19 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, w.shape[-1])
 
 
-def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    return matmul_f32(x, p["w"])
+def unembed(p, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Logits of this rank's vocab columns (all of them on one device)."""
+    return matmul_f32(copy_to(x, model_axis(mesh)), p["w"])
 
 
-def unembed_tied(embed_params, x: torch.Tensor) -> torch.Tensor:
-    return matmul_f32(x, embed_params["table"].T)
+def unembed_tied(embed_params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    return matmul_f32(copy_to(x, model_axis(mesh)),
+                      embed_params["table"].T)
+
+
+def gather_logits(logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The whole vocab's logits from each rank's columns."""
+    return gather_from(logits, model_axis(mesh), -1)
 
 
 # ---------------------------------------------------------------------------
@@ -146,13 +174,15 @@ def _act(name: str, x):
     raise ValueError(name)
 
 
-def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(p, x: torch.Tensor, act: str = "silu", mesh=None) -> torch.Tensor:
+    ax = model_axis(mesh)
+    x = copy_to(x, ax)
     up = x @ p["w_up"]
     if "w_gate" in p:
         up = _act(act, x @ p["w_gate"]) * up
     else:
         up = _act(act, up)
-    return up @ p["w_down"]
+    return reduce_from(up @ p["w_down"], ax)
 
 
 def linear_decl(d_in: int, d_out: int, axes=("embed", "out"), bias=False):
@@ -174,12 +204,26 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-    """logits [..., V] (f32), labels int [...]. Mean over unmasked tokens."""
+                          mask: Optional[torch.Tensor] = None,
+                          mesh=None) -> torch.Tensor:
+    """logits [..., V] (f32), labels int [...]. Mean over unmasked tokens.
+    Over a model axis `logits` are this rank's vocab columns: the
+    maximum, the sum of exponentials and the target's logit are each
+    reduced over the axis."""
+    ax = model_axis(mesh)
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if ax.size == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        cols = logits.shape[-1]
+        m = all_reduce_max(logits.amax(dim=-1), ax)
+        lse = m + torch.log(reduce_from(
+            torch.exp(logits - m[..., None]).sum(dim=-1), ax))
+        t = labels.long() - ax.rank * cols
+        own = (t >= 0) & (t < cols)
+        ll = torch.gather(logits, -1, torch.where(own, t, 0)[..., None])
+        ll = reduce_from(torch.where(own, ll[..., 0], 0.0), ax)
     nll = lse - ll
     if mask is not None:
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

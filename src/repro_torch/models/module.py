@@ -102,6 +102,13 @@ def materialize(gen: torch.Generator, tree):
                     tree)
 
 
+def axes_of(tree):
+    """The tree of each leaf's logical axes (a tuple of names), as the
+    reference's `axes_of`: what `sharding.rules.tree_specs` maps to
+    specs."""
+    return tree_map(lambda d: _decl_leaf(d).axes, tree)
+
+
 def param_count(tree) -> int:
     return sum(int(math.prod(d.shape)) for d in tree_leaves(tree))
 

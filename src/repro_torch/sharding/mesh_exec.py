@@ -36,8 +36,11 @@ The collectives run through the group at every world size, one rank
 included: nothing takes a shortcut around them. `gather_result`
 all-gathers a run's result so that every rank returns what one device
 returns. `cfg.batch` must split evenly over the data axes; that is
-checked up front with the reference's message. A model axis larger
-than 1 raises (ROADMAP queue 1 item 9).
+checked up front with the reference's message. On a ("data",
+"model") mesh the rollout's collectives run over the data group of this
+rank's model coordinate: the ranks of one data group hold the cells
+between them, and each model coordinate holds them all again (the
+rollout has no parameter split over the model axis).
 """
 from __future__ import annotations
 
@@ -88,19 +91,19 @@ def fleet_mesh(n_devices: Optional[int] = None, axis: str = "data"):
 
 
 def _data_group(mesh):
-    """(process group, this rank's coordinate, size) of the data axes,
-    refusing a mesh whose other axes hold more than one rank."""
+    """(process group, this rank's coordinate, size) of the data axes:
+    on a 1-D mesh or a ("data", "model") one, the group of the ranks
+    that share this rank's other coordinates."""
     shape = mesh_shape(mesh)
     names = data_axis_names(mesh)
-    other = {a: s for a, s in shape.items() if a not in names and s > 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} beside the data axes: the port shards the "
-            f"cell and vehicle axes only; a model axis comes with "
-            f"tensor-parallel layers (ROADMAP queue 1 item 9)")
     if len(names) == 1:
         return (mesh.get_group(names[0]), mesh.get_local_rank(names[0]),
                 shape[names[0]])
+    other = {a: s for a, s in shape.items() if a not in names and s > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other} beside the data axes {names}: the rollout "
+            f"takes one data axis beside a model axis")
     # several data axes ("pod", "data") and no other axis of more than one
     # rank: their product is the whole world, first axis major
     return dist.group.WORLD, dist.get_rank(), num_vehicles(mesh)

@@ -13,7 +13,8 @@ restore bit for bit, no slot graph captured after `warmup()`, and its
 front end (`BatchServer`) dispatching on one thread with no capture and
 its dispatch log replayed bit for bit; and the cell-sharded rollout and
 stream with handoff on a one-rank NCCL world against the one-device
-loops, bit for bit.
+loops, bit for bit; and a model split over two ranks that share the
+card over gloo (`run_world(shared_card=True)`) against one rank.
 Marked
 `cuda`; each skips
 itself where no card is present. This file imports no jax, so it also
@@ -1286,3 +1287,38 @@ def test_decode_step_appends_in_place_without_host_sync():
         assert bool(k[:, :, :3].abs().amax(dim=(0, 1, 3, 4)).gt(0).all())
         assert not bool(k[:, :, 3:].any())
         assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_model_axis_on_two_ranks_of_one_card_matches_one_rank(tmp_path):
+    """qwen3's smoke config in fp32 split over a (1, 2) mesh of two ranks
+    on the one card (gloo, `run_world(shared_card=True)`): `forward`'s
+    logits and 4 decode steps from a sequence-sharded cache within 1e-4
+    of max|logit| of the one-rank path on the card, argmax equal."""
+    require_cuda()
+    import torch_model_axis_cases as MC
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import engine
+    from repro_torch.models.module import materialize
+    dev = torch.device("cuda", 0)
+    cfg = get_smoke_config("qwen3-32b").replace(
+        param_dtype="float32", compute_dtype="float32", remat=False,
+        attn_chunk=16)
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         engine.model_decl(cfg, "head"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    case = dict(kind="model", cfg=cfg, tp="head", params=params,
+                tokens=toks, src=None, cache_len=24, steps=4)
+    one = MC.model(None, case)
+    path, res = str(tmp_path / "in.pt"), str(tmp_path / "out{rank}.pt")
+    torch.save({"model": case}, path)
+    run_world(MC.rank_main, 2, path, res, device="cuda", shared_card=True,
+              timeout_s=300)
+    for r in range(2):
+        got = torch.load(res.format(rank=r), weights_only=False)["model"]
+        for k in ("logits", "decode"):
+            scale = float(one[k].abs().max())
+            assert float((got[k] - one[k]).abs().max()) <= 1e-4 * scale
+            assert torch.equal(got[k].argmax(-1), one[k].argmax(-1))

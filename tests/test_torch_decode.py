@@ -163,10 +163,14 @@ def test_decode_cross_attention_matches_reference(single_mesh):
                ATTN_TOL)
 
 
-def test_decode_mesh_rule(single_mesh):
+def test_decode_mesh_rule(single_mesh, tmp_path):
     """None and a model axis of 1 (alone or beside a data axis) take the
-    local path, as the reference's; a model axis of 2 raises, naming
-    ROADMAP queue 1 item 9's model axis."""
+    local path, as the reference's; a model axis of 2 (a (1, 2) mesh of a
+    gloo world) is flash-decode over the sequence-sharded cache, the
+    reference's result again, the cache written by its owner only; a
+    mapping cannot carry a model axis of 2 (no process group)."""
+    import torch_model_axis_cases as MC
+    from repro_torch.launch.mesh import run_world
     (q, qt), (ck, ckt), (cv, cvt), (kn, knt), (vn, vnt) = \
         _cache_case(12, 50)
     ref = jatt.decode_attention(single_mesh, q, ck, cv, kn, vn,
@@ -175,10 +179,22 @@ def test_decode_mesh_rule(single_mesh):
         out, _, _ = att.decode_attention(mesh, qt, ckt.clone(), cvt.clone(),
                                          knt, vnt, torch.tensor(4))
         _close(out, ref[0], ATTN_TOL)
-    with pytest.raises(NotImplementedError, match="item 9: the model axis"):
-        att.decode_attention({"data": 1, "model": 2}, qt, ckt, cvt, knt,
-                             vnt, torch.tensor(4))
-    with pytest.raises(NotImplementedError, match="item 9: the model axis"):
+    case = dict(kind="decode", cross=False, window=None, pos=(4,),
+                q=qt[None], ck=ckt, cv=cvt, kn=knt[None], vn=vnt[None])
+    cross = dict(case, cross=True)
+    path, res = str(tmp_path / "in.pt"), str(tmp_path / "out{rank}.pt")
+    torch.save({"self": case, "cross": cross}, path)
+    run_world(MC.rank_main, 2, path, res, device="cpu", threads=1,
+              timeout_s=120, store_dir=str(tmp_path))
+    ref_cross = jatt.decode_cross_attention(single_mesh, q, ck, cv)
+    for r in range(2):
+        out = torch.load(res.format(rank=r), weights_only=False)
+        (o, k2, v2), = out["self"]
+        _close(o, ref[0], ATTN_TOL)
+        np.testing.assert_array_equal(tn(k2), np.asarray(ref[1]))
+        np.testing.assert_array_equal(tn(v2), np.asarray(ref[2]))
+        _close(out["cross"][0][0], ref_cross, ATTN_TOL)
+    with pytest.raises(ValueError, match="DeviceMesh"):
         att.decode_cross_attention({"model": 2}, qt, ckt, cvt)
 
 

@@ -187,13 +187,21 @@ def test_attn_apply_matches_reference(kind):
 
 
 def test_attn_apply_refuses_row_tp_and_seq_shard():
-    """Row-TP needs a model mesh axis and raises, naming it; seq_shard
-    takes the reference's one-device branch (plain flash attention), so
-    the block matches the reference's with seq_shard and equals its own
-    output without it bit for bit."""
+    """Row-TP on one device (no model axis to split over) is the
+    reference's row mode on one device: its block on the same weights,
+    and bit for bit the port's head mode; seq_shard takes the
+    reference's one-device branch (plain flash attention), so the block
+    matches the reference's with seq_shard and equals its own output
+    without it bit for bit."""
     jcfg, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="row"):
-        B.attn_apply({}, torch.zeros(1, 4, 256), cfg, tp="row")
+    pr = j_materialize(jax.random.key(5), jB.attn_decl(jcfg, "row"))
+    xr = _x((BATCH, SEQ, jcfg.d_model), 29)
+    kw = dict(positions=L.rope_positions(SEQ))
+    row = B.attn_apply(_port(pr), tt(xr), cfg, tp="row", **kw)
+    _close_scaled(row, jB.attn_apply(pr, jnp.asarray(xr), jcfg, tp="row",
+                                     positions=jL.rope_positions(SEQ)))
+    assert torch.equal(row, B.attn_apply(_port(pr), tt(xr), cfg, tp="head",
+                                         **kw))
     p = j_materialize(jax.random.key(1), jB.attn_decl(jcfg, "head"))
     x = _x((BATCH, SEQ, jcfg.d_model), 23)
     ref = jB.attn_apply(p, jnp.asarray(x), jcfg, tp="head",

@@ -42,8 +42,9 @@ from repro.sharding import mesh_exec as jmx
 from repro_torch.core import scenario as scn
 from repro_torch.core.scheduler import map_tree
 from repro_torch.core.streaming import StreamResult
-from repro_torch.launch.mesh import init_world, run_world
+from repro_torch.launch.mesh import init_world, make_host_mesh, run_world
 from repro_torch.sharding import mesh_exec
+from repro_torch.sharding.rules import mesh_shape
 from torch_port_util import tn
 
 JMOB, JCH = JManhattan(v_max=10.0), JChannel()
@@ -175,6 +176,14 @@ def test_mesh_run_matches_one_process(problem, runs, n, case):
     rank_of = {float(t): b // (C.B // n) for b in range(C.B) for t in j1[b]}
     assert any(rank_of[float(t)] != b // (C.B // n)
                for b in range(C.B) for t in j0[b])
+
+
+@pytest.mark.parametrize("case", (C.CASES[0], C.CASES[2]), ids="-".join)
+def test_mesh_run_on_a_data_by_model_mesh_matches_one_process(runs, case):
+    """On a (2, 2) ("data", "model") mesh of 4 ranks the rollout's
+    collectives run over the data group of each model coordinate: each
+    pair of ranks holds the cells, and the run is one process's."""
+    _assert_same_run(runs[4][("2x2",) + case], runs[1][case])
 
 
 @pytest.mark.parametrize("case", [c for c in C.CASES if c[2] == "ref"],
@@ -310,9 +319,14 @@ def test_one_rank_world_is_bit_for_bit_the_one_device_loop(problem,
         assert torch.equal(ours.loss, one.loss)
         with pytest.raises(ValueError, match="world has 1"):
             mesh_exec.fleet_mesh(2)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            mesh_exec.mesh_stream_rounds(
-                {"data": 1, "model": 2}, 0, None, C.SC, C.MOB, C.CH, C.PRM,
-                C.CFG)
+        # a ("data", "model") mesh of (1, 1): the data group of the
+        # rank's model coordinate, the same run bit for bit
+        grid = make_host_mesh(1)
+        assert mesh_shape(grid) == {"data": 1, "model": 1}
+        for case in (C.CASES[0], C.CASES[2]):
+            two_d, one = C.run_one(inp, case, grid), C.run_one(inp, case)
+            _assert_fleet_equal(two_d.fleet, one.fleet)
+            for k in DECISIONS + ("zeta",):
+                assert torch.equal(two_d.outputs[k], one.outputs[k]), k
     finally:
         dist.destroy_process_group()

@@ -219,8 +219,10 @@ def test_vfl_refuses_paths_of_later_slices(setup):
     with pytest.raises(ValueError, match="num_vehicles"):
         vfl.make_train_step(cfg, None, "head", stream=StreamConfig(),
                             sc=ScenarioParams(n_sov=V - 1))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        vfl.make_vfl_round(cfg, {"data": V, "model": 2}, "head")
+    # a model axis splits attention, MLP and MoE; Mamba2 waits (item 9)
+    with pytest.raises(NotImplementedError, match="Mamba2.*model axis"):
+        vfl.make_vfl_round(get_smoke_config("zamba2-2.7b"),
+                           {"data": V, "model": 2}, "head")
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +241,7 @@ def test_train_main_runs_on_cpu_with_finite_losses(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--devices", "8"], "one card"),
+    (["--arch", "zamba2-2.7b", "--devices", "8"], "one card"),
     (["--arch", "llama-3.2-vision-90b"], "src"),
     (["--arch", "whisper-small"], "src"),
 ])

@@ -188,8 +188,9 @@ def test_vehicle_axes_follow_the_reference_rule():
     assert vfl.vehicle_axes({"pod": 2, "data": 4}, 8) == ("pod", "data")
     with pytest.raises(ValueError, match="incompatible"):
         vfl.vehicle_axes({"data": 4, "model": 1}, 3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        vfl.vehicle_axes({"data": 4, "model": 2}, 4)
+    # a model axis beside them splits each vehicle's model
+    assert vfl.vehicle_axes({"data": 4, "model": 2}, 4) == ("data",)
+    assert vfl.vehicle_axes({"data": 2, "model": 2}, 1) == ()
 
 
 TRAIN_ARGV = ["--device", "cpu", "--vehicles", "2", "--rounds", "2",
@@ -232,6 +233,22 @@ def test_train_main_on_two_gloo_ranks(capfd, tmp_path, one_process_losses):
                                                      tree_leaves(like)))
 
 
+def test_train_main_on_a_2x2_mesh(capfd, one_process_losses):
+    """`--devices 4 --vehicles 2`: a (2, 2) ("data", "model") mesh, each
+    vehicle's model split over two ranks (`tp` head: 8 heads over 2);
+    rank 0 prints the rounds. The smoke config is bf16, where the split
+    rounds each rank's partial sums to bf16 before they are summed (one
+    process accumulates them in fp32): the losses are the one-process
+    run's within one bf16 ulp, 2^-7, relative."""
+    assert train_mod.main(TRAIN_ARGV + ["--devices", "4"]) == 0
+    out = capfd.readouterr().out
+    assert "tp=head" in out
+    losses = _losses(out)
+    assert len(losses) == 2 and np.isfinite(losses).all(), out
+    assert len(re.findall(r"succ=\d/2", out)) == 2
+    np.testing.assert_allclose(losses, one_process_losses, rtol=2 ** -7)
+
+
 def test_train_main_joins_a_torchrun_world(one_process_losses):
     """Under `torchrun` (its environment: RANK, WORLD_SIZE,
     TORCHELASTIC_RUN_ID and the env:// rendezvous on a localhost port)
@@ -267,8 +284,8 @@ def test_train_main_joins_a_torchrun_world(one_process_losses):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--devices", "8", "--vehicles", "4"], NotImplementedError,
-     "model axis"),
+    (["--arch", "xlstm-1.3b", "--devices", "8", "--vehicles", "4"],
+     NotImplementedError, "model axis"),
     (["--devices", "3", "--vehicles", "4"], ValueError, "one a vehicle"),
 ])
 def test_train_main_refuses_other_layouts(argv, err, match):

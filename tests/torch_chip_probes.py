@@ -9,6 +9,7 @@ needed):
     python3 tests/torch_chip_probes.py bitwise    # schedulers, card vs CPU
     python3 tests/torch_chip_probes.py decode     # smoke decode, card vs CPU
     python3 tests/torch_chip_probes.py decode-loops [pairs]
+    python3 tests/torch_chip_probes.py gloo-cuda  # collectives, 2 ranks a card
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -45,6 +46,15 @@ heads (the one it takes at these sizes), in the order A B B A
 repeated `pairs` (3) times after one warm-up of each; a segment is 32
 steps from position 0 between CUDA events. Logs each segment's ms a
 step, the medians, and the two loops' largest logit difference.
+
+`gloo-cuda`: two ranks on the one card in a gloo world (the shared-card
+world of `launch/mesh.py run_world(shared_card=True)`): which of
+`all_reduce` (SUM, MAX), `all_gather`, `all_gather_into_tensor` and
+`broadcast` run on CUDA tensors of float32 and bfloat16 and give the
+right values, then the mean wall of an `all_reduce` (SUM) and an
+`all_gather` of a bf16 [128 * 64, 5120] CUDA tensor (qwen3-32b's
+activations at the serving prefill of `chip_smoke.phase_model_axis`)
+over 5 calls after one.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -340,10 +350,87 @@ def decode_loops(device, pairs: str = "3") -> None:
            f"{float(ref.abs().max()):.3e}")
 
 
+def _gloo_cuda_rank(rank: int, store: str) -> None:
+    import datetime
+    import json
+    import time
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    dev = torch.device("cuda", 0)
+
+    def gathered(x):
+        out = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(out, x)
+        return torch.cat(out)
+
+    def into_tensor(x):
+        out = torch.empty(2 * x.numel(), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    def bcast(x):
+        dist.broadcast(x, 0)
+        return x
+    cases = {
+        "all_reduce SUM": (lambda x: (dist.all_reduce(x), x)[1], [3.0]),
+        "all_reduce MAX": (lambda x: (dist.all_reduce(
+            x, op=dist.ReduceOp.MAX), x)[1], [2.0]),
+        "all_gather": (gathered, [1.0, 2.0]),
+        "all_gather_into_tensor": (into_tensor, [1.0, 2.0]),
+        "broadcast": (bcast, [1.0]),
+    }
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, (op, want) in cases.items():
+            x = torch.full((1024,), rank + 1.0, dtype=dt, device=dev)
+            try:
+                y = op(x)
+                torch.cuda.synchronize()
+                got = sorted(set(y.float().cpu().tolist()))
+                ok = y.device == dev and got == sorted(set(want))
+                res[f"{name} {dt}"] = "runs" if ok else f"wrong {got}"
+            except (RuntimeError, ValueError) as e:
+                res[f"{name} {dt}"] = f"raises {type(e).__name__}: " \
+                    f"{str(e).splitlines()[0][:160]}"
+    x = torch.randn(128 * 64, 5120, device=dev).to(torch.bfloat16)
+    walls = {}
+    for name, op in (("all_reduce", lambda: dist.all_reduce(x.clone())),
+                     ("all_gather", lambda: gathered(x))):
+        try:
+            op()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                op()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()  # reprolint: disable=timer-no-block -- torch.cuda.synchronize() above closes the window
+            walls[name] = (t1 - t0) / 5 * 1e3
+        except (RuntimeError, ValueError) as e:
+            walls[name] = f"raises {type(e).__name__}"
+    if rank == 0:
+        cs.log("probe gloo-cuda", json.dumps(res, indent=1))
+        cs.log("probe gloo-cuda", f"bf16 [{128 * 64}, 5120] "
+               f"({x.numel() * 2 / 1e6:.1f} MB) on CUDA, ms a call over 5: "
+               f"{walls}")
+    dist.destroy_process_group()
+
+
+def gloo_cuda(device) -> None:
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_gloo_cuda_rank, args=(f"{tmp}/store",),
+                           nprocs=2, start_method="spawn")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
-              "decode": decode, "decode-loops": decode_loops}
+              "decode": decode, "decode-loops": decode_loops,
+              "gloo-cuda": gloo_cuda}
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)

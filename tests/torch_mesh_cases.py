@@ -85,14 +85,19 @@ def run_one(inp, case, mesh=None, device="cpu", **kw):
 
 def rank_main(rank: int, inputs_path: str, out_path: str) -> None:
     """Every case on this rank's block of a 1-D mesh over the world, the
-    bf16-state run on worlds of 4, and the uneven batch's error; rank 0
-    saves the gathered results to `out_path`."""
+    bf16-state run and two cases on a (2, 2) ("data", "model") mesh on
+    worlds of 4, and the uneven batch's error; rank 0 saves the gathered
+    results to `out_path`."""
+    from repro_torch.launch.mesh import make_host_mesh
     inp = torch.load(inputs_path, weights_only=False)
     mesh = mesh_exec.fleet_mesh()
     out = {case: run_one(inp, case, mesh) for case in CASES}
     if mesh_exec.num_vehicles(mesh) == 4:
         out["bf16"] = run_one(inp, CASES[0], mesh,
                               state_dtype=torch.bfloat16)
+        grid = make_host_mesh(2)
+        for case in (CASES[0], CASES[2]):
+            out[("2x2",) + case] = run_one(inp, case, grid)
     try:
         uneven = dataclasses.replace(CFG, batch=mesh.size() + 1)
         mesh_exec.mesh_stream_rounds(mesh, SEED, get_scheduler("madca"), SC,
