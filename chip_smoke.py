@@ -212,18 +212,27 @@ WHISPER_REPS, WHISPER_LR = 12, 1e-22
 # (phase_decode's bound for bf16 at two layers) with argmax equal in at
 # least MA_ARGMAX of the rows; one VFL round on a (MA_VFL_VEHICLES,
 # MA_VFL_MODEL) mesh (MA_VFL_BATCH sequences of VFL_SEQ tokens a vehicle)
-# held to one process: masks identical, each leaf's
-# update within MA_VFL_UPDATE_TOL of its norm (bf16: each rank's partial
-# sums are rounded to bf16 before the all-reduce)
+# held to one process: masks identical, and each leaf's update no
+# further from one process's than MA_VFL_WITNESS_RATIO times the witness:
+# how far one process's own update of that leaf moves when every bf16
+# weight moves by one ulp (bf16: each rank's partial sums are rounded to
+# bf16 before the all-reduce, so the split moves the update as rounding
+# does); that bound must stay below the update's norm, so that a zero or
+# a doubled update (1 of the norm away) fails it. On an NVIDIA H100 80GB
+# HBM3 at 700 W the split's worst leaf reads 0.27 of its witness and the
+# largest witness is 1.25 (a zero update would read 0.8 of it): 0.5 lies
+# between, with room on each side (PERF.md section 6)
 MA_HEAD, MA_ROW = (128, 64, 32768, 16), (8, 4096, 4096, 16)
 MA_SERVE_RANKS, MA_TOL, MA_ARGMAX = 2, 5e-2, 0.9
-MA_VFL_VEHICLES, MA_VFL_MODEL, MA_VFL_UPDATE_TOL = 2, 2, 0.25
+MA_VFL_VEHICLES, MA_VFL_MODEL = 2, 2
+MA_VFL_WITNESS_RATIO = 0.5
 # the (2, 2) round's batch a vehicle, cut from VFL_BATCH's 4 sequences to
 # 2: four ranks of 4 x 1024 tokens ran out of the card's 80 GB
 MA_VFL_BATCH = 2
 # the flash_attention cases of phase_kernels_llm timed beside their bounds
 TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
-               "whisper_cross", "whisper_self", "vlm_cross", "qwen3_prefill")
+               "whisper_cross", "whisper_self", "vlm_cross", "qwen3_prefill",
+               "ma_head", "ma_row_rank0", "ma_row_rank1")
 # the C entry point each dtype must reach: bf16 the tensor-core kernels,
 # fp32 the CUDA-core ones
 FLASH_ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16_sm90",
@@ -1608,6 +1617,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
     are held against autograd through the plain version at a small
     shape."""
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels.fedavg_agg.ops import (fedavg_agg,
                                                     fedavg_agg_plain)
     from repro_torch.kernels.flash_attention.ops import (
@@ -1649,6 +1659,17 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
         # of 64 tokens (phase_decode)
         "qwen3_prefill": (pb, pt, pt, ph, pkv, pd, torch.bfloat16, True,
                           None, 0),
+        # its calls a rank over a model axis of MA_SERVE_RANKS
+        # (phase_model_axis): head mode's H/n query heads on their block
+        # of KV heads; forced row mode's sequence-sharded core, rank r's
+        # T/n queries at offset r T/n against the whole K and V
+        "ma_head": (MA_HEAD[0], MA_HEAD[1], MA_HEAD[1], ph // MA_SERVE_RANKS,
+                    pkv // MA_SERVE_RANKS, pd, torch.bfloat16, True, None,
+                    0),
+        **{f"ma_row_rank{r}": (MA_ROW[0], MA_ROW[1] // MA_SERVE_RANKS,
+                               MA_ROW[1], ph, pkv, pd, torch.bfloat16, True,
+                               None, r * MA_ROW[1] // MA_SERVE_RANKS)
+           for r in range(MA_SERVE_RANKS)},
         "fp32_d80": (2, 200, 260, 4, 2, 80, torch.float32, False, 90, 0),
         "window": (2, 512, 512, 16, 2, 128, torch.bfloat16, True, 128, 0),
         "full_s_ne_t": (2, 256, 384, 8, 2, 64, torch.bfloat16, False, None,
@@ -1667,7 +1688,18 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
         kw = dict(causal=causal, window=window, q_offset=off)
         out, lse = flash_attention_fwd(q, k, v, **kw)
         entry = flash_attention_fwd.entry
-        ref, ref_lse = flash_attention_plain(q, k, v, **kw)
+        # the plain version over batch slices whose fp32 scores [b, H, T,
+        # S] stay within 4 GiB (row mode's per-rank call needs 17 GB)
+        step = max(1, (1 << 32) // (h * t * s_ * 4))
+
+        def plain():
+            if step >= b:
+                return flash_attention_plain(q, k, v, **kw)
+            return tuple(torch.cat(x) for x in zip(*(
+                flash_attention_plain(q[i:i + step], k[i:i + step],
+                                      v[i:i + step], **kw)
+                for i in range(0, b, step))))
+        ref, ref_lse = plain()
         torch.cuda.synchronize()
         check(entry == FLASH_ENTRY[dtype], f"flash_attention {label}: "
               f"{dtype} ran {entry}, not {FLASH_ENTRY[dtype]}")
@@ -1692,22 +1724,25 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
             # launch (tensor maps, outputs) is not counted 3 times over
             r["ms"] = time_ms(lambda: flash_attention_fwd(q, k, v, **kw),
                               20, samples=7, warmup=2)
-            r["plain_ms"] = time_ms(
-                lambda: flash_attention_plain(q, k, v, **kw), 3, samples=7,
-                warmup=2)
+            r["plain_ms"] = time_ms(plain, 3, samples=7, warmup=2)
             (r["bound_ms"], r["bound_by"], r["flops"],
              r["bytes"]) = flash_bound_ms(q, k, causal, window, off)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # SDPA's causal mask is aligned to the first key; the queries
+            # at an offset of S - T (the sequence-sharded core's last
+            # rank) take the mask aligned to the last key
+            mask = dict(is_causal=causal) if not off else dict(
+                attn_mask=causal_lower_right(t, s_))
             try:
                 lib = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+                    qt, kt, vt, enable_gqa=True, **mask)
                 r["library_err"] = float(
                     (lib.transpose(1, 2).float() - ref.float()).abs().max())
                 r["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, enable_gqa=True), 20,
+                        qt, kt, vt, enable_gqa=True, **mask), 20,
                     samples=7, warmup=2)
-            except RuntimeError as e:      # the yardstick only
+            except (RuntimeError, TypeError) as e:  # the yardstick only
                 r["library_ms"], r["library_error"] = None, str(e)[:200]
         res["flash_attention"][label] = r
         log("kernels", f"flash_attention {label} q {list(q.shape)} kv "
@@ -3166,13 +3201,6 @@ def _peak_gb(device, reset: bool = False) -> float:
     return gb
 
 
-def _rank_device(device_type: str):
-    """A rank's device: card 0, shared by the ranks (a CPU rehearsal: the
-    CPU)."""
-    return torch.device("cuda", 0) if device_type == "cuda" \
-        else torch.device("cpu")
-
-
 @contextlib.contextmanager
 def _alloc_conf(conf: str):
     """PYTORCH_CUDA_ALLOC_CONF set to `conf` for the processes spawned in
@@ -3202,8 +3230,7 @@ def _ma_params(cfg, device):
                        engine.model_decl(cfg, "head"))
 
 
-def _model_axis_serve_rank(rank: int, out_dir: str, cfg, shapes,
-                           device_type: str) -> None:
+def _model_axis_serve_rank(rank: int, out_dir: str, cfg, shapes) -> None:
     """One rank of a (1, world) mesh on the shared card: `cfg`'s serving
     path in head mode and in row mode (`shapes`: the (batch, prompt,
     cache slots, steps) of each) on this rank's block of the seeded
@@ -3211,9 +3238,10 @@ def _model_axis_serve_rank(rank: int, out_dir: str, cfg, shapes,
     and peak memory."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import engine
+    from repro_torch.sharding.mesh_exec import world_device
     from repro_torch.sharding.model_axis import shard_params
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = _rank_device(device_type)
+    device = world_device()
     mesh = make_host_mesh(torch.distributed.get_world_size())
     res = {}
     for tp, (batch, prompt, cache_len, steps) in zip(("head", "row"),
@@ -3235,10 +3263,11 @@ def _model_axis_serve_rank(rank: int, out_dir: str, cfg, shapes,
 
 
 @contextlib.contextmanager
-def round0_params():
+def round0_params(move=None):
     """Inside the block, `launch/train.py`'s first step records in the
     yielded dict vehicle 0's parameters before ("old") and after ("new")
-    round 0 and its mask, as `round0_share` wraps `make_train_step`."""
+    round 0 and its mask, as `round0_share` wraps `make_train_step`;
+    `move`, where given, maps the parameters round 0 starts from."""
     import repro_torch.launch.train as tr
     from repro_torch.models.module import tree_map
     make, out = tr.make_train_step, {}
@@ -3247,6 +3276,8 @@ def round0_params():
         step = make(*args, **kw)
 
         def first_recorded(params_v, *rest):
+            if "new" not in out and move is not None:
+                params_v = move(params_v)
             new_v, stats = step(params_v, *rest)
             if "new" not in out:
                 out["old"] = tree_map(lambda x: x[0].clone(), params_v)
@@ -3262,18 +3293,23 @@ def round0_params():
 
 
 def _model_axis_vfl_rank(rank: int, out_dir: str, cfg, model: int,
-                         batch: int, seq: int, lr: float,
-                         device_type: str) -> None:
+                         batch: int, seq: int, lr: float) -> None:
     """One rank of a (vehicles, `model`) mesh on the shared card: one
     round of `launch/train.py`'s `train` for `cfg` (this rank's block of
-    its vehicle's model); the ranks of vehicle 0 save their blocks, every
-    rank its mask, loss, stage walls, launches and peak memory."""
+    its vehicle's model); vehicle 0's ranks gather its whole parameters
+    before and after the round (on the CPU) and its first rank saves
+    them; every rank saves its mask, loss, stage walls, launches and
+    peak memory."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import train
+    from repro_torch.models import engine
+    from repro_torch.models.module import tree_map
+    from repro_torch.sharding.mesh_exec import world_device
+    from repro_torch.sharding.model_axis import gather_params
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = _rank_device(device_type)
+    device = world_device()
     mesh = make_host_mesh(model)
     stages = []
     mark = [time.perf_counter()]
@@ -3295,25 +3331,13 @@ def _model_axis_vfl_rank(rank: int, out_dir: str, cfg, model: int,
                          "veds_score": veds_dt_score.launches},
                max_memory_gb=_peak_gb(device))
     if mesh.get_local_rank("data") == 0:
-        torch.save({k: {n: x.cpu() for n, x in _named(got[k]).items()}
-                    for k in ("old", "new")},
-                   f"{out_dir}/vfl_block{mesh.get_local_rank('model')}.pt")
+        decl = engine.model_decl(cfg, "head")
+        whole = {k: _named(gather_params(mesh, tree_map(
+            lambda x: x.cpu(), got[k]), decl)) for k in ("old", "new")}
+        if mesh.get_local_rank("model") == 0:
+            torch.save(whole, f"{out_dir}/vfl_params.pt")
+        del whole
     torch.save(res, f"{out_dir}/vfl_rank{rank}.pt")
-
-
-def _whole_leaves(blocks, decl):
-    """Each leaf of the per-rank `blocks` (one `_leaves` dict a model
-    coordinate, on the CPU) joined along the dims its logical axes split
-    over the model axis."""
-    from repro_torch.sharding.rules import default_rules
-    rules = default_rules()
-    axes = {k: d.axes for k, d in _named(decl).items()}
-    out = {}
-    for k, x in blocks[0].items():
-        dims = [i for i, a in enumerate(axes[k])
-                if rules.mesh_axis(a) == "model"]
-        out[k] = torch.cat([b[k] for b in blocks], dims[0]) if dims else x
-    return out
 
 
 def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
@@ -3333,7 +3357,9 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
     as predicted); (c) one VFL round of `train` on a (MA_VFL_VEHICLES,
     MA_VFL_MODEL) mesh, four ranks on the card, against the one-process
     round at the same seed: masks identical, each leaf's update within
-    MA_VFL_UPDATE_TOL of its norm. Each multi-rank run and its one-rank
+    MA_VFL_WITNESS_RATIO of the change one process's own update of that
+    leaf takes when every bf16 weight moves by one ulp (logged beside
+    it). Each multi-rank run and its one-rank
     counterpart run one after the other. Ranks that share a card measure
     no tensor-parallel speed-up: their walls are logged beside the
     one-rank path's, not compared. `cfg` (qwen3-32b's by default), the
@@ -3410,7 +3436,7 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
         t0 = time.perf_counter()
         with _alloc_conf("expandable_segments:True"):
             run_world(_model_axis_serve_rank, MA_SERVE_RANKS, tmp, cfg,
-                      (head, row), device.type, device=device.type,
+                      (head, row), device=device.type,
                       shared_card=on_card, timeout_s=600)
         world_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/serve_rank{r}.pt", weights_only=False)
@@ -3476,64 +3502,92 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
         t0 = time.perf_counter()
         with _alloc_conf("expandable_segments:True"):
             run_world(_model_axis_vfl_rank, n, tmp, vcfg, MA_VFL_MODEL,
-                      batch, seq, lr, device.type, device=device.type,
+                      batch, seq, lr, device=device.type,
                       shared_card=on_card, timeout_s=900)
         world_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/vfl_rank{r}.pt", weights_only=False)
                  for r in range(n)]
-        blocks = [torch.load(f"{tmp}/vfl_block{m}.pt", weights_only=False)
-                  for m in range(MA_VFL_MODEL)]
-    decl = engine.model_decl(vcfg, "head")
-    new = _whole_leaves([b["new"] for b in blocks], decl)
-    old = _whole_leaves([b["old"] for b in blocks], decl)
-    del blocks
-    _peak_gb(device, reset=True)
-    with round0_params() as mine:
-        hist = train(vcfg, rounds=1, batch_per_vehicle=batch, seq=seq,
-                     lr=lr, seed=0, device=device, log=lambda m: None)
-    one_peak = _peak_gb(device)
-    one_new, one_old = _named(mine["new"]), _named(mine["old"])
-    upd, equal, total = {}, 0, 0
-    for k in one_new:
-        a, b0 = new[k].to(device), one_new[k]
-        check(torch.equal(old[k].to(device), one_old[k]),
+        whole = torch.load(f"{tmp}/vfl_params.pt", weights_only=False)
+    # the one-process round, then again with every bf16 weight moved by
+    # one ulp (the least move bf16 has), alike in every vehicle's copy
+    # (copies moved apart would part the aggregate from them): how far
+    # that moves each leaf's update is the model's own sensitivity at
+    # bf16 (the witness)
+    def moved_alike(params_v):
+        first = bf16_ulp_moved(tree_map(lambda x: x[:1], params_v),
+                               torch.Generator(device=device).manual_seed(23),
+                               device)
+        return tree_map(lambda m, x: m.expand_as(x).contiguous(), first,
+                        params_v)
+    one = {}
+    for tag, move in (("one", None), ("moved", moved_alike)):
+        _peak_gb(device, reset=True)
+        with round0_params(move) as got:
+            hist = train(vcfg, rounds=1, batch_per_vehicle=batch, seq=seq,
+                         lr=lr, seed=0, device=device, log=lambda m: None)
+        one[tag] = dict(new=_named(got["new"]), old=_named(got["old"]),
+                        mask=got["mask"], wall_s=hist[0]["wall_s"],
+                        loss=hist[0]["loss"], peak_gb=_peak_gb(device))
+    mine, moved = one["one"], one["moved"]
+    upd, wit, equal, total = {}, {}, 0, 0
+    for k, b0 in mine["new"].items():
+        check(torch.equal(whole["old"][k].to(device), mine["old"][k]),
               f"{phase}: the ranks' initial {k} is not one process's")
-        step = (b0.float() - one_old[k].float()).norm()
-        upd[k] = float((a.float() - b0.float()).norm() / step) \
-            if float(step) > 0 else float((a.float() - b0.float()).norm())
+        a = whole["new"][k].to(device)
+        step = b0.float() - mine["old"][k].float()
+        norm = float(step.norm()) or 1.0
+        upd[k] = float((a.float() - b0.float()).norm()) / norm
+        wit[k] = float((moved["new"][k].float() - moved["old"][k].float()
+                        - step).norm()) / norm
         equal += int((a == b0).sum())
         total += a.numel()
-    worst = max(upd, key=upd.get)
+    ratio = {k: upd[k] / wit[k] if wit[k] else (0.0 if upd[k] == 0 else
+                                                math.inf) for k in upd}
+    worst, worst_wit = max(ratio, key=ratio.get), max(wit, key=wit.get)
     masks = [x["mask"] for x in ranks]
     res = dict(world_s=world_s, masks=masks, one_mask=mine["mask"],
-               update_distance=upd, equal_share=equal / total,
-               ranks=ranks, one_wall_s=hist[0]["wall_s"],
-               one_loss=hist[0]["loss"], one_max_memory_gb=one_peak)
+               moved_mask=moved["mask"], update_distance=upd,
+               ulp_witness=wit, witness_ratio=ratio,
+               equal_share=equal / total, ranks=ranks,
+               one_wall_s=mine["wall_s"], one_loss=mine["loss"],
+               one_max_memory_gb=mine["peak_gb"])
     out["vfl"] = res
     log(phase, f"(c) one VFL round, ({MA_VFL_VEHICLES}, {MA_VFL_MODEL}) mesh, "
         f"{n} ranks on one card over gloo, {cfg.name} {cfg.n_rep} reps, "
         f"{batch} x {seq} tokens a vehicle, lr {lr}: masks "
-        f"{masks} (one process {mine['mask']}); losses "
-        f"{[round(x['loss'], 4) for x in ranks]} (one process "
-        f"{hist[0]['loss']:.4f}); updates' distance from one process's, "
-        f"norm-wise: worst {upd[worst]:.4e} ({worst}); bf16 entries equal "
-        f"{equal / total:.4f}; walls {[round(x['wall_s'], 2) for x in ranks]}"
-        f" s a rank (one process {hist[0]['wall_s']:.2f} s), stages rank 0 "
+        f"{masks} (one process {mine['mask']}, weights moved one ulp "
+        f"{moved['mask']}); losses {[round(x['loss'], 4) for x in ranks]} "
+        f"(one process {mine['loss']:.4f}); each leaf's update from one "
+        f"process's, norm-wise: worst {max(upd.values()):.4e} "
+        f"({max(upd, key=upd.get)}); the witness, one process's update "
+        f"moved by a one-ulp move of every weight: worst {wit[worst_wit]:.4e} "
+        f"({worst_wit}); largest ratio of the two {ratio[worst]:.4f} "
+        f"({worst}: {upd[worst]:.4e} against {wit[worst]:.4e}); by leaf "
+        f"{ {k: (round(upd[k], 5), round(wit[k], 5)) for k in upd} }; bf16 "
+        f"entries equal {equal / total:.4f}; walls "
+        f"{[round(x['wall_s'], 2) for x in ranks]} s a rank (one process "
+        f"{mine['wall_s']:.2f} s), stages rank 0 "
         f"{[(s, round(ms, 1)) for s, ms in ranks[0]['stages']]}; launches "
         f"{[x['launches'] for x in ranks]}; peak memory a rank "
         f"{[round(x['max_memory_gb'], 2) for x in ranks]} GB (one process "
-        f"{one_peak:.2f}); the world {world_s:.1f} s; {smi_line()}")
-    check(all(m == mine["mask"] for m in masks), f"{phase}: masks {masks} "
-          f"differ from one process's {mine['mask']}")
-    check(upd[worst] <= MA_VFL_UPDATE_TOL, f"{phase}: {worst}'s update "
-          f"{upd[worst]:.4e} from one process's > {MA_VFL_UPDATE_TOL}")
+        f"{mine['peak_gb']:.2f}); the world {world_s:.1f} s; {smi_line()}")
+    check(all(m == mine["mask"] for m in masks + [moved["mask"]]),
+          f"{phase}: masks {masks} (moved weights {moved['mask']}) differ "
+          f"from one process's {mine['mask']}")
+    check(MA_VFL_WITNESS_RATIO * wit[worst_wit] < 1.0, f"{phase}: a one-ulp "
+          f"move of the weights moves {worst_wit}'s update by "
+          f"{wit[worst_wit]:.4e} of its norm: a bound of "
+          f"{MA_VFL_WITNESS_RATIO} times that would pass a zero update")
+    check(ratio[worst] <= MA_VFL_WITNESS_RATIO, f"{phase}: {worst}'s update "
+          f"{upd[worst]:.4e} from one process's, {ratio[worst]:.4f} times "
+          f"its one-ulp witness {wit[worst]:.4e} > {MA_VFL_WITNESS_RATIO}")
     # per rank and round: each attention forward and its remat
     # recomputation, and the eval forward; one veds_score a slot
     want = {"flash_attention": n_attn * 3, "veds_score": VFL_SLOTS}
     for x in ranks if on_card else ():
         check(x["launches"] == want, f"{phase}: launches {x['launches']}, "
               f"expected {want}")
-    del new, old, one_new, one_old, mine
+    del whole, one, mine, moved
     free()
     return out
 

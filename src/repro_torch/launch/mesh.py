@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.sharding import mesh_exec
 from repro_torch.sharding.mesh_exec import world_device
 
 # how long a rank waits for the others in a collective or at start-up
@@ -78,6 +79,7 @@ def init_world(rank: int, world_size: int, store: Optional[str],
     else:
         raise ValueError(f"no world over {dev.type} devices")
     dev = torch.device("cuda", 0) if shared_card else _rank_device(dev, rank)
+    mesh_exec.SHARED_CARD = dev if shared_card else None
     if shared_card:
         torch.cuda.set_device(dev)
     kw = {}

@@ -29,8 +29,9 @@ run the reference's GSPMD partitioning written out, its TP modes
   keeps the same slots; each rank runs its E/n experts and the combine
   is summed.
 * Mamba2, the mLSTM and the sLSTM split over their own axes with
-  reductions of their own; over a model axis they raise (ROADMAP queue 1
-  item 9, next: the model axis of Mamba2 and the mLSTM).
+  reductions of their own; a model with them refuses a model axis
+  (`require_model_axis`; ROADMAP queue 1 item 9, next: the model axis of
+  Mamba2 and the mLSTM).
 
 Each replicated tensor that enters split work passes `copy_to` (its
 gradient is summed over the ranks) and each partial result
@@ -487,24 +488,21 @@ def moe_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
 _LOCAL_ONLY = {"mamba": "Mamba2", "mlstm": "the mLSTM", "slstm": "the sLSTM"}
 
 
-def _local_only(mesh, what: str, n: int = 0) -> None:
-    """Mamba2, the mLSTM and the sLSTM split over axes of their own
-    (`ssm_heads`, `d_inner`, `row_head_dim`) with reductions of their
-    own: over a model axis they raise."""
-    n = n or model_axis(mesh).size
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} over a model axis of {n} is not ported yet (ROADMAP "
-            f"queue 1 item 9, next step: the model axis of Mamba2 and the "
-            f"mLSTM); run the model whole on one card or rank")
-
-
 def require_model_axis(cfg: ModelConfig, n: int) -> None:
-    """Raise up front if `cfg` has a sub-block kind that a model axis of
-    `n` ranks cannot split yet."""
+    """Raise if `cfg` has a sub-block kind that a model axis of `n` ranks
+    cannot split yet: Mamba2, the mLSTM and the sLSTM split over axes of
+    their own (`ssm_heads`, `d_inner`, `row_head_dim`) with reductions of
+    their own. The engine's entries (`forward`, `decode_step`) and the
+    VFL round and driver call it before any work."""
+    if n <= 1:
+        return
     for kind in cfg.pattern:
         if kind in _LOCAL_ONLY:
-            _local_only(None, _LOCAL_ONLY[kind], n)
+            raise NotImplementedError(
+                f"{_LOCAL_ONLY[kind]} over a model axis of {n} is not "
+                f"ported yet (ROADMAP queue 1 item 9, next step: the model "
+                f"axis of Mamba2 and the mLSTM); run the model whole on one "
+                f"card or rank")
 
 
 # ===========================================================================
@@ -564,7 +562,6 @@ def _mamba_proj(p, x, cfg: ModelConfig):
 
 
 def mamba_apply(p, x, cfg: ModelConfig, mesh=None, **_):
-    _local_only(mesh, "Mamba2")
     B, T, d = x.shape
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     xi, z, bc, dt = _mamba_proj(p, x, cfg)
@@ -604,7 +601,6 @@ def mamba_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of the recurrence: the conv history [B,K-1,di] shifts by
     the new input, and the fp32 state [B,H,N,P] decays by
     a = exp(dt * -exp(A_log)) and takes b (dt * x)."""
-    _local_only(mesh, "Mamba2")
     B, d = x.shape
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     xi, z, bc, dt = _mamba_proj(p, x, cfg)
@@ -695,7 +691,6 @@ def _mlstm_chunk(Cm, n, qc, kc, vc, lf, li, scale: float, dtype):
 
 
 def mlstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
-    _local_only(mesh, "the mLSTM")
     B, T, d = x.shape
     h = L.rmsnorm(p["ln"], x)
     q = torch.einsum("btd,dhp->bthp", h, p["w_q"].to(x.dtype))
@@ -739,7 +734,6 @@ def mlstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
 def mlstm_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of the matrix memory: C = f C + i k v^T, n = f n + i k,
     with i = exp(min(log_i, 20)), read by q over max(|q.n|, 1)."""
-    _local_only(mesh, "the mLSTM")
     B, d = x.shape
     h = L.rmsnorm(p["ln"], x)
     q = torch.einsum("bd,dhp->bhp", h, p["w_q"].to(x.dtype))
@@ -804,7 +798,6 @@ def slstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
     and cast to x's dtype after it, as the reference's scan emits it. The
     float32 copies of r and b are made once: the reference's cast in each
     step gives the same values."""
-    _local_only(mesh, "the sLSTM")
     B, T, d = x.shape
     H = cfg.num_heads
     Pd = d // H
@@ -833,7 +826,6 @@ def slstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
 def slstm_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of `_slstm_cell` from the cached (h, c, n, m); from a zero
     cache m starts at 0, as in `slstm_apply`."""
-    _local_only(mesh, "the sLSTM")
     hin = L.rmsnorm(p["ln"], x)
     gx = torch.einsum("bd,dhq->bhq", hin, p["w_in"].to(x.dtype))
     state = (cache["h"], cache["c"], cache["n"], cache["m"])

@@ -231,6 +231,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
     Over a model axis (`mesh`) `params` are this rank's block; with
     `gather_logits=False` the logits are this rank's vocab columns."""
     ax = model_axis(mesh)
+    B.require_model_axis(cfg, ax.size)
     Bsz, T = tokens.shape
     x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
     memory = source_memory(params, cfg, src, tp, ax)
@@ -306,13 +307,13 @@ def zero_cache(decl, device=None, mesh=None):
     """The declared cache, every leaf zeros of its shape and dtype, on
     `device` (CUDA unless named); over a model axis (`mesh`) this rank's
     block of it: each dim whose logical axis maps to the model axis
-    (`cache_seq`) cut to 1/n."""
+    (`cache_seq`) cut to 1/n; a dim that n does not divide raises."""
     device = resolve_device(device)
-    n = model_axis(mesh).size
+    ax = model_axis(mesh)
     rules = default_rules()
 
     def local(d):
-        return tuple(s // n if rules.mesh_axis(a) == "model" else s
+        return tuple(ax.block(s)[1] if rules.mesh_axis(a) == "model" else s
                      for s, a in zip(d.shape, d.axes))
     return tree_map(lambda d: torch.zeros(local(d), dtype=d.dtype,
                                           device=device), decl)
@@ -343,6 +344,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     repetition's slot. Over a model axis `params` and `cache` are this
     rank's blocks and the logits are the whole vocab's."""
     ax = model_axis(mesh)
+    B.require_model_axis(cfg, ax.size)
     x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
     for r in range(cfg.n_rep):
         for i, kind in enumerate(cfg.pattern):

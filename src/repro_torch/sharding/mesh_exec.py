@@ -64,12 +64,17 @@ from repro_torch.sharding.rules import (LogicalRules, data_axis_names,
                                         num_vehicles, shard_tree)
 
 
+# card 0 while this process is a rank of a shared-card world
+# (`launch/mesh.py init_world(shared_card=True)`), else None
+SHARED_CARD: Optional[torch.device] = None
+
+
 def world_device() -> torch.device:
     """This rank's device in the initialized world: its card under NCCL,
-    the CPU under gloo."""
+    card 0 in a shared-card world, the CPU in another gloo world."""
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    return SHARED_CARD if SHARED_CARD is not None else torch.device("cpu")
 
 
 def fleet_mesh(n_devices: Optional[int] = None, axis: str = "data"):

@@ -502,14 +502,34 @@ def test_one_rank_axis_is_the_one_device_path(monkeypatch):
                                        ("xlstm-1.3b", "mLSTM")])
 def test_ssm_families_refuse_a_model_axis(arch, what):
     """Mamba2 and the xLSTM split over axes with reductions of their own:
-    at a model axis of 2 they raise, naming the next queue-1 step."""
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError,
-                       match=f"{what}.*item 9, next step: the model axis of "
-                             f"Mamba2 and the mLSTM"):
+    at a model axis of 2 they raise, naming the next queue-1 step, both
+    up front and at the engine's entries (forward, decode_step), before
+    any work; at an axis of one rank they run."""
+    cfg = get_smoke_config(arch).replace(**F32)
+    msg = f"{what}.*item 9, next step: the model axis of Mamba2 and the mLSTM"
+    with pytest.raises(NotImplementedError, match=msg):
         B.require_model_axis(cfg, 2)
     B.require_model_axis(cfg, 1)
-    kind = "mamba" if arch.startswith("zamba2") else "mlstm"
-    with pytest.raises(NotImplementedError, match=what):
-        getattr(B, f"{kind}_apply")({}, torch.zeros(1, 4, cfg.d_model), cfg,
-                                    mesh=ModelAxis(None, 0, 2))
+    two = ModelAxis(None, 0, 2)
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match=msg):
+        engine.forward({"embed": None}, toks, cfg, tp="head", mesh=two)
+    with pytest.raises(NotImplementedError, match=msg):
+        engine.decode_step({"embed": None}, [], toks[:, 0], torch.tensor(0),
+                           cfg, two, tp="head")
+
+
+def test_zero_cache_cuts_the_sequence_or_raises():
+    """Over a model axis of n each rank's cache holds S/n slots of
+    `cache_seq`; a cache length that n does not divide raises, as
+    `shard_params` does, instead of cutting the sequence short."""
+    cfg = get_smoke_config("qwen3-32b").replace(**F32)
+    full = engine.zero_cache(engine.cache_decl(cfg, 2, 32), "cpu")
+    cut = engine.zero_cache(engine.cache_decl(cfg, 2, 32), "cpu",
+                            ModelAxis(None, 1, 2))
+    for f, c in zip(tree_leaves(full), tree_leaves(cut)):
+        assert c.shape[:2] + c.shape[3:] == f.shape[:2] + f.shape[3:]
+        assert c.shape[2] * 2 == f.shape[2]
+    with pytest.raises(ValueError, match="does not split"):
+        engine.zero_cache(engine.cache_decl(cfg, 2, 33), "cpu",
+                          ModelAxis(None, 0, 2))

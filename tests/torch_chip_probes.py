@@ -10,6 +10,7 @@ needed):
     python3 tests/torch_chip_probes.py decode     # smoke decode, card vs CPU
     python3 tests/torch_chip_probes.py decode-loops [pairs]
     python3 tests/torch_chip_probes.py gloo-cuda  # collectives, 2 ranks a card
+    python3 tests/torch_chip_probes.py model-axis # two phases of chip_smoke
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -55,6 +56,10 @@ right values, then the mean wall of an `all_reduce` (SUM) and an
 `all_gather` of a bf16 [128 * 64, 5120] CUDA tensor (qwen3-32b's
 activations at the serving prefill of `chip_smoke.phase_model_axis`)
 over 5 calls after one.
+
+`model-axis`: `chip_smoke.phase_kernels_llm` (`flash_attention` at the
+model axis's per-rank shapes among its cases) and
+`chip_smoke.phase_model_axis` alone, as the whole script runs them.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -426,11 +431,16 @@ def gloo_cuda(device) -> None:
                            nprocs=2, start_method="spawn")
 
 
+def model_axis(device) -> None:
+    cs.phase_kernels_llm(device)
+    cs.phase_model_axis(device)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
               "decode": decode, "decode-loops": decode_loops,
-              "gloo-cuda": gloo_cuda}
+              "gloo-cuda": gloo_cuda, "model-axis": model_axis}
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)
