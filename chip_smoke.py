@@ -109,7 +109,16 @@ with its kernel launches counted from 0:
   max|logit|, argmax in 0.9 of the rows); (c) one VFL round of
   `launch/train.py`'s `train` on a (2, 2) mesh of four ranks on the
   card against the one-process round (masks identical, each leaf's
-  update within 0.25 of its norm). Shared-card walls are logged, not
+  update within `MA_VFL_WITNESS_RATIO` of its one-ulp witness); then
+  (`phase_model_axis_ssm`) zamba2-2.7b at full width and depth and
+  xlstm-1.3b at full width split over two ranks on the card: serving (8
+  and 128 prompts of 64 tokens, 16 steps; Mamba2 by heads, the mLSTM by
+  its head dim, the sLSTM replicated) held to one rank through a one-ulp
+  witness measured in the run, the smoke configs in fp32 within 1e-4 of
+  max|logit|, xlstm's mLSTM and sLSTM sub-blocks forward and backward,
+  and one zamba2 VFL round on a (1, 2) mesh against one process; with
+  `ssd_scan` and `flash_attention` held and timed at those per-rank
+  shapes in the kernel phases. Shared-card walls are logged, not
   compared: the ranks measure no tensor-parallel speed-up.
 - the sharded rollout (`sharding/mesh_exec.py`, `phase_mesh`) on a
   one-rank NCCL world: 4 cells of the `rsu_grid` with handoff at fig10's
@@ -203,6 +212,11 @@ GRANITE_REPS, GRANITE_LR = 24, 1e-15
 # give NaN; the share of bf16 entries round 0 changes is logged and must
 # be positive
 XLSTM_REPS, XLSTM_LR = 1, 1e-5
+# xlstm's path times XLSTM_ROUNDS rounds after its warm-up (its rounds,
+# ~20-25 s each in its sLSTM's host-bound time loop, were the script's
+# largest share; cut from VFL_ROUNDS to keep the whole script well inside
+# its time limit as the model-axis phases grew)
+XLSTM_ROUNDS = 1
 WHISPER_REPS, WHISPER_LR = 12, 1e-22
 # the model mesh axis (phase_model_axis): qwen3-32b's serving path as
 # (batch, prompt, cache slots, decode steps) in head mode at decode_32k's
@@ -232,13 +246,16 @@ MA_VFL_BATCH = 2
 # the flash_attention cases of phase_kernels_llm timed beside their bounds
 TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
                "whisper_cross", "whisper_self", "vlm_cross", "qwen3_prefill",
-               "ma_head", "ma_row_rank0", "ma_row_rank1")
+               "ma_head", "ma_row_rank0", "ma_row_rank1", "ma_zamba2",
+               "ma_zamba2_prefill")
 # the C entry point each dtype must reach: bf16 the tensor-core kernels,
 # fp32 the CUDA-core ones
 FLASH_ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16_sm90",
                torch.float32: "flash_attention_fwd_f32"}
 SSD_ENTRY = {torch.bfloat16: "ssd_scan_fwd_bf16_sm90",
              torch.float32: "ssd_scan_fwd_f32"}
+# the ssd_scan cases of phase_kernels_ssd timed beside their bounds
+SSD_TIMED = ("main", "serve_prefill", "ma_main", "ma_serve_prefill")
 # the VFL rounds' schedule masks as measured with the CUDA-core kernels
 # (NVIDIA H100 80GB HBM3, 700 W, PERF.md section 5); no kernel touches
 # the schedule, so they must be the same
@@ -318,6 +335,37 @@ DECODE_SMOKE = {"qwen3-32b": (1e-3, DECODE_CPU_TOL),
                 "llama4-scout-17b-a16e": (5e-2, DECODE_CPU_TOL),
                 "llama-3.2-vision-90b": (5e-3, DECODE_CPU_TOL),
                 "qwen3-32b+swa": (1e-3, DECODE_CPU_TOL)}
+# the model axis of Mamba2, the mLSTM and the sLSTM (phase_model_axis_ssm),
+# on MA_SERVE_RANKS ranks of the one card, each run held to one rank:
+# zamba2-2.7b at full width and depth and xlstm-1.3b at full width and
+# XLSTM_REPS repetitions served as (batch, prompt, cache slots, decode
+# steps) at DECODE_ZAMBA2_BATCH rows and at decode_32k's 128, the logits
+# within MA_SERVE_WITNESS_RATIO times a witness measured in the same run
+# (how far one rank's own logits move when every weight moves by one ulp,
+# `bf16_ulp_moved`); their smoke configs in fp32 (MA_FP32_SERVE) within
+# MA_FP32_TOL of max|logit|; zamba2's Mamba2 and xlstm's mLSTM and sLSTM
+# sub-blocks at full width, forward and backward on VFL_BATCH x VFL_SEQ
+# tokens, every gradient within MA_BLOCK_WITNESS_RATIO times its witness;
+# zamba2's VFL round on a (1, MA_SERVE_RANKS) mesh at ZAMBA2_LR on
+# MA_SSM_VFL_BATCH sequences of VFL_SEQ tokens, at full depth in bf16
+# (masks and launches checked, the updates logged beside their witness)
+# and at 1 repetition in fp32, the updates within MA_SSM_VFL_RATIO times
+# their witness over the leaves where that bound would fail a zero update,
+# which must hold MA_SSM_VFL_HELD of the entries. At the reference's init
+# a one-ulp move moves zamba2's and xlstm's bf16 logits at full depth by
+# about their largest entry and zamba2's bf16 updates by more than their
+# norm (the split's distances alike), so there the witness bound guards
+# against gross faults only; the sub-blocks, the fp32 smoke configs and
+# the 1-repetition fp32 round, where the witness is small, are the holds
+# that tell a right split from a wrong one (PERF.md section 6; NVIDIA
+# H100 80GB HBM3, 700 W: split over witness up to 0.97 and 0.86 for the
+# logits, 0.05 for the mLSTM's gradients, 0.92 for the 1-repetition
+# round)
+MA_ZAMBA2_SERVE = (DECODE_ZAMBA2_BATCH, DECODE_PROMPT, 32768, 16)
+MA_XLSTM_SERVE = (128, DECODE_PROMPT, 32768, 16)
+MA_FP32_SERVE, MA_FP32_TOL = (2, 64, 128, 8), 1e-4
+MA_SERVE_WITNESS_RATIO, MA_BLOCK_WITNESS_RATIO = 2.0, 0.5
+MA_SSM_VFL_BATCH, MA_SSM_VFL_RATIO, MA_SSM_VFL_HELD = 4, 2.0, 0.99
 # the eval loss at init through the kernels may move from the plain
 # versions' by at most SENS_ULP_FACTOR times the largest move that
 # SENS_DRAWS random one-ulp changes of every nonzero bf16 weight make
@@ -1670,6 +1718,16 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                                MA_ROW[1], ph, pkv, pd, torch.bfloat16, True,
                                None, r * MA_ROW[1] // MA_SERVE_RANKS)
            for r in range(MA_SERVE_RANKS)},
+        # zamba2's shared attention a rank over the model axis (head mode:
+        # H/n of its 32 heads of 80), in its VFL round (phase_model_axis_ssm
+        # (c)) and at its serving prefill
+        "ma_zamba2": (MA_SSM_VFL_BATCH, zt, zt, zh // MA_SERVE_RANKS,
+                      zh // MA_SERVE_RANKS, zd, torch.bfloat16, True, None,
+                      0),
+        "ma_zamba2_prefill": (MA_ZAMBA2_SERVE[0], MA_ZAMBA2_SERVE[1],
+                              MA_ZAMBA2_SERVE[1], zh // MA_SERVE_RANKS,
+                              zh // MA_SERVE_RANKS, zd, torch.bfloat16, True,
+                              None, 0),
         "fp32_d80": (2, 200, 260, 4, 2, 80, torch.float32, False, 90, 0),
         "window": (2, 512, 512, 16, 2, 128, torch.bfloat16, True, 128, 0),
         "full_s_ne_t": (2, 256, 384, 8, 2, 64, torch.bfloat16, False, None,
@@ -1860,11 +1918,12 @@ def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
     path's shape (v [4, 1024, 80, 64], b/c [4, 1024, 64], chunk 128) in
     bf16 and fp32, at a ragged T (pad path), at zamba2's serving prefill
     (v [8, 64, 80, 64] bf16: a T below the chunk, one padded chunk), at
+    both shapes' calls a rank over a model axis of 2 (40 heads), at
     H = 1 (the Pallas layout), with an initial state at the smoke
     config's chunk, and at chunk 128 with dt ~ 0.7 (zamba2's init), where
-    the reference model's jnp scan overflows; timed at the main shape
-    beside its bound. log_a = -softplus(normal) elsewhere, so a chunk of
-    128 decays by ~100 too.
+    the reference model's jnp scan overflows; timed at the zamba2 paths'
+    shapes (SSD_TIMED) beside their bounds. log_a = -softplus(normal)
+    elsewhere, so a chunk of 128 decays by ~100 too.
     Each error is reported as max abs and as a share of the output's
     largest entry. fp32 y is held within 5e-5 of max|y| (the kernel's
     products and its cumsum sum in other orders; entries near 0 cancel);
@@ -1898,6 +1957,13 @@ def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
         "overflow_dt07_bf16": (2, 512, 8, C, torch.bfloat16, False),
         # zamba2's serving prefill: 64 tokens run as one padded chunk
         "serve_prefill": (8, 64, H, C, torch.bfloat16, False),
+        # a rank's calls over a model axis of MA_SERVE_RANKS
+        # (phase_model_axis_ssm): H/n heads, in the VFL round and at the
+        # serving prefill
+        "ma_main": (MA_SSM_VFL_BATCH, T, H // MA_SERVE_RANKS, C,
+                    torch.bfloat16, False),
+        "ma_serve_prefill": (MA_ZAMBA2_SERVE[0], MA_ZAMBA2_SERVE[1],
+                             H // MA_SERVE_RANKS, C, torch.bfloat16, False),
     }
     res = {}
     for label, (b_, t, h, c, dtype, with_s0) in cases.items():
@@ -1933,7 +1999,7 @@ def phase_kernels_ssd(device, main_shape=(4, 1024, 80, 128)):
                  max_abs_err=err, rel_err=err / ys, y_max_abs=ys,
                  state_max_abs_err=st_err, state_rel_err=st_err / ss,
                  tolerance=tol, entry=entry)
-        if label in ("main", "serve_prefill"):
+        if label in SSD_TIMED:
             r["ms"] = time_ms(lambda: ssd_scan_fwd(v, b, cm, la, c), 20,
                               samples=7, warmup=2)
             r["plain_ms"] = time_ms(lambda: ssd_scan_plain(v, b, cm, la, c),
@@ -2959,18 +3025,20 @@ def smoke_decode(run: str, device, params=None):
     return torch.stack(outs, 1).cpu(), pre.cpu()
 
 
-def bf16_ulp_moved(params, g: torch.Generator, device):
-    """Every nonzero bf16 weight moved by one ulp, up or down at random
-    (the signs drawn from `g` on `device`, leaf by leaf); other leaves as
-    they are."""
+def bf16_ulp_moved(params, g: torch.Generator, device,
+                   dtype=torch.bfloat16):
+    """Every nonzero weight of `dtype` (bf16, or fp32) moved by one ulp of
+    it, up or down at random (the signs drawn from `g` on `device`, leaf
+    by leaf); other leaves as they are."""
     from repro_torch.models.module import tree_map
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
 
     def move(x):
-        if x.dtype != torch.bfloat16:
+        if x.dtype != dtype:
             return x
         step = 2 * torch.randint(0, 2, x.shape, generator=g, device=device,
-                                 dtype=torch.int16) - 1
-        return (x.view(torch.int16) + step * (x != 0)).view(torch.bfloat16)
+                                 dtype=bits) - 1
+        return (x.view(bits) + step * (x != 0)).view(dtype)
     return tree_map(move, params)
 
 
@@ -3147,21 +3215,21 @@ def serve_logits(params, cfg, tp: str, prompts, cache_len: int, steps: int,
     `decode_step` over the prompts' first `steps` tokens from a zero
     cache of `cache_len` slots ([steps, B, V]); the walls of the prefill
     and of the steps (ms, after a device synchronisation), the
-    `flash_attention` launches of the prefill and of the steps, and the
-    cache's bytes on this rank."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    launches of every kernel in the prefill and in the steps
+    (`prefill_counts`, `step_counts`), and the cache's bytes on this
+    rank."""
     from repro_torch.models import engine
     device = prompts.device
     with torch.no_grad():
         _sync(device)
-        flash_attention_fwd.launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         pre = engine.forward(params, prompts, cfg, tp=tp,
                              last_logit_only=True, seq_shard=True,
                              mesh=mesh)[0][:, 0]
         _sync(device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        prefill_launches = flash_attention_fwd.launches
+        prefill_counts = _read_counts()
         cache = engine.zero_cache(engine.cache_decl(cfg, prompts.shape[0],
                                                     cache_len), device,
                                   mesh=mesh)
@@ -3170,7 +3238,7 @@ def serve_logits(params, cfg, tp: str, prompts, cache_len: int, steps: int,
         positions = torch.arange(steps, device=device)
         out = []
         _sync(device)
-        flash_attention_fwd.launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         for t in range(steps):
             logits, cache = engine.decode_step(params, cache, prompts[:, t],
@@ -3180,8 +3248,8 @@ def serve_logits(params, cfg, tp: str, prompts, cache_len: int, steps: int,
         _sync(device)
         step_ms = (time.perf_counter() - t0) * 1e3 / steps
     return dict(prefill=pre, decode=torch.stack(out), prefill_ms=prefill_ms,
-                step_ms=step_ms, prefill_launches=prefill_launches,
-                step_launches=flash_attention_fwd.launches,
+                step_ms=step_ms, prefill_counts=prefill_counts,
+                step_counts=_read_counts(),
                 cache_gb=cache_bytes / 1e9)
 
 
@@ -3300,15 +3368,19 @@ def _model_axis_vfl_rank(rank: int, out_dir: str, cfg, model: int,
     before and after the round (on the CPU) and its first rank saves
     them; every rank saves its mask, loss, stage walls, launches and
     peak memory."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
-    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _vfl_round_on_mesh(rank, out_dir, cfg, model, batch, seq, lr)
+
+
+def _vfl_round_on_mesh(rank: int, out_dir: str, cfg, model: int, batch: int,
+                       seq: int, lr: float) -> None:
+    """`_model_axis_vfl_rank`'s round, in a world already started."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import train
     from repro_torch.models import engine
     from repro_torch.models.module import tree_map
     from repro_torch.sharding.mesh_exec import world_device
     from repro_torch.sharding.model_axis import gather_params
-    torch.backends.cuda.matmul.allow_tf32 = False
     device = world_device()
     mesh = make_host_mesh(model)
     stages = []
@@ -3320,15 +3392,16 @@ def _model_axis_vfl_rank(rank: int, out_dir: str, cfg, model: int,
         stages.append((name, (now - mark[0]) * 1e3))
         mark[0] = now
     _peak_gb(device, reset=True)
-    flash_attention_fwd.launches = veds_dt_score.launches = 0
+    _zero_counts()
     with round0_params() as got:
         hist = train(cfg, rounds=1, batch_per_vehicle=batch, seq=seq,
                      lr=lr, seed=0, device=device, log=lambda m: None,
                      stage_hook=hook, mesh=mesh)
+    counts = _read_counts()
     res = dict(mask=got["mask"], loss=hist[0]["loss"],
                wall_s=hist[0]["wall_s"], stages=stages,
-               launches={"flash_attention": flash_attention_fwd.launches,
-                         "veds_score": veds_dt_score.launches},
+               launches={k: counts[k] for k in ("flash_attention",
+                                                "veds_score", "ssd_scan")},
                max_memory_gb=_peak_gb(device))
     if mesh.get_local_rank("data") == 0:
         decl = engine.model_decl(cfg, "head")
@@ -3457,7 +3530,8 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
     # the decode steps
     want = {"head": (n_attn, 0), "row": (n_attn, 0)}
     res = {"world_s": world_s}
-    launches = {tp: [(x[tp]["prefill_launches"], x[tp]["step_launches"])
+    launches = {tp: [(x[tp]["prefill_counts"]["flash_attention"],
+                      x[tp]["step_counts"]["flash_attention"])
                      for x in ranks] for tp in ("head", "row")}
     for tp in ("head", "row"):
         ref = refs[tp]
@@ -3508,6 +3582,42 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
         ranks = [torch.load(f"{tmp}/vfl_rank{r}.pt", weights_only=False)
                  for r in range(n)]
         whole = torch.load(f"{tmp}/vfl_params.pt", weights_only=False)
+    res = _vfl_against_one_process(
+        device, vcfg, ranks, whole, batch, seq, lr, phase,
+        f"(c) ({MA_VFL_VEHICLES}, {MA_VFL_MODEL}) mesh, the world "
+        f"{world_s:.1f} s:")
+    res["world_s"] = world_s
+    out["vfl"] = res
+    # per rank and round: each attention forward and its remat
+    # recomputation, and the eval forward; one veds_score a slot
+    want = {"flash_attention": n_attn * 3, "veds_score": VFL_SLOTS,
+            "ssd_scan": 0}
+    for x in ranks if on_card else ():
+        check(x["launches"] == want, f"{phase}: launches {x['launches']}, "
+              f"expected {want}")
+    del whole
+    free()
+    return out
+
+
+def _vfl_against_one_process(device, vcfg, ranks, whole, batch: int,
+                             seq: int, lr: float, phase: str, label: str,
+                             bound=MA_VFL_WITNESS_RATIO,
+                             min_held: float = 1.0):
+    """The one-process round of `launch/train.py`'s `train` for `vcfg` at
+    seed 0 beside the ranks' (`ranks`: each rank's saved result; `whole`:
+    vehicle 0's parameters before and after, gathered), then again with
+    every weight of the parameters' dtype (bf16, or fp32) moved by one
+    ulp, alike in every vehicle's copy: masks identical, and each held
+    leaf's update no further from one process's than `bound` times how
+    far the move shifts one process's own update of that leaf (the
+    witness). A leaf is held where `bound` times its witness stays below
+    1 (a zero update would fail); the held leaves must hold at least
+    `min_held` of the entries (1: every leaf). `bound` None logs the
+    distances and holds none. `label` names the run in the log."""
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_map
+
     # the one-process round, then again with every bf16 weight moved by
     # one ulp (the least move bf16 has), alike in every vehicle's copy
     # (copies moved apart would part the aggregate from them): how far
@@ -3516,7 +3626,7 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
     def moved_alike(params_v):
         first = bf16_ulp_moved(tree_map(lambda x: x[:1], params_v),
                                torch.Generator(device=device).manual_seed(23),
-                               device)
+                               device, vcfg.pdtype)
         return tree_map(lambda m, x: m.expand_as(x).contiguous(), first,
                         params_v)
     one = {}
@@ -3545,15 +3655,14 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
                                                 math.inf) for k in upd}
     worst, worst_wit = max(ratio, key=ratio.get), max(wit, key=wit.get)
     masks = [x["mask"] for x in ranks]
-    res = dict(world_s=world_s, masks=masks, one_mask=mine["mask"],
+    res = dict(masks=masks, one_mask=mine["mask"],
                moved_mask=moved["mask"], update_distance=upd,
                ulp_witness=wit, witness_ratio=ratio,
                equal_share=equal / total, ranks=ranks,
                one_wall_s=mine["wall_s"], one_loss=mine["loss"],
                one_max_memory_gb=mine["peak_gb"])
-    out["vfl"] = res
-    log(phase, f"(c) one VFL round, ({MA_VFL_VEHICLES}, {MA_VFL_MODEL}) mesh, "
-        f"{n} ranks on one card over gloo, {cfg.name} {cfg.n_rep} reps, "
+    log(phase, f"{label} one VFL round, {len(ranks)} ranks on one card "
+        f"over gloo, {vcfg.name} {vcfg.n_rep} reps, "
         f"{batch} x {seq} tokens a vehicle, lr {lr}: masks "
         f"{masks} (one process {mine['mask']}, weights moved one ulp "
         f"{moved['mask']}); losses {[round(x['loss'], 4) for x in ranks]} "
@@ -3570,25 +3679,422 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
         f"{[(s, round(ms, 1)) for s, ms in ranks[0]['stages']]}; launches "
         f"{[x['launches'] for x in ranks]}; peak memory a rank "
         f"{[round(x['max_memory_gb'], 2) for x in ranks]} GB (one process "
-        f"{mine['peak_gb']:.2f}); the world {world_s:.1f} s; {smi_line()}")
+        f"{mine['peak_gb']:.2f}); {smi_line()}")
     check(all(m == mine["mask"] for m in masks + [moved["mask"]]),
           f"{phase}: masks {masks} (moved weights {moved['mask']}) differ "
           f"from one process's {mine['mask']}")
-    check(MA_VFL_WITNESS_RATIO * wit[worst_wit] < 1.0, f"{phase}: a one-ulp "
-          f"move of the weights moves {worst_wit}'s update by "
-          f"{wit[worst_wit]:.4e} of its norm: a bound of "
-          f"{MA_VFL_WITNESS_RATIO} times that would pass a zero update")
-    check(ratio[worst] <= MA_VFL_WITNESS_RATIO, f"{phase}: {worst}'s update "
-          f"{upd[worst]:.4e} from one process's, {ratio[worst]:.4f} times "
-          f"its one-ulp witness {wit[worst]:.4e} > {MA_VFL_WITNESS_RATIO}")
-    # per rank and round: each attention forward and its remat
-    # recomputation, and the eval forward; one veds_score a slot
-    want = {"flash_attention": n_attn * 3, "veds_score": VFL_SLOTS}
-    for x in ranks if on_card else ():
-        check(x["launches"] == want, f"{phase}: launches {x['launches']}, "
-              f"expected {want}")
-    del whole, one, mine, moved
+    if bound is not None:
+        held = [k for k in wit if bound * wit[k] < 1.0]
+        size = {k: x.numel() for k, x in mine["new"].items()}
+        share = sum(size[k] for k in held) / sum(size.values())
+        res.update(held=held, held_share=share)
+        log(phase, f"{label} held to {bound} x the witness: "
+            f"{len(held)} of {len(wit)} leaves, {share:.6f} of the entries"
+            f" (not held, their witness above 1 / {bound}: "
+            f"{sorted(set(wit) - set(held))})")
+        check(share >= min_held, f"{phase}: a one-ulp move of the weights "
+              f"moves {worst_wit}'s update by {wit[worst_wit]:.4e} of its "
+              f"norm; the leaves where a bound of {bound} times the witness "
+              f"would fail a zero update hold {share:.6f} of the entries < "
+              f"{min_held}")
+        worst = max(held, key=ratio.get)
+        check(ratio[worst] <= bound, f"{phase}: {worst}'s update "
+              f"{upd[worst]:.4e} from one process's, {ratio[worst]:.4f} "
+              f"times its one-ulp witness {wit[worst]:.4e} > {bound}")
+    del one, mine, moved
     free()
+    return res
+
+
+def _ssm_serve_runs(zcfg, xcfg, zshape, xshape, fp32_shape):
+    """(tag, config, (batch, prompt, cache slots, steps)) of
+    phase_model_axis_ssm's serving runs: zamba2 and xlstm as given (bf16),
+    then their smoke configs in fp32 (the SSM chunk 32, a chunk both
+    `ssd_scan` kernels take)."""
+    from repro_torch.configs.registry import get_smoke_config
+    fp32 = dict(compute_dtype="float32", param_dtype="float32", remat=False,
+                ssm_chunk=32)
+    return [("zamba2", zcfg, zshape), ("xlstm", xcfg, xshape),
+            ("zamba2_fp32", get_smoke_config("zamba2-2.7b").replace(**fp32),
+             fp32_shape),
+            ("xlstm_fp32", get_smoke_config("xlstm-1.3b").replace(**fp32),
+             fp32_shape)]
+
+
+def _ssm_vfl_runs(zcfg, batch: int, seq: int, lr: float):
+    """(tag, config, batch, seq, lr, held) of phase_model_axis_ssm's VFL
+    rounds, one vehicle each: zamba2 as given in bf16 (logged beside its
+    witness, not held: at full depth a one-ulp move of the weights moves
+    its update by more than its norm), then at 1 repetition in fp32, held
+    to MA_SSM_VFL_RATIO times its witness."""
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    vcfg = zcfg.replace(num_vehicles=1)
+    return [("zamba2", vcfg, batch, seq, lr, False),
+            ("zamba2_1rep_fp32", vcfg.replace(n_rep=1, **fp32), batch, seq,
+             lr, True)]
+
+
+def block_grads(device, cfg, kinds, batch: int, seq: int, mesh=None,
+                moved: bool = False):
+    """The sub-blocks `kinds` of `cfg` (each at its first position in the
+    pattern) as `phase_xlstm_blocks` runs them (its seeds: the init as
+    `engine.model_decl` casts it, x and ct [batch, seq, d_model] in the
+    config's dtype): y and the gradients of sum(y * ct) for every
+    parameter and for x, with `moved` every bf16 weight moved by one ulp
+    first (`bf16_ulp_moved`), over `mesh` (this rank's block of the
+    parameters; the gradients gathered whole) or on one device. Returns
+    {kind: dict(y, grads {name: tensor}, replicated {name: this rank's
+    gradient of each leaf no dim of which is split}, ms)}, tensors on
+    the CPU."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import engine
+    from repro_torch.models.module import (materialize, tree_leaves,
+                                           tree_map, tree_unflatten)
+    from repro_torch.sharding.model_axis import gather_params, shard_params
+    from repro_torch.sharding.rules import default_rules
+    rules = default_rules()
+    decl = engine.model_decl(cfg.replace(n_rep=1), "head")
+    params = materialize(torch.Generator(device=device).manual_seed(41),
+                         decl)
+    if moved:
+        params = bf16_ulp_moved(params, torch.Generator(
+            device=device).manual_seed(43), device)
+    local = params if mesh is None else shard_params(mesh, params, decl)
+    del params
+    g = torch.Generator(device=device).manual_seed(42)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device=device).to(cfg.dtype)
+    ct = torch.randn(x.shape, generator=g, device=device).to(cfg.dtype)
+    out = {}
+    for kind in kinds:
+        apply = getattr(B, f"{kind}_apply")
+        i = cfg.pattern.index(kind)
+        p = tree_map(lambda a: a[0], local["blocks"][i])
+        leaves = [a.detach().requires_grad_() for a in tree_leaves(p)]
+        xx = x.detach().requires_grad_()
+        _sync(device)
+        t0 = time.perf_counter()
+        y = apply(tree_unflatten(p, leaves), xx, cfg, mesh=mesh)
+        gr = torch.autograd.grad((y.float() * ct.float()).sum(),
+                                 leaves + [xx])
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        gtree = tree_unflatten(p, list(gr[:-1]))
+        whole = gtree if mesh is None else tree_map(
+            lambda a: a[0], gather_params(mesh, tree_map(
+                lambda a: a[None], gtree), decl["blocks"][i]))
+        rep = {k for k, d in _named(decl["blocks"][i]).items()
+               if all(rules.mesh_axis(a) != "model" for a in d.axes)}
+        out[kind] = dict(
+            y=y.detach().cpu(), ms=ms,
+            grads={**{k: v.cpu() for k, v in _named(whole).items()},
+                   "/x": gr[-1].cpu()},
+            replicated={k: v.cpu() for k, v in _named(gtree).items()
+                        if k in rep})
+        del y, gr, gtree, whole, leaves, xx
+    return out
+
+
+def _ssm_axis_rank(rank: int, out_dir: str, serve_runs, blocks, shape,
+                   vfl_runs) -> None:
+    """One rank of phase_model_axis_ssm's world (a (1, n) mesh on the
+    shared card): each serving run of `serve_runs` on this rank's block
+    of the seeded parameters (rank 0 saves the logits; every rank its
+    walls, launches and peak memory); then for each (config, kinds) of
+    `blocks` those sub-blocks forward and backward on `shape` = (batch,
+    seq) tokens (`block_grads`: rank 0 saves the outputs and gradients,
+    every rank its replicated leaves' gradients); then each round of
+    `vfl_runs` (`_ssm_vfl_runs`) through `launch/train.py`'s `train` on
+    the same mesh (`_vfl_round_on_mesh`, into out_dir/<tag>)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import engine
+    from repro_torch.sharding.mesh_exec import world_device
+    from repro_torch.sharding.model_axis import shard_params
+    from repro_torch.sharding.policy import attention_tp_mode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = world_device()
+    n = torch.distributed.get_world_size()
+    mesh = make_host_mesh(n)
+    res = {}
+    for tag, cfg, (batch, prompt, cache_len, steps) in serve_runs:
+        t0 = time.perf_counter()
+        _peak_gb(device, reset=True)
+        tp = attention_tp_mode(cfg.num_heads, n)
+        params = shard_params(mesh, _ma_params(cfg, device),
+                              engine.model_decl(cfg, tp))
+        r = serve_logits(params, cfg, tp, _ma_prompts(
+            batch, prompt, cfg.vocab_size, device), cache_len, steps, mesh)
+        r["max_memory_gb"] = _peak_gb(device)
+        logits = {k: r.pop(k).cpu() for k in ("prefill", "decode")}
+        if rank == 0:
+            torch.save(logits, f"{out_dir}/{tag}_logits.pt")
+        del params, logits
+        free()
+        r["wall_s"] = time.perf_counter() - t0
+        res[tag] = r
+    for cfg, kinds in blocks:
+        t0 = time.perf_counter()
+        _peak_gb(device, reset=True)
+        got = block_grads(device, cfg, kinds, *shape, mesh)
+        res[cfg.name] = dict(wall_s=time.perf_counter() - t0,
+                             max_memory_gb=_peak_gb(device),
+                             ms={k: v["ms"] for k, v in got.items()})
+        torch.save({k: v["replicated"] for k, v in got.items()},
+                   f"{out_dir}/{cfg.name}_replicated{rank}.pt")
+        if rank == 0:
+            torch.save({k: dict(y=v["y"], grads=v["grads"])
+                        for k, v in got.items()}, f"{out_dir}/{cfg.name}.pt")
+        del got
+        free()
+    for tag, cfg, batch, seq, lr, _ in vfl_runs:
+        t0 = time.perf_counter()
+        _vfl_round_on_mesh(rank, f"{out_dir}/{tag}", cfg, n, batch, seq, lr)
+        res[f"vfl_{tag}"] = dict(wall_s=time.perf_counter() - t0)
+        free()
+    torch.save(res, f"{out_dir}/ssm_rank{rank}.pt")
+
+
+def _norm_distance(a, b) -> float:
+    """|a - b| / |b|, norm-wise, in float64 (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    d, nb = float((a - b).norm()), float(b.norm())
+    return d / nb if nb else (0.0 if d == 0 else math.inf)
+
+
+def _blocks_against_one_rank(device, cfg, kinds, shape, got, got_rep, ranks,
+                             phase: str):
+    """phase_model_axis_ssm (b'): the ranks' sub-blocks `kinds` of `cfg`
+    (`got`: rank 0's outputs and whole gradients; `got_rep`: each rank's
+    gradients of the replicated leaves) against one rank and its one-ulp
+    witness (`block_grads`), norm-wise name by name: every ratio within
+    MA_BLOCK_WITNESS_RATIO, every witness below 1 / that (so that a zero
+    would fail), the replicated leaves' gradients bit for bit equal on
+    every rank."""
+    t0 = time.perf_counter()
+    one = block_grads(device, cfg, kinds, *shape)
+    moved = block_grads(device, cfg, kinds, *shape, moved=True)
+
+    def pick(d, k):
+        return d["y"] if k == "/y" else d["grads"][k]
+    res = {}
+    for kind in kinds:
+        names = ["/y"] + list(one[kind]["grads"])
+        dist = {k: _norm_distance(pick(got[kind], k), pick(one[kind], k))
+                for k in names}
+        wit = {k: _norm_distance(pick(moved[kind], k), pick(one[kind], k))
+               for k in names}
+        ratio = {k: dist[k] / wit[k] if wit[k] else
+                 (0.0 if dist[k] == 0 else math.inf) for k in names}
+        worst, worst_wit = max(ratio, key=ratio.get), max(wit, key=wit.get)
+        rep = got_rep[0][kind]
+        equal = all(torch.equal(rep[k], x[kind][k]) for x in got_rep[1:]
+                    for k in rep)
+        ms = [x[cfg.name]["ms"][kind] for x in ranks]
+        res[kind] = dict(distance=dist, witness=wit, witness_ratio=ratio,
+                         replicated_equal=equal, replicated=sorted(rep),
+                         one_rank_ms=one[kind]["ms"], ranks_ms=ms)
+        log(phase, f"(b') {cfg.name} {kind} sub-block at full width "
+            f"({cfg.param_dtype}), {shape[0]} x {shape[1]} tokens, forward "
+            f"and backward, {len(ranks)} ranks against one: norm-wise "
+            f"distance worst {max(dist.values()):.4e} "
+            f"({max(dist, key=dist.get)}); the witness (one rank, every bf16 "
+            f"weight moved one ulp) worst {wit[worst_wit]:.4e} "
+            f"({worst_wit}); largest ratio {ratio[worst]:.4f} ({worst}: "
+            f"{dist[worst]:.4e} against {wit[worst]:.4e}); by name "
+            f"{ {k: (round(dist[k], 6), round(wit[k], 6)) for k in names} }"
+            f"; replicated leaves {sorted(rep)} bit for bit equal on every "
+            f"rank: {equal}; walls a rank {[round(x, 1) for x in ms]} ms "
+            f"(one rank {one[kind]['ms']:.1f})")
+        check(equal, f"{phase}: {kind}'s replicated gradients differ "
+              f"between the ranks")
+        check(MA_BLOCK_WITNESS_RATIO * wit[worst_wit] < 1.0, f"{phase}: a "
+              f"one-ulp move moves {kind}'s {worst_wit} by "
+              f"{wit[worst_wit]:.4e} of its norm: a bound of "
+              f"{MA_BLOCK_WITNESS_RATIO} times that would pass a zero")
+        check(ratio[worst] <= MA_BLOCK_WITNESS_RATIO, f"{phase}: {kind}'s "
+              f"{worst} {dist[worst]:.4e} from one rank, {ratio[worst]:.4f} "
+              f"times its witness {wit[worst]:.4e} > "
+              f"{MA_BLOCK_WITNESS_RATIO}")
+    res["one_rank_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_model_axis_ssm(device, zcfg=None, xcfg=None,
+                         block_shape=(VFL_BATCH, VFL_SEQ),
+                         parts=("b", "b'", "c"), serve_runs=None,
+                         vfl_runs=None):
+    """The model axis of Mamba2, the mLSTM and the sLSTM on MA_SERVE_RANKS
+    ranks sharing the card over gloo (`run_world(shared_card=True)`), a
+    (1, n) mesh, one world for the whole phase, each run against one
+    rank (one process, no mesh) on the same seeds:
+
+    (b) the serving path (`serve_logits`: prefill, then decode steps from
+    a zero cache of this rank's block) of zamba2-2.7b at full width and
+    depth at DECODE_ZAMBA2_BATCH rows (the cache's 32768 slots cut to
+    16384 a rank, Mamba2's state by heads) and of xlstm-1.3b at full
+    width (XLSTM_REPS repetitions) at decode_32k's 128 rows (the mLSTM's
+    C and n by rows of the head dim), each within MA_SERVE_WITNESS_RATIO
+    times the witness (one rank's own logits moved by a one-ulp move of
+    every weight), argmax agreement logged; the smoke configs in fp32
+    within MA_FP32_TOL of max|logit| (the fp32 `ssd_scan` kernel at 4
+    heads a rank); launches a rank: `ssd_scan` 45 and `flash_attention`
+    9 in zamba2's prefill, none in its steps, none of either on xlstm.
+    (b') zamba2's Mamba2 and xlstm's mLSTM and sLSTM sub-blocks at full
+    width, forward and backward (`_blocks_against_one_rank`).
+    (c) the VFL rounds of `_ssm_vfl_runs` on the (1, n) mesh against one
+    process (`_vfl_against_one_process`: masks identical, launches a
+    rank as counted; the held round's updates within MA_SSM_VFL_RATIO of
+    their witness).
+
+    `parts` names the parts to run; `serve_runs` and `vfl_runs`, where
+    given, replace (b)'s and (c)'s runs (`_ssm_serve_runs`,
+    `_ssm_vfl_runs` at other shapes). The configurations and shapes may
+    be cut to rehearse the phase on the CPU (gloo ranks, no launch
+    counted)."""
+    import tempfile
+    from repro_torch.launch.mesh import run_world
+    phase = "model_axis_ssm"
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    zcfg = zcfg or vfl_config("zamba2-2.7b", ZAMBA2_REPS)
+    xcfg = xcfg or vfl_config("xlstm-1.3b", XLSTM_REPS)
+    runs = serve_runs or (
+        _ssm_serve_runs(zcfg, xcfg, MA_ZAMBA2_SERVE, MA_XLSTM_SERVE,
+                        MA_FP32_SERVE) if "b" in parts else [])
+    blocks = ([(zcfg, ("mamba",)), (xcfg, ("mlstm", "slstm"))]
+              if "b'" in parts else [])
+    vfl_runs = vfl_runs or (
+        _ssm_vfl_runs(zcfg, MA_SSM_VFL_BATCH, VFL_SEQ, ZAMBA2_LR)
+        if "c" in parts else [])
+    n = MA_SERVE_RANKS
+    out = {}
+    free()
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, *_ in vfl_runs:
+            os.makedirs(f"{tmp}/{tag}")
+        t0 = time.perf_counter()
+        with _alloc_conf("expandable_segments:True"):
+            run_world(_ssm_axis_rank, n, tmp, runs, blocks, block_shape,
+                      vfl_runs, device=device.type, shared_card=on_card,
+                      timeout_s=900)
+        world_s = time.perf_counter() - t0
+
+        def load(name):
+            return torch.load(f"{tmp}/{name}.pt", weights_only=False)
+        ranks = [load(f"ssm_rank{r}") for r in range(n)]
+        got = {tag: load(f"{tag}_logits") for tag, _, _ in runs}
+        got_blocks = {cfg.name: (load(cfg.name), [
+            load(f"{cfg.name}_replicated{r}") for r in range(n)])
+            for cfg, _ in blocks}
+        got_vfl = {tag: ([load(f"{tag}/vfl_rank{r}") for r in range(n)],
+                         load(f"{tag}/vfl_params"))
+                   for tag, *_ in vfl_runs}
+    out["world_s"] = world_s
+    walls = {k: [round(x[k]["wall_s"], 1) for x in ranks] for k in ranks[0]}
+    log(phase, f"the world of {n} ranks on one card over gloo: {world_s:.1f}"
+        f" s; walls a rank {walls} s")
+
+    # (b) serving against one rank
+    serve = {}
+    for tag, cfg, (batch, prompt, cache_len, steps) in runs:
+        t0 = time.perf_counter()
+        params = _ma_params(cfg, device)
+        prompts = _ma_prompts(batch, prompt, cfg.vocab_size, device)
+        one = serve_logits(params, cfg, "head", prompts, cache_len, steps)
+        one = {k: v.cpu() if torch.is_tensor(v) else v
+               for k, v in one.items()}
+        moved = serve_logits(bf16_ulp_moved(params, torch.Generator(
+            device=device).manual_seed(29), device, cfg.pdtype), cfg,
+            "head", prompts, cache_len, steps)
+        moved = {k: moved[k].cpu() for k in ("prefill", "decode")}
+        del params
+        free()
+
+        def rows(r):
+            return torch.cat([r["prefill"][None], r["decode"]])
+        dist, agree = _logit_distance(rows(got[tag]), rows(one))
+        wit, wit_agree = _logit_distance(rows(moved), rows(one))
+        r = dict(distance=dist, argmax_agree=agree, witness=wit,
+                 witness_argmax_agree=wit_agree,
+                 witness_ratio=dist / wit if wit else math.inf,
+                 distance_prefill=_logit_distance(got[tag]["prefill"],
+                                                  one["prefill"]),
+                 distance_decode=_logit_distance(got[tag]["decode"],
+                                                 one["decode"]),
+                 ranks=[x[tag] for x in ranks],
+                 one_rank={k: v for k, v in one.items()
+                           if not torch.is_tensor(v)})
+        bound = (f"the witness {wit:.4e} (argmax {wit_agree:.4f}) x "
+                 f"{MA_SERVE_WITNESS_RATIO}: ratio {r['witness_ratio']:.4f}")
+        ok = dist <= MA_SERVE_WITNESS_RATIO * wit
+        if cfg.param_dtype == "float32":
+            bound = f"{MA_FP32_TOL} of max|logit| (beside {bound})"
+            ok = dist <= MA_FP32_TOL
+        n_mamba = cfg.n_rep * cfg.pattern.count("mamba")
+        n_attn = cfg.n_rep * cfg.pattern.count("attn")
+        want = ({"flash_attention": n_attn, "ssd_scan": n_mamba,
+                 "fedavg_agg": 0, "veds_score": 0},
+                {"flash_attention": 0, "ssd_scan": 0, "fedavg_agg": 0,
+                 "veds_score": 0})
+        launches = [(x[tag]["prefill_counts"], x[tag]["step_counts"])
+                    for x in ranks]
+        r["want_launches"] = want
+        serve[tag] = r
+        log(phase, f"(b) {tag} ({cfg.name}, {cfg.n_rep} reps, "
+            f"{cfg.param_dtype}), batch {batch}, prompts of {prompt}, "
+            f"{steps} steps, cache {cache_len} "
+            f"({[round(x[tag]['cache_gb'], 3) for x in ranks]} GB a rank, "
+            f"one rank {one['cache_gb']:.3f}): logits from one rank "
+            f"{dist:.4e} of max|logit| (prefill "
+            f"{r['distance_prefill'][0]:.4e}, decode "
+            f"{r['distance_decode'][0]:.4e}), argmax equal in {agree:.4f} "
+            f"of the {rows(one).shape[0] * rows(one).shape[1]} rows; bound "
+            f"{bound}; rank 0 prefill {ranks[0][tag]['prefill_ms']:.1f} ms, "
+            f"a step {ranks[0][tag]['step_ms']:.2f} ms (one rank "
+            f"{one['prefill_ms']:.1f}, {one['step_ms']:.2f}); launches a "
+            f"rank (prefill, steps) {launches}; peak memory a rank "
+            f"{[round(x[tag]['max_memory_gb'], 2) for x in ranks]} GB; "
+            f"one rank's runs {time.perf_counter() - t0:.1f} s; "
+            f"{smi_line()}")
+        check(ok, f"{phase}: {tag} logits {dist:.4e} of max|logit| from one "
+              f"rank, beyond {bound}")
+        for x in launches if on_card else ():
+            check(x == want, f"{phase}: {tag} launches {x}, expected {want}")
+        del moved
+    out["serve"] = serve
+
+    # (b') the sub-blocks, forward and backward
+    out["blocks"] = {}
+    for cfg, kinds in blocks:
+        out["blocks"][cfg.name] = _blocks_against_one_rank(
+            device, cfg, kinds, block_shape, *got_blocks.pop(cfg.name),
+            ranks, phase)
+        free()
+
+    # (c) the VFL rounds on the (1, n) mesh
+    out["vfl"] = {}
+    for tag, vcfg, batch, seq, lr, held in vfl_runs:
+        vfl_ranks, whole = got_vfl.pop(tag)
+        res = _vfl_against_one_process(
+            device, vcfg, vfl_ranks, whole, batch, seq, lr, phase,
+            f"(c) {tag}, (1, {n}) mesh:",
+            bound=MA_SSM_VFL_RATIO if held else None,
+            min_held=MA_SSM_VFL_HELD)
+        n_attn = vcfg.n_rep * vcfg.pattern.count("attn")
+        n_mamba = vcfg.n_rep * vcfg.pattern.count("mamba")
+        # per rank: each sub-block's forward and its remat recomputation,
+        # and the eval forward; one veds_score a slot
+        want = {"flash_attention": n_attn * 3, "ssd_scan": n_mamba * 3,
+                "veds_score": VFL_SLOTS}
+        for x in vfl_ranks if on_card else ():
+            check(x["launches"] == want, f"{phase}: (c) {tag} launches "
+                  f"{x['launches']}, expected {want}")
+        res["want_launches"] = want
+        out["vfl"][tag] = res
+        del whole
+        free()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(phase, f"the phase took {out['wall_s']:.1f} s")
     return out
 
 
@@ -4330,6 +4836,7 @@ def main(argv=None) -> int:
     ssd_kernels = phase_kernels_ssd(device)
     decode = phase_decode(device)
     model_axis = phase_model_axis(device)
+    model_axis_ssm = phase_model_axis_ssm(device)
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
     stages = phase_stages(device, setup)
     ref = phase_reference(device)
@@ -4372,14 +4879,17 @@ def main(argv=None) -> int:
     # encoder with the cross-attention fed from it
     new_vfl = {}
     ckpt_dir = tempfile.mkdtemp()
-    for arch, reps, lr in (("xlstm-1.3b", XLSTM_REPS, XLSTM_LR),
-                           ("whisper-small", WHISPER_REPS, WHISPER_LR)):
+    for arch, reps, lr, rounds in (
+            ("xlstm-1.3b", XLSTM_REPS, XLSTM_LR, XLSTM_ROUNDS),
+            ("whisper-small", WHISPER_REPS, WHISPER_LR, VFL_ROUNDS)):
         cfg = vfl_config(arch, reps)
         # whisper-small (279 M parameters) saves its last round's params
         ckpt = (f"{ckpt_dir}/{arch}.npz" if arch == "whisper-small"
                 else None)
-        res = phase_vfl(device, cfg, VFL_WARMUP, VFL_ROUNDS, VFL_BATCH,
-                        VFL_SEQ, lr, RECORDED_MASKS[arch], ckpt=ckpt)
+        res = phase_vfl(device, cfg, VFL_WARMUP, rounds, VFL_BATCH,
+                        VFL_SEQ, lr,
+                        RECORDED_MASKS[arch][:VFL_WARMUP + rounds],
+                        ckpt=ckpt)
         free()
         if arch == "xlstm-1.3b":
             res["blocks"] = phase_xlstm_blocks(device, cfg, VFL_BATCH,
@@ -4434,6 +4944,17 @@ def main(argv=None) -> int:
                 d = decode[arch]
                 out[f"decode_{arch}_prefill"] = d["prefill_launches"][name]
                 out[f"decode_{arch}_steps"] = d["step_launches"][name]
+            # a rank's launches on the model axis of Mamba2, the mLSTM and
+            # the sLSTM (ranks sharing the card over gloo)
+            for tag, r in model_axis_ssm["serve"].items():
+                out[f"model_axis_{tag}_prefill_per_rank"] = [
+                    x["prefill_counts"][name] for x in r["ranks"]]
+                out[f"model_axis_{tag}_steps_per_rank"] = [
+                    x["step_counts"][name] for x in r["ranks"]]
+        if name in ("flash_attention", "ssd_scan", "veds_score"):
+            for tag, r in model_axis_ssm["vfl"].items():
+                out[f"model_axis_{tag}_vfl_per_rank"] = [
+                    x["launches"][name] for x in r["ranks"]]
         if name in ("flash_attention", "veds_score"):
             # a rank's launches on the model axis's paths (ranks sharing
             # the card over gloo)
@@ -4441,10 +4962,11 @@ def main(argv=None) -> int:
             if name == "flash_attention":
                 for tp in ("head", "row"):
                     out[f"model_axis_{tp}_prefill_per_rank"] = [
-                        x["prefill_launches"] for x in ma["serve"][tp][
+                        x["prefill_counts"][name] for x in ma["serve"][tp][
                             "ranks"]]
                     out[f"model_axis_{tp}_steps_per_rank"] = [
-                        x["step_launches"] for x in ma["serve"][tp]["ranks"]]
+                        x["step_counts"][name]
+                        for x in ma["serve"][tp]["ranks"]]
             out["model_axis_vfl_per_rank"] = [
                 x["launches"][name] for x in ma["vfl"]["ranks"]]
         if name == "veds_score":
@@ -4545,10 +5067,12 @@ def main(argv=None) -> int:
         "rel_err": max_err(ssd_kernels, "rel_err"),
         **timed(ss, shape={"v": ss["shape_v"], "bc": ss["shape_bc"],
                            "chunk": ss["chunk"]}),
-        "serve_prefill_shape": timed(
-            ssd_kernels["serve_prefill"],
-            shape={"v": ssd_kernels["serve_prefill"]["shape_v"],
-                   "chunk": ssd_kernels["serve_prefill"]["chunk"]})}]}
+        **{f"{label}_shape": timed(
+            ssd_kernels[label],
+            shape={"v": ssd_kernels[label]["shape_v"],
+                   "bc": ssd_kernels[label]["shape_bc"],
+                   "chunk": ssd_kernels[label]["chunk"]})
+           for label in SSD_TIMED if label != "main"}}]}
     out = ROOT / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
@@ -4559,7 +5083,8 @@ def main(argv=None) -> int:
         compare=compare, compare_reference=compare_ref,
         stream_compare=stream_compare, mesh=mesh, serve_reference=serve_ref,
         serve=serve, serve_front=serve_front,
-        decode=decode, model_axis=model_axis, stream_vfl=stream_vfl,
+        decode=decode, model_axis=model_axis,
+        model_axis_ssm=model_axis_ssm, stream_vfl=stream_vfl,
         vfl=vfl, vfl_zamba2=zamba2,
         vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,
         sensitivity=sensitivity,

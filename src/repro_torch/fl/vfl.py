@@ -45,7 +45,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.veds import veds_round
 from repro_torch.kernels.fedavg_agg.ops import fedavg_agg_tree
-from repro_torch.models import blocks, engine
+from repro_torch.models import engine
 from repro_torch.models import layers as L
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 from repro_torch.sharding.model_axis import model_axis
@@ -146,7 +146,7 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     block of the vehicle's model."""
     V = cfg.num_vehicles
     if mesh is not None:
-        blocks.require_model_axis(cfg, mesh_shape(mesh).get("model", 1))
+        engine.check_model_axis(cfg, tp, mesh_shape(mesh).get("model", 1))
     v_axes = vehicle_axes(mesh, V)
     ax = model_axis(mesh)
     hook = stage_hook or (lambda name: None)

@@ -28,14 +28,18 @@ one gloo process a rank) or joined under `torchrun`: each vehicle's
 model split over M ranks (`attention_tp_mode(H, M)`: head-parallel
 attention where M divides the heads, else row-parallel), aggregated with
 all-reduces over the vehicle axis (`fl/vfl.py`). Rank 0 prints the round
-lines. Any other N raises, as does a model axis over Mamba2 or the
-xLSTM (ROADMAP queue 1 item 9); on CUDA so does an N above the card
-count. `--ckpt PATH` saves vehicle 0's params after the last round
+lines. Any other N raises, as does a model axis that does not divide a
+dim the model splits over it (`engine.check_model_axis`), before any
+rank starts; on CUDA so does an N above the card count. `--ckpt PATH`
+saves vehicle 0's params after the last round, gathered whole
 (`checkpoint/np_ckpt.py`, the reference's npz layout):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --devices 2 --vehicles 2 --rounds 2 --batch-per-vehicle 2 \
       --seq 64 --ckpt /tmp/qwen3.npz
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch zamba2-2.7b --devices 4 --vehicles 2 --rounds 2 \
+      --batch-per-vehicle 2 --seq 64
 """
 from __future__ import annotations
 
@@ -64,7 +68,6 @@ from repro_torch.fl.vfl import lm_loss, make_train_step, vehicle_axes
 from repro_torch.launch.mesh import (init_world, make_host_mesh, run_world,
                                      under_torchrun)
 from repro_torch.models import engine
-from repro_torch.models.blocks import require_model_axis
 from repro_torch.models.module import materialize, param_bytes, tree_map
 from repro_torch.sharding.model_axis import (gather_params, model_axis,
                                              shard_params)
@@ -220,7 +223,8 @@ def main(argv=None) -> int:
                          f"{V}), or a multiple of it (a model axis)")
     cfg = get_smoke_config(args.arch).replace(num_vehicles=V, grad_accum=1)
     if N > 1:
-        require_model_axis(cfg, model_par)
+        engine.check_model_axis(cfg, attention_tp_mode(cfg.num_heads,
+                                                       model_par), model_par)
     kw = dict(rounds=args.rounds, batch_per_vehicle=args.batch_per_vehicle,
               seq=args.seq, lr=args.lr, scheduler=args.scheduler,
               seed=args.seed, ckpt=args.ckpt or None)

@@ -28,10 +28,22 @@ run the reference's GSPMD partitioning written out, its TP modes
 * MoE: the router and the capacity plan are replicated, so every rank
   keeps the same slots; each rank runs its E/n experts and the combine
   is summed.
-* Mamba2, the mLSTM and the sLSTM split over their own axes with
-  reductions of their own; a model with them refuses a model axis
-  (`require_model_axis`; ROADMAP queue 1 item 9, next: the model axis of
-  Mamba2 and the mLSTM).
+* Mamba2: this rank's ssm_heads/n heads, which are exactly its d_inner
+  block (`w_x`, `w_z`, `conv_w` by columns; `w_dt`, `A_log`, `dt_bias`,
+  `D` by heads); `w_bc` is replicated, so b and c are whole on every
+  rank; `ssd_scan` on the local heads; `out_norm` over the whole d_inner
+  (`layers.rmsnorm(..., mesh=)`); `w_out` by rows, the partial outputs
+  summed.
+* mLSTM: q, k, v by their head dim P (`row_head_dim`), v all-gathered;
+  the scores, the readout of C and the normalizer sum their partial
+  sums, so the core's output is whole; it is cut to this rank's d_inner
+  block for `out_norm`, `w_o` and `w_out` (by rows, summed). The cache
+  holds this rank's rows of C and n.
+* sLSTM: every parameter and its cache are replicated; each rank runs
+  the whole recurrence and no collective is needed.
+
+`engine.check_model_axis` refuses, before any work, a model axis that
+does not divide a dim the declarations split over it.
 
 Each replicated tensor that enters split work passes `copy_to` (its
 gradient is summed over the ranks) and each partial result
@@ -485,26 +497,6 @@ def moe_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     return x + y, cache
 
 
-_LOCAL_ONLY = {"mamba": "Mamba2", "mlstm": "the mLSTM", "slstm": "the sLSTM"}
-
-
-def require_model_axis(cfg: ModelConfig, n: int) -> None:
-    """Raise if `cfg` has a sub-block kind that a model axis of `n` ranks
-    cannot split yet: Mamba2, the mLSTM and the sLSTM split over axes of
-    their own (`ssm_heads`, `d_inner`, `row_head_dim`) with reductions of
-    their own. The engine's entries (`forward`, `decode_step`) and the
-    VFL round and driver call it before any work."""
-    if n <= 1:
-        return
-    for kind in cfg.pattern:
-        if kind in _LOCAL_ONLY:
-            raise NotImplementedError(
-                f"{_LOCAL_ONLY[kind]} over a model axis of {n} is not "
-                f"ported yet (ROADMAP queue 1 item 9, next step: the model "
-                f"axis of Mamba2 and the mLSTM); run the model whole on one "
-                f"card or rank")
-
-
 # ===========================================================================
 # Mamba2 / SSD (scalar-per-head decay, shared B/C across heads, G=1)
 # ===========================================================================
@@ -550,21 +542,34 @@ def _softplus(x):
                                           device=x.device))
 
 
-def _mamba_proj(p, x, cfg: ModelConfig):
+def _mamba_proj(p, x, cfg: ModelConfig, ax: ModelAxis = LOCAL):
+    """(xi, z, bc, dt): over a model axis xi and z of this rank's d_inner
+    block, dt of its heads (from `copy_to(h)`), and b/c whole (`w_bc` is
+    replicated) passed through `copy_to`, since they enter the split
+    scan: `w_bc`'s gradient is then summed over the ranks."""
     h = L.rmsnorm(p["ln"], x)
-    xi = torch.einsum("...d,di->...i", h, p["w_x"].to(x.dtype))
-    z = torch.einsum("...d,di->...i", h, p["w_z"].to(x.dtype))
-    bc = torch.einsum("...d,dn->...n", h, p["w_bc"].to(x.dtype))
+    hs = copy_to(h, ax)
+    xi = torch.einsum("...d,di->...i", hs, p["w_x"].to(x.dtype))
+    z = torch.einsum("...d,di->...i", hs, p["w_z"].to(x.dtype))
+    bc = copy_to(torch.einsum("...d,dn->...n", h, p["w_bc"].to(x.dtype)),
+                 ax)
     dt = _softplus(
-        torch.einsum("...d,dh->...h", h, p["w_dt"].to(x.dtype))
+        torch.einsum("...d,dh->...h", hs, p["w_dt"].to(x.dtype))
         + p["dt_bias"].to(x.dtype))
     return xi, z, bc, dt
 
 
 def mamba_apply(p, x, cfg: ModelConfig, mesh=None, **_):
+    """Over a model axis each rank runs its ssm_heads/n heads: its d_inner
+    block of d_inner/n = (H/n) P channels is exactly those heads
+    (d_inner is head-major), so the conv, the scan and D act on local
+    tensors; `out_norm` normalises over the whole d_inner and `w_out`'s
+    partial outputs are summed."""
+    ax = model_axis(mesh)
     B, T, d = x.shape
-    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    xi, z, bc, dt = _mamba_proj(p, x, cfg)
+    Pd, N = cfg.ssm_head_dim, cfg.ssm_state
+    xi, z, bc, dt = _mamba_proj(p, x, cfg, ax)
+    H = dt.shape[-1]                                      # this rank's
     # causal depthwise conv over x path: K shifted products summed in x's
     # dtype, in the reference's order
     K = cfg.ssm_conv_k
@@ -579,9 +584,10 @@ def mamba_apply(p, x, cfg: ModelConfig, mesh=None, **_):
     v = xh * dt[..., None].to(x.dtype)
     y, _ = _ssd_chunk_scan(v, bmat, cmat, log_a, cfg.ssm_chunk)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(B, T, cfg.d_inner)
-    y = L.rmsnorm(p["out_norm"], y * F.silu(z))
-    return x + torch.einsum("...i,id->...d", y, p["w_out"].to(x.dtype))
+    y = y.reshape(B, T, H * Pd)
+    y = L.rmsnorm(p["out_norm"], y * F.silu(z), mesh=ax)
+    y = torch.einsum("...i,id->...d", y, p["w_out"].to(x.dtype))
+    return x + reduce_from(y, ax)
 
 
 def mamba_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
@@ -600,10 +606,13 @@ def mamba_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
 def mamba_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of the recurrence: the conv history [B,K-1,di] shifts by
     the new input, and the fp32 state [B,H,N,P] decays by
-    a = exp(dt * -exp(A_log)) and takes b (dt * x)."""
+    a = exp(dt * -exp(A_log)) and takes b (dt * x). Over a model axis the
+    history and the state are this rank's d_inner block and heads."""
+    ax = model_axis(mesh)
     B, d = x.shape
-    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    xi, z, bc, dt = _mamba_proj(p, x, cfg)
+    Pd, N = cfg.ssm_head_dim, cfg.ssm_state
+    xi, z, bc, dt = _mamba_proj(p, x, cfg, ax)
+    H = dt.shape[-1]
     conv, state = cache["conv"], cache["state"]
     hist = torch.cat([conv, xi[:, None]], dim=1)          # [B,K,di]
     xc = F.silu(torch.einsum("bki,ki->bi", hist, p["conv_w"].to(x.dtype)))
@@ -617,9 +626,10 @@ def mamba_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     state_new = a[..., None, None] * state + kv
     y = torch.einsum("bn,bhnp->bhp", cmat.to(torch.float32), state_new)
     y = y.to(x.dtype) + xh * p["D"].to(x.dtype)[None, :, None]
-    y = y.reshape(B, cfg.d_inner)
-    y = L.rmsnorm(p["out_norm"], y * F.silu(z))
-    out = x + torch.einsum("bi,id->bd", y, p["w_out"].to(x.dtype))
+    y = y.reshape(B, H * Pd)
+    y = L.rmsnorm(p["out_norm"], y * F.silu(z), mesh=ax)
+    out = x + reduce_from(torch.einsum("bi,id->bd", y,
+                                       p["w_out"].to(x.dtype)), ax)
     return out, {"conv": conv_new, "state": state_new}
 
 
@@ -657,16 +667,34 @@ def _one(like):
     return torch.ones((), dtype=like.dtype, device=like.device)
 
 
-def _mlstm_chunk(Cm, n, qc, kc, vc, lf, li, scale: float, dtype):
+def _reduce_pair(a, b, ax: ModelAxis):
+    """reduce_from of a [..., P] and b [...] in one all-reduce."""
+    if ax.size == 1:
+        return a, b
+    ab = reduce_from(torch.cat([a, b[..., None]], dim=-1), ax)
+    return ab[..., :-1], ab[..., -1]
+
+
+def _mlstm_chunk(Cm, n, qc, kc, vc, lf, li, scale: float, dtype,
+                 ax: ModelAxis = LOCAL):
     """One chunk of the mLSTM scan (the reference's scan step): the
     chunk's output [B, c, H, P] in `dtype`, and the carried matrix memory
-    Cm [B, H, P, P] and normalizer n [B, H, P], all in float32."""
+    Cm [B, H, P, P] and normalizer n [B, H, P], all in float32; Cm and n
+    None are the zero state (the first chunk: no inter-chunk term).
+
+    Over a model axis q and k [B, c, H, P/n] and the state's rows (Cm's
+    first P, n's P) are this rank's block of the head dim, v is whole:
+    the q.k scores, the q.C readout and the q.n normalizer sum their
+    partial sums over the ranks, so the output is whole on every rank.
+    The gates (cum, li) and v are replicated; where they enter split
+    work (q's and k's decay weights, the state update) they pass
+    `copy_to`."""
     qc, kc, vc = (a.to(torch.float32) for a in (qc, kc, vc))
     cum = torch.cumsum(lf.to(torch.float32), dim=1)              # [B,c,H]
     # intra: w_ij = q_i k_j exp(cum_i - cum_j + li_j) (j <= i); above
     # the diagonal g grows with j - i, so it is clamped before the mask
     # multiplies (exp would overflow to inf, and inf * 0 is NaN)
-    s = torch.einsum("bihp,bjhp->bhij", qc, kc) * scale
+    s = reduce_from(torch.einsum("bihp,bjhp->bhij", qc, kc), ax) * scale
     c = qc.shape[1]
     causal = torch.tril(torch.ones((c, c), dtype=torch.float32,
                                    device=qc.device))
@@ -675,46 +703,64 @@ def _mlstm_chunk(Cm, n, qc, kc, vc, lf, li, scale: float, dtype):
         * causal
     y = torch.einsum("bhij,bjhp->bihp", w, vc)
     den = w.sum(-1).transpose(1, 2)[..., None]                   # [B,i,H,1]
-    # inter, from the carried matrix memory
-    qeff = qc * torch.exp(cum)[..., None] * scale
-    y = y + torch.einsum("bihp,bhpq->bihq", qeff, Cm)
-    den = den + torch.einsum("bihp,bhp->bih", qeff, n)[..., None]
+    cum_s, li_s, vs = copy_to(cum, ax), copy_to(li, ax), copy_to(vc, ax)
+    if Cm is not None:
+        # inter, from the carried matrix memory
+        qeff = qc * torch.exp(cum_s)[..., None] * scale
+        yi, di = _reduce_pair(torch.einsum("bihp,bhpq->bihq", qeff, Cm),
+                              torch.einsum("bihp,bhp->bih", qeff, n), ax)
+        y = y + yi
+        den = den + di[..., None]
     out = y / torch.maximum(torch.abs(den), _one(den))
     # state update; the tail exp(cum[-1] - cum + li) is not clamped, as
     # the reference's is not
-    tail = torch.exp(cum[:, -1:, :] - cum + li)                  # [B,j,H]
+    tail = torch.exp(cum_s[:, -1:, :] - cum_s + li_s)            # [B,j,H]
     keff = kc * tail[..., None]
-    decay = torch.exp(cum[:, -1])[:, :, None, None]
-    Cm = decay * Cm + torch.einsum("bjhp,bjhq->bhpq", keff, vc)
-    n = decay[..., 0] * n + keff.sum(dim=1)
+    kv = torch.einsum("bjhp,bjhq->bhpq", keff, vs)
+    if Cm is None:
+        Cm, n = kv, keff.sum(dim=1)
+    else:
+        decay = torch.exp(cum_s[:, -1])[:, :, None, None]
+        Cm = decay * Cm + kv
+        n = decay[..., 0] * n + keff.sum(dim=1)
     return Cm, n, out.to(dtype)
 
 
 def mlstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
+    """Over a model axis q, k and v are this rank's block of the head dim
+    P (`row_head_dim`), v all-gathered whole for the state update; the
+    core's output is whole on every rank and is cut to this rank's
+    d_inner block for `out_norm` (normalised over the whole d_inner),
+    `o = sigmoid(h w_o)` and `w_out`, whose partial outputs are summed.
+    The two cuts need not line up: a d_inner block is whole heads where
+    n <= H and part of one head where n > H."""
+    ax = model_axis(mesh)
     B, T, d = x.shape
     h = L.rmsnorm(p["ln"], x)
-    q = torch.einsum("btd,dhp->bthp", h, p["w_q"].to(x.dtype))
-    k = torch.einsum("btd,dhp->bthp", h, p["w_k"].to(x.dtype))
-    v = torch.einsum("btd,dhp->bthp", h, p["w_v"].to(x.dtype))
+    hs = copy_to(h, ax)
+    q = torch.einsum("btd,dhp->bthp", hs, p["w_q"].to(x.dtype))
+    k = torch.einsum("btd,dhp->bthp", hs, p["w_k"].to(x.dtype))
+    v = gather_from(torch.einsum("btd,dhp->bthp", hs, p["w_v"].to(x.dtype)),
+                    ax, -1)
     log_f, log_i = _mlstm_gates(p, h)                            # [B,T,H]
-    H, Pd = q.shape[2], q.shape[3]
+    H, Pd = v.shape[2], v.shape[3]                               # whole
     chunk = min(cfg.ssm_chunk, T)
     if T % chunk:
         raise ValueError(f"mlstm_apply: the chunk {chunk} does not divide "
                          f"the sequence length {T}")
-    Cm = torch.zeros((B, H, Pd, Pd), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, H, Pd), dtype=torch.float32, device=x.device)
+    Cm = n = None
     outs = []
     for t0 in range(0, T, chunk):
         sl = slice(t0, t0 + chunk)
         Cm, n, out = _mlstm_chunk(Cm, n, q[:, sl], k[:, sl], v[:, sl],
                                   log_f[:, sl], log_i[:, sl], Pd ** -0.5,
-                                  x.dtype)
+                                  x.dtype, ax)
         outs.append(out)
-    y = torch.cat(outs, dim=1).reshape(B, T, H * Pd)
-    o = torch.sigmoid(torch.einsum("btd,di->bti", h, p["w_o"].to(x.dtype)))
-    y = L.rmsnorm(p["out_norm"], y) * o
-    return x + torch.einsum("bti,id->btd", y, p["w_out"].to(x.dtype))
+    y = scatter_to(torch.cat(outs, dim=1).reshape(B, T, H * Pd), ax, -1)
+    o = torch.sigmoid(torch.einsum("btd,di->bti", hs, p["w_o"].to(x.dtype)))
+    y = L.rmsnorm(p["out_norm"], y, mesh=ax) * o
+    y = torch.einsum("bti,id->btd", y, p["w_out"].to(x.dtype))
+    return x + reduce_from(y, ax)
 
 
 def mlstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
@@ -733,27 +779,34 @@ def mlstm_cache_decl(cfg: ModelConfig, n_rep: int, batch: int, dtype):
 
 def mlstm_decode(p, x, cache, pos, cfg: ModelConfig, mesh, **_):
     """One step of the matrix memory: C = f C + i k v^T, n = f n + i k,
-    with i = exp(min(log_i, 20)), read by q over max(|q.n|, 1)."""
+    with i = exp(min(log_i, 20)), read by q over max(|q.n|, 1). Over a
+    model axis the cache holds this rank's rows of C and n (its block of
+    the head dim), v is gathered whole, and the readout and the
+    normalizer sum their partial sums over the ranks."""
+    ax = model_axis(mesh)
     B, d = x.shape
     h = L.rmsnorm(p["ln"], x)
     q = torch.einsum("bd,dhp->bhp", h, p["w_q"].to(x.dtype))
     k = torch.einsum("bd,dhp->bhp", h, p["w_k"].to(x.dtype))
-    v = torch.einsum("bd,dhp->bhp", h, p["w_v"].to(x.dtype))
+    v = gather_from(torch.einsum("bd,dhp->bhp", h, p["w_v"].to(x.dtype)),
+                    ax, -1)
     log_f, log_i = _mlstm_gates(p, h)                           # [B,H]
-    Pd = q.shape[-1]
+    Pd = v.shape[-1]
     f = torch.exp(log_f)[..., None, None]
     i = torch.exp(torch.clamp_max(log_i, 20.0))[..., None, None]
     k32, v32 = k.to(torch.float32), v.to(torch.float32)
     Cm = f * cache["C"] + i * torch.einsum("bhp,bhq->bhpq", k32, v32)
     n = f[..., 0] * cache["n"] + i[..., 0] * k32
     qs = q.to(torch.float32) * (Pd ** -0.5)
-    y = torch.einsum("bhp,bhpq->bhq", qs, Cm)
-    den = torch.einsum("bhp,bhp->bh", qs, n)[..., None]
-    y = (y / torch.maximum(torch.abs(den), _one(den))).to(x.dtype)
-    y = y.reshape(B, -1)
+    y, den = _reduce_pair(torch.einsum("bhp,bhpq->bhq", qs, Cm),
+                          torch.einsum("bhp,bhp->bh", qs, n), ax)
+    y = (y / torch.maximum(torch.abs(den[..., None]), _one(den))).to(
+        x.dtype)
+    y = scatter_to(y.reshape(B, -1), ax, -1)
     o = torch.sigmoid(torch.einsum("bd,di->bi", h, p["w_o"].to(x.dtype)))
-    y = L.rmsnorm(p["out_norm"], y) * o
-    out = x + torch.einsum("bi,id->bd", y, p["w_out"].to(x.dtype))
+    y = L.rmsnorm(p["out_norm"], y, mesh=ax) * o
+    out = x + reduce_from(torch.einsum("bi,id->bd", y,
+                                       p["w_out"].to(x.dtype)), ax)
     return out, {"C": Cm, "n": n}
 
 
@@ -797,7 +850,9 @@ def slstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
     """The recurrence is a Python loop over the T steps, h kept in float32
     and cast to x's dtype after it, as the reference's scan emits it. The
     float32 copies of r and b are made once: the reference's cast in each
-    step gives the same values."""
+    step gives the same values. Over a model axis every parameter is
+    replicated (no logical axis of its maps to the model axis) and every
+    rank runs the whole block: no collective."""
     B, T, d = x.shape
     H = cfg.num_heads
     Pd = d // H

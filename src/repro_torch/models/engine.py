@@ -143,6 +143,40 @@ def llm_params_from_jax(tree, device=None):
     return tree_map(leaf, tree)
 
 
+@functools.lru_cache(maxsize=None)
+def check_model_axis(cfg: ModelConfig, tp: str, n: int) -> None:
+    """Raise a ValueError if a model axis of `n` ranks does not divide a
+    dim of `cfg`'s parameters that the default rules split over it
+    (heads, mlp: d_ff and d_inner, ssm_heads, row_head_dim: the
+    mLSTM's head dim, vocab, experts, row_in, ...), naming each such dim.
+    The reference's GSPMD would pad it; the port refuses it, as
+    `ModelAxis.block` and `zero_cache` do. The engine's entries, the VFL
+    round and `launch/train.py` call it before any work."""
+    if n <= 1:
+        return
+    rules = default_rules()
+    bad = {}
+    for path, d in _declared(model_decl(cfg, tp)):
+        for size, a in zip(d.shape, d.axes):
+            if rules.mesh_axis(a) == "model" and size % n:
+                bad.setdefault((a, size), path)
+    if bad:
+        dims = ", ".join(f"{a} of {size} ({path})"
+                         for (a, size), path in bad.items())
+        raise ValueError(f"{cfg.name}: a model axis of {n} does not divide "
+                         f"{dims}; run it over an axis that divides them")
+
+
+def _declared(tree, prefix=""):
+    """(path, Declared) of every leaf of a declaration tree."""
+    if isinstance(tree, Declared):
+        yield prefix, tree
+        return
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        yield from _declared(v, f"{prefix}/{k}" if prefix else str(k))
+
+
 # ---------------------------------------------------------------------------
 # encoder / source memory
 # ---------------------------------------------------------------------------
@@ -231,7 +265,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
     Over a model axis (`mesh`) `params` are this rank's block; with
     `gather_logits=False` the logits are this rank's vocab columns."""
     ax = model_axis(mesh)
-    B.require_model_axis(cfg, ax.size)
+    check_model_axis(cfg, tp, ax.size)
     Bsz, T = tokens.shape
     x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
     memory = source_memory(params, cfg, src, tp, ax)
@@ -344,7 +378,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     repetition's slot. Over a model axis `params` and `cache` are this
     rank's blocks and the logits are the whole vocab's."""
     ax = model_axis(mesh)
-    B.require_model_axis(cfg, ax.size)
+    check_model_axis(cfg, tp, ax.size)
     x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
     for r in range(cfg.n_rep):
         for i, kind in enumerate(cfg.pattern):

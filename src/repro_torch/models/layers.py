@@ -12,7 +12,9 @@ reads; None is one device) each rank holds its block of the parameters
 rows, the MLP's `w_gate`/`w_up` by columns and `w_down` by rows. The
 embedding is a masked lookup of the local rows summed over the axis, the
 LM head gives this rank's vocab logits (`gather_logits` joins them), the
-loss runs vocab-parallel, and the MLP sums its partial outputs.
+loss runs vocab-parallel, the MLP sums its partial outputs, and
+`rmsnorm(..., mesh=)` normalises a dim split over the ranks (Mamba2's
+and the mLSTM's `out_norm` over d_inner).
 """
 from __future__ import annotations
 
@@ -35,10 +37,22 @@ def rmsnorm_decl(dim: int, axis: str = "embed"):
     return {"scale": declare((dim,), (axis,), init="ones")}
 
 
-def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6,
+            mesh=None) -> torch.Tensor:
+    """RMS norm over the last dim. Over a model axis (`mesh`) `x` and
+    `p["scale"]` are this rank's block of a dim split over the ranks:
+    each rank sums its block's squares in float32, the sums are reduced
+    and divided by the whole width (n blocks). The reduced sum is
+    replicated and then enters split work, so it passes `copy_to` as
+    well: its gradient is summed over the ranks too."""
+    ax = model_axis(mesh)
     dt = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if ax.size == 1:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(x * x, dim=-1, keepdim=True)
+        var = copy_to(reduce_from(ss, ax), ax) / (x.shape[-1] * ax.size)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + p["scale"].to(torch.float32))).to(dt)
 

@@ -10,13 +10,17 @@ Inputs are numpy draws (seeded) and the reference's init, in fp32. One
 world of each size runs every case (`tests/torch_model_axis_cases.py`,
 the ranks' side), every rank's result is checked. Tolerances, each
 against the largest magnitude of the value it is applied to (sums in
-other orders): blocks, their gradients, the cores and the LM head 1e-5
+other orders): blocks (attention, MLP, MoE, Mamba2, the sLSTM), their
+decode steps and caches, their gradients, the cores and the LM head 1e-5
 (the reference's own at `tests/test_distributed_paths.py:46` and `:75`);
-whole models 1e-4 with qk-norm (qwen3) and `torch_ref_vfl.MODEL_TOL`
-without (granite, llama-3.2-vision, whisper: ill-conditioned at the
-reference's init). Integer decisions (argmax, the MoE's routing through
-its output) must agree; replicated leaves' gradients must be equal on
-every rank bit for bit.
+the mLSTM block 5e-5 and its gradients 2e-4, `tests/test_torch_xlstm.py`'s
+bounds: at the reference's init its normalizer cancels, and one process
+in fp32 is itself 0.9e-5 to 1.7e-5 of their scale from the same block
+in fp64; whole models 1e-4 with qk-norm (qwen3) and
+`torch_ref_vfl.MODEL_TOL` without (granite, llama-3.2-vision, whisper,
+zamba2, xlstm: ill-conditioned at the reference's init). Integer
+decisions (argmax, the MoE's routing through its output) must agree;
+replicated leaves' gradients must be equal on every rank bit for bit.
 """
 import os
 import subprocess
@@ -42,13 +46,16 @@ from repro_torch.models import blocks as B
 from repro_torch.models import engine
 from repro_torch.models import layers as L
 from repro_torch.models.module import tree_leaves
-from repro_torch.sharding.model_axis import LOCAL, ModelAxis, model_axis
+from repro_torch.sharding.model_axis import (LOCAL, ModelAxis, model_axis,
+                                             shard_params)
 from torch_port_util import tn, tt
 from torch_ref_vfl import MODEL_TOL
 
 F32 = dict(compute_dtype="float32", param_dtype="float32", remat=False,
            attn_chunk=64, capacity_factor=4.0)
 TOL, QWEN3_TOL = 1e-5, 1e-4
+# the mLSTM's (output, gradient) bounds (the docstring)
+MLSTM_TOL = (5e-5, 2e-4)
 BT, T = 2, 64                      # a block's batch and sequence
 STEPS = 4                          # whole-model decode steps
 
@@ -94,13 +101,39 @@ BLOCKS = {
     "mlp": ("qwen3-32b", "mlp", "head", None, False, {}),
     "moe": ("granite-moe-1b-a400m", "moe", "head", None, False,
             {"capacity_factor": 1.0}),        # tokens dropped
+    # zamba2's 8 SSM heads of 64 (d_inner 512), xlstm's 4 mLSTM heads of
+    # 128; with 2 heads of 256 a d_inner block of 128 is half a head at 4
+    # ranks
+    "mamba": ("zamba2-2.7b", "mamba", "head", None, False, {}),
+    "mlstm": ("xlstm-1.3b", "mlstm", "head", None, False, {}),
+    "mlstm_h2": ("xlstm-1.3b", "mlstm", "head", None, False,
+                 {"num_heads": 2}),
+    "slstm": ("xlstm-1.3b", "slstm", "head", None, False, {}),
 }
-MODELS = ("qwen3-32b", "granite-moe-1b-a400m", "llama-3.2-vision-90b",
-          "whisper-small")
+# the recurrent blocks' decode steps from a zero cache (name: block)
+BLOCK_DECODES = {"mamba_decode": "mamba", "mlstm_decode": "mlstm",
+                 "mlstm_h2_decode": "mlstm_h2", "slstm_decode": "slstm"}
+# whole models: (arch, replace); zamba2 at 2 repetitions, so that its
+# weight-tied attention and MLP are used twice
+MODELS = {"qwen3-32b": ("qwen3-32b", {}),
+          "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}),
+          "llama-3.2-vision-90b": ("llama-3.2-vision-90b", {}),
+          "whisper-small": ("whisper-small", {}),
+          "zamba2-2.7b": ("zamba2-2.7b", {"n_rep": 2}),
+          "xlstm-1.3b": ("xlstm-1.3b", {}),
+          "xlstm-1.3b+h2": ("xlstm-1.3b", {"num_heads": 2})}
 # one case of each kind in the world of 4 (qwen3's 8 heads: 2 a rank,
-# fewer than a KV group, so K and V are repeated to the local heads)
-FOUR = ("attn_head", "attn_row_seq", "mlp", "moe", "lm", "seq_flash",
-        "decode_ring", "cross_decode", "model_qwen3-32b")
+# fewer than a KV group, so K and V are repeated to the local heads;
+# zamba2's 8 SSM heads: 2 a rank; the 2-head mLSTM: half a head a rank)
+FOUR = ("attn_head", "attn_row_seq", "mlp", "moe", "mamba", "mlstm_h2",
+        "slstm", "lm", "seq_flash", "decode_ring", "cross_decode",
+        "mamba_decode", "mlstm_h2_decode", "model_qwen3-32b",
+        "model_zamba2-2.7b", "model_xlstm-1.3b+h2")
+
+
+def _tols(fn):
+    """(output, gradient) tolerances of a block."""
+    return MLSTM_TOL if fn == "mlstm" else (TOL, TOL)
 
 
 def _block_case(name, seed):
@@ -146,6 +179,33 @@ def _block_case(name, seed):
                grads=jax.tree.leaves(g[0]), dins=list(g[1:]))
     one = C.block(None, case)
     return case, ref, one
+
+
+def _block_decode_case(name, seed):
+    """4 decode steps of a recurrent block from a zero cache (x [2, d]
+    draws), the reference's `*_decode` stepping its own cache."""
+    arch, fn, _, _, _, rep_ = BLOCKS[BLOCK_DECODES[name]]
+    jcfg, cfg = _cfgs(arch, **rep_)
+    jp = j_materialize(jax.random.key(seed),
+                       getattr(jB, f"{fn}_decl")(jcfg, "head"))
+    cache_decl = getattr(B, f"{fn}_cache_decl")(cfg, 1, BT, torch.float32)
+    jcache = jax.tree.map(lambda d: jnp.zeros(d.shape[1:], jnp.float32),
+                          getattr(jB, f"{fn}_cache_decl")(jcfg, 1, BT,
+                                                          jnp.float32))
+    xs = _x((STEPS, BT, cfg.d_model), seed + 1)
+    case = dict(kind="block_decode", fn=fn, cfg=cfg,
+                decl=getattr(B, f"{fn}_decl")(cfg, "head"), params=_port(jp),
+                cache_decl=cache_decl,
+                cache=engine.zero_cache(cache_decl, "cpu"), xs=tt(xs))
+    jdec = getattr(jB, f"{fn}_decode")
+    outs = []
+    for t in range(STEPS):
+        y, jcache = jdec(jp, jnp.asarray(xs[t]), jcache, jnp.int32(t), jcfg,
+                         None)
+        outs.append(np.asarray(y))
+    ref = dict(outs=np.stack(outs),
+               cache={k: np.asarray(v)[None] for k, v in jcache.items()})
+    return case, ref, C.block_decode(None, case)
 
 
 def _lm_case(seed):
@@ -206,8 +266,9 @@ def _decode_case(name, seed):
         one
 
 
-def _model_case(arch, seed):
-    jcfg, cfg = _cfgs(arch)
+def _model_case(name, seed):
+    arch, rep_ = MODELS[name]
+    jcfg, cfg = _cfgs(arch, **rep_)
     jp = j_materialize(jax.random.key(seed), jengine.model_decl(jcfg, "head"))
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 24))
     src = None
@@ -237,12 +298,14 @@ def _model_case(arch, seed):
 
 def _all_cases():
     out = {name: _block_case(name, 10 * i) for i, name in enumerate(BLOCKS)}
+    for i, name in enumerate(BLOCK_DECODES):
+        out[name] = _block_decode_case(name, 200 + 10 * i)
     out["lm"] = _lm_case(90)
     out["seq_flash"] = _seq_flash_case(100)
     for i, name in enumerate(DECODES):
         out[name] = _decode_case(name, 110 + 10 * i)
-    for i, arch in enumerate(MODELS):
-        out[f"model_{arch}"] = _model_case(arch, 150 + i)
+    for i, name in enumerate(MODELS):
+        out[f"model_{name}"] = _model_case(name, 150 + i)
     return out
 
 
@@ -354,32 +417,74 @@ def _replicated(decl):
 @pytest.mark.parametrize("name", tuple(BLOCKS))
 def test_block_matches_one_process_and_reference(worlds, name):
     """attention (head, and row with and without the sequence-sharded
-    core; self, sliding-window and cross), the MLP and the MoE block:
-    the output and every gradient (split leaves gathered) on each rank,
-    against the one-process port and the reference's one-device block;
-    replicated leaves' gradients equal on every rank bit for bit."""
+    core; self, sliding-window and cross), the MLP, the MoE block,
+    Mamba2, the mLSTM (whole heads a rank, and half a head) and the
+    sLSTM: the output and every gradient (split leaves gathered) on each
+    rank, against the one-process port and the reference's one-device
+    block; replicated leaves' gradients equal on every rank bit for
+    bit."""
     cases, _, _ = worlds
     case, ref, one = cases[name]
     runs = _ranks(worlds, name)
     assert {n for n, _, _ in runs} >= {2}
     rep = _replicated(case["decl"])
+    tol, gtol = _tols(case["fn"])
     for n, r, res in runs:
         assert res["gathered_equal"]     # the blocks give the whole back
-        _close(res["out"], one["out"], TOL)
-        _close(res["out"], ref["out"], TOL)
+        _close(res["out"], one["out"], tol)
+        _close(res["out"], ref["out"], tol)
         if ref["aux"] is not None:
             _close(res["aux"], ref["aux"], TOL)
         for a, b, c in zip(tree_leaves(res["grads"]),
                            tree_leaves(one["grads"]), ref["grads"]):
-            _close(a, b, TOL)
-            _close(a, c, TOL)
+            _close(a, b, gtol)
+            _close(a, c, gtol)
         for a, b, c in zip(res["dins"], one["dins"], ref["dins"]):
-            _close(a, b, TOL)
-            _close(a, c, TOL)
+            _close(a, b, gtol)
+            _close(a, c, gtol)
         first = worlds[1][n][0][name]
         for keep, a, b in zip(rep, res["local_grads"], first["local_grads"]):
             if keep:
                 assert torch.equal(a, b), name
+
+
+class _Coordinate:
+    """The geometry of a (1, n) mesh as rank r sees it, for
+    `shard_params` outside a world."""
+
+    def __init__(self, n, r):
+        self.mesh_dim_names, self.mesh = ("data", "model"), torch.empty(1, n)
+        self.r = r
+
+    def get_local_rank(self, axis):
+        return self.r if axis == "model" else 0
+
+
+@pytest.mark.parametrize("name", tuple(BLOCK_DECODES))
+def test_block_decode_matches_one_process_and_reference(worlds, name):
+    """Mamba2's, the mLSTM's and the sLSTM's decode steps from a zero
+    cache of this rank's block: each step's output against one process
+    and the reference's `*_decode`, and every rank's cache block after
+    the last step against one process's cache as `shard_params` cuts it
+    (Mamba2's conv history by d_inner and state by heads, the mLSTM's C
+    and n by the head dim, the sLSTM's whole)."""
+    cases, _, _ = worlds
+    case, ref, one = cases[name]
+    runs = _ranks(worlds, name)
+    assert {n for n, _, _ in runs} >= {2}
+    tol, _ = _tols(case["fn"])
+    for n, r, res in runs:
+        _close(res["outs"], one["outs"], tol)
+        _close(res["outs"], ref["outs"], tol)
+        want = shard_params(_Coordinate(n, r), one["cache"],
+                            case["cache_decl"])
+        for k, v in res["cache"].items():
+            assert v.shape == want[k].shape
+            _close(v, want[k], tol)
+            _close(v, shard_params(_Coordinate(n, r), {k: tt(
+                ref["cache"][k])}, {k: case["cache_decl"][k]})[k], tol)
+        split = [k for k in want if want[k].shape != one["cache"][k].shape]
+        assert set(split) == (set() if case["fn"] == "slstm" else set(want))
 
 
 def test_embedding_lm_head_and_loss_are_vocab_parallel(worlds):
@@ -440,21 +545,25 @@ def test_flash_decode_matches_reference_shard_map(worlds, name):
 @pytest.mark.parametrize("arch", MODELS)
 def test_model_forward_and_decode_match(worlds, arch):
     """The whole model split over the axis (head mode): `forward`'s
-    logits and 4 `decode_step`s from a zero cache of S/n slots a rank,
-    against one process and the reference; argmax equal."""
+    logits and 4 `decode_step`s from a zero cache of this rank's block
+    (S/n slots of K/V; Mamba2's d_inner/n channels and H/n heads; the
+    mLSTM's P/n rows of C and n), against one process and the
+    reference; argmax equal."""
+    from repro_torch.sharding.rules import default_rules
+    rules = default_rules()
     cases, _, _ = worlds
     case, ref, one = cases[f"model_{arch}"]
     tol = QWEN3_TOL if case["cfg"].qk_norm else MODEL_TOL
+    decl = tree_leaves(engine.cache_decl(case["cfg"], 2, case["cache_len"]))
     for n, r, res in _ranks(worlds, f"model_{arch}"):
         assert res["gathered_equal"]
         for key in ("logits", "decode"):
             _close(res[key], one[key], tol)
             _close(res[key], ref[key], tol)
             assert torch.equal(res[key].argmax(-1), one[key].argmax(-1))
-        cut = [(s, full) for s, full in zip(res["cache_shapes"],
-                                            one["cache_shapes"])
-               if s != full]
-        assert cut and all(s[2] * n == full[2] for s, full in cut)
+        want = [tuple(s // n if rules.mesh_axis(a) == "model" else s
+                      for s, a in zip(d.shape, d.axes)) for d in decl]
+        assert res["cache_shapes"] == want != one["cache_shapes"]
 
 
 def test_one_rank_axis_is_the_one_device_path(monkeypatch):
@@ -498,25 +607,38 @@ def test_one_rank_axis_is_the_one_device_path(monkeypatch):
     assert torch.equal(loss, L.softmax_cross_entropy(base, toks))
 
 
-@pytest.mark.parametrize("arch,what", [("zamba2-2.7b", "Mamba2"),
-                                       ("xlstm-1.3b", "mLSTM")])
-def test_ssm_families_refuse_a_model_axis(arch, what):
-    """Mamba2 and the xLSTM split over axes with reductions of their own:
-    at a model axis of 2 they raise, naming the next queue-1 step, both
-    up front and at the engine's entries (forward, decode_step), before
-    any work; at an axis of one rank they run."""
+@pytest.mark.parametrize("arch,what", [("zamba2-2.7b", "ssm_heads"),
+                                       ("xlstm-1.3b", "row_head_dim")])
+def test_ssm_families_refuse_a_model_axis(worlds, arch, what):
+    """zamba2 and xlstm run at a model axis of 2 and 4 (their forward and
+    decode match one process: `test_model_forward_and_decode_match`); an
+    axis that does not divide a dim their declarations split over it
+    (zamba2's 8 SSM heads at 16: only that dim; xlstm's mLSTM head dim of
+    128, d_inner and vocab of 512 at 3) raises a ValueError naming each
+    such dim, up front and at the engine's entries (forward,
+    decode_step), before any work."""
+    assert {n for name, (a, _) in MODELS.items() if a == arch
+            for n, _, _ in _ranks(worlds, f"model_{name}")} == {2, 4}
     cfg = get_smoke_config(arch).replace(**F32)
-    msg = f"{what}.*item 9, next step: the model axis of Mamba2 and the mLSTM"
-    with pytest.raises(NotImplementedError, match=msg):
-        B.require_model_axis(cfg, 2)
-    B.require_model_axis(cfg, 1)
-    two = ModelAxis(None, 0, 2)
+    n, dims = {"zamba2-2.7b": (16, ["ssm_heads of 8"]),
+               "xlstm-1.3b": (3, ["row_head_dim of 128", "mlp of 512",
+                                  "vocab of 512"])}[arch]
+    assert what in dims[0]
+    engine.check_model_axis(cfg, "row", 1)
+    for m in (2, 4):
+        engine.check_model_axis(cfg, "head", m)
+    with pytest.raises(ValueError) as e:
+        engine.check_model_axis(cfg, "row", n)
+    named = sorted(x.split(" (")[0] for x in str(e.value).split(
+        "does not divide ")[1].split("; ")[0].split(", "))
+    assert named == sorted(dims), str(e.value)
+    ax = ModelAxis(None, 0, n)
     toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=msg):
-        engine.forward({"embed": None}, toks, cfg, tp="head", mesh=two)
-    with pytest.raises(NotImplementedError, match=msg):
+    with pytest.raises(ValueError, match=what):
+        engine.forward({"embed": None}, toks, cfg, tp="row", mesh=ax)
+    with pytest.raises(ValueError, match=what):
         engine.decode_step({"embed": None}, [], toks[:, 0], torch.tensor(0),
-                           cfg, two, tp="head")
+                           cfg, ax, tp="row")
 
 
 def test_zero_cache_cuts_the_sequence_or_raises():

@@ -12,6 +12,17 @@ round keeps the old parameters exactly. Every rank's replicated leaves
 the model axis) are bit for bit equal after a round. The driver's
 `--devices 4 --vehicles 2` is tested beside its other layouts, in
 `tests/test_torch_vfl_mesh.py`.
+
+The same world runs zamba2-2.7b's smoke config at 2 repetitions (Mamba2
+split by heads, the weight-tied attention and MLP used twice) and
+xlstm-1.3b's (the mLSTM split by its head dim, the sLSTM replicated), in
+fp32 from the port's init, against the port's one-process round: each
+leaf's update within `SSM_UPDATE_TOL` (`torch_ref_vfl.MODEL_TOL`) of its
+norm, the bound these configurations are held to against the reference
+(ill-conditioned at their init, `tests/test_torch_zamba2.py`; measured
+here up to 2.0e-3 for zamba2 and 2.6e-4 for xlstm), the all-failed round
+the old parameters exactly, and the replicated leaves (`w_bc`, `w_if`,
+the sLSTM, the norms) bit for bit equal on every rank.
 """
 import os
 import subprocess
@@ -29,14 +40,20 @@ from repro.data.synthetic import lm_batch as j_lm_batch
 from repro.models import engine as jengine
 from repro.models.module import materialize as j_materialize
 from repro_torch.configs.registry import get_smoke_config
+from repro_torch.data.synthetic import lm_batch
 from repro_torch.fl import vfl
 from repro_torch.launch.mesh import run_world
 from repro_torch.models import engine
-from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.models.module import materialize, tree_leaves, tree_map
 from repro_torch.sharding.policy import attention_tp_mode
 from repro_torch.sharding.rules import default_rules
+from torch_ref_vfl import MODEL_TOL
 
 V, M, BPV, SEQ, LR, ATOL = 2, 2, 2, 32, 0.1, 2e-4
+# the recurrent families' runs: (arch, replace); the update's bound
+SSM_RUNS = {"zamba2-2.7b": ("zamba2-2.7b", {"n_rep": 2}),
+            "xlstm-1.3b": ("xlstm-1.3b", {})}
+SSM_UPDATE_TOL = MODEL_TOL
 MASKS = (([1., 1.], [1., 2.]), ([0., 1.], [1., 1.]), ([0., 0.], [1., 1.]))
 CASES = tuple((torch.tensor(m), torch.tensor(w)) for m, w in MASKS)
 F32 = dict(param_dtype="float32", compute_dtype="float32", num_vehicles=V,
@@ -99,15 +116,28 @@ def rounds(tmp_path_factory):
         V, BPV, *x.shape[1:]) for k, x in b.items()}
     path = str(tmp / "inputs.pt")
     res = str(tmp / "out{rank}.pt")
-    torch.save(dict(cfg=cfg, tp=tp, model=M, params=params, batch_v=batch_v,
-                    lr=LR, cases=CASES), path)
+    runs = {"qwen3-32b": dict(cfg=cfg, tp=tp, params=params,
+                              batch_v=batch_v)}
+    for name, (arch, rep) in SSM_RUNS.items():
+        scfg = get_smoke_config(arch).replace(**F32, **rep)
+        stp = attention_tp_mode(scfg.num_heads, M)
+        runs[name] = dict(cfg=scfg, tp=stp, params=materialize(
+            torch.Generator().manual_seed(5), engine.model_decl(scfg, stp)),
+            batch_v=lm_batch(torch.Generator().manual_seed(6), V * BPV, SEQ,
+                             scfg.vocab_size))
+        runs[name]["batch_v"] = {k: x.reshape(V, BPV, *x.shape[1:])
+                                 for k, x in runs[name]["batch_v"].items()}
+    torch.save(dict(model=M, runs=runs, lr=LR, cases=CASES), path)
     try:
         run_world(MC.vfl_rank_main, V * M, path, res, device="cpu",
                   threads=1, timeout_s=300, store_dir=str(tmp))
-        one = vfl.make_vfl_round(cfg, None, tp, lr=LR)
-        stacked = tree_map(lambda x: x.unsqueeze(0).expand(V, *x.shape),
-                           params)
-        one_out = [one(stacked, batch_v, m, w) for m, w in CASES]
+        one_out = {}
+        for name, run in runs.items():
+            one = vfl.make_vfl_round(run["cfg"], None, run["tp"], lr=LR)
+            stacked = tree_map(lambda x: x.unsqueeze(0).expand(V, *x.shape),
+                               run["params"])
+            one_out[name] = [one(stacked, run["batch_v"], m, w)
+                             for m, w in CASES]
         log, _ = proc.communicate(timeout=300)
     finally:
         proc.kill()
@@ -119,7 +149,7 @@ def rounds(tmp_path_factory):
                for i in range(len(CASES))]
     mesh_out = [torch.load(res.format(rank=r), weights_only=False)
                 for r in range(V * M)]
-    return cfg, tp, params, mesh_out, one_out, ref
+    return runs, mesh_out, one_out, ref
 
 
 @pytest.mark.parametrize("i", range(len(CASES)))
@@ -128,11 +158,13 @@ def test_vfl_round_on_a_model_axis_matches(rounds, i):
     every rank of the (2, 2) world, its vehicle's model gathered whole:
     against the one-process round's vehicle and the reference's round on
     its (2, 2) mesh; the all-failed round keeps the old params exactly."""
-    _, _, params, mesh_out, one_out, ref = rounds
+    runs, mesh_out, one_out, ref = rounds
+    params = runs["qwen3-32b"]["params"]
     for r in range(V * M):
         v = r // M                          # the mesh's data coordinate
-        ours = tree_leaves(mesh_out[r][i]["whole"])
-        for a, b, c in zip(ours, tree_leaves(one_out[i]), ref[i]):
+        ours = tree_leaves(mesh_out[r]["qwen3-32b"][i]["whole"])
+        for a, b, c in zip(ours, tree_leaves(one_out["qwen3-32b"][i]),
+                           ref[i]):
             np.testing.assert_allclose(a.numpy(), b[v].numpy(), atol=ATOL,
                                        rtol=0)
             np.testing.assert_allclose(a.numpy(), c[v], atol=ATOL, rtol=0)
@@ -144,19 +176,51 @@ def test_vfl_round_on_a_model_axis_matches(rounds, i):
                        zip(ours, tree_leaves(params)))
 
 
+def _replicated_equal(runs, mesh_out, name, i):
+    """Whether every leaf no dim of which is split over the model axis
+    is bit for bit equal on all ranks after round i of run `name`; how
+    many such leaves there are."""
+    rules = default_rules()
+    decl = tree_leaves(engine.model_decl(runs[name]["cfg"],
+                                         runs[name]["tp"]))
+    rep = [all(rules.mesh_axis(a) != "model" for a in d.axes) for d in decl]
+    first = tree_leaves(mesh_out[0][name][i]["local"])
+    for r in range(1, V * M):
+        for keep, a, b in zip(rep, tree_leaves(
+                mesh_out[r][name][i]["local"]), first):
+            assert not keep or torch.equal(a, b), (name, r)
+    return sum(rep)
+
+
 @pytest.mark.parametrize("i", range(2))
 def test_replicated_leaves_stay_equal_on_every_rank(rounds, i):
     """The leaves no dim of which is split over the model axis (the
     norms, `wk`, `wv`, the qk-norms) are bit for bit equal on all four
     ranks after a round: each took its whole gradient on every rank."""
-    cfg, tp, _, mesh_out, _, _ = rounds
-    rules = default_rules()
-    decl = tree_leaves(engine.model_decl(cfg, tp))
-    rep = [all(rules.mesh_axis(a) != "model" for a in d.axes) for d in decl]
-    assert sum(rep) >= 5
-    first = tree_leaves(mesh_out[0][i]["local"])
-    for r in range(1, V * M):
-        for keep, a, b in zip(rep, tree_leaves(mesh_out[r][i]["local"]),
-                              first):
-            if keep:
-                assert torch.equal(a, b)
+    runs, mesh_out, _, _ = rounds
+    assert _replicated_equal(runs, mesh_out, "qwen3-32b", i) >= 5
+
+
+@pytest.mark.parametrize("name", tuple(SSM_RUNS))
+@pytest.mark.parametrize("i", range(len(CASES)))
+def test_recurrent_vfl_round_on_a_model_axis_matches(rounds, name, i):
+    """zamba2 (Mamba2 by heads; the tied attention and MLP head-parallel)
+    and xlstm (the mLSTM by its head dim; the sLSTM replicated) on the
+    (2, 2) world: every rank's vehicle, gathered whole, against the
+    one-process round's, each leaf's update within SSM_UPDATE_TOL of its
+    norm; the all-failed round keeps the old params exactly; the
+    replicated leaves (`w_bc`, `w_if`, the sLSTM, the norms) bit for bit
+    equal on every rank."""
+    runs, mesh_out, one_out, _ = rounds
+    params = tree_leaves(runs[name]["params"])
+    for r in range(V * M):
+        ours = tree_leaves(mesh_out[r][name][i]["whole"])
+        for a, b, p in zip(ours, tree_leaves(one_out[name][i]), params):
+            step = b[r // M] - p
+            assert float((a - b[r // M]).norm()) <= SSM_UPDATE_TOL * max(
+                float(step.norm()), 1e-30)
+        if not CASES[i][0].any():
+            assert all(torch.equal(a, p) for a, p in zip(ours, params))
+        else:
+            assert any(not torch.equal(a, p) for a, p in zip(ours, params))
+    assert _replicated_equal(runs, mesh_out, name, i) >= 4

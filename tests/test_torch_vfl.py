@@ -205,8 +205,9 @@ def test_train_step_schedules_with_the_reference_decisions(setup):
 
 
 def test_vfl_refuses_paths_of_later_slices(setup):
-    """A mesh with a model axis larger than 1 is still refused (vehicle
-    meshes run: `tests/test_torch_vfl_mesh.py`); `stream=` runs
+    """A model axis that does not divide a dim the model splits over it
+    is refused when the round is built (model axes that divide run:
+    `tests/test_torch_model_axis_vfl.py`); `stream=` runs
     (`tests/test_torch_fused.py`) and refuses only what the reference
     refuses at build time: more than one cell, and fewer SOVs than
     vehicles."""
@@ -219,10 +220,12 @@ def test_vfl_refuses_paths_of_later_slices(setup):
     with pytest.raises(ValueError, match="num_vehicles"):
         vfl.make_train_step(cfg, None, "head", stream=StreamConfig(),
                             sc=ScenarioParams(n_sov=V - 1))
-    # a model axis splits attention, MLP and MoE; Mamba2 waits (item 9)
-    with pytest.raises(NotImplementedError, match="Mamba2.*model axis"):
+    # zamba2's smoke config has 8 SSM heads: an axis of 16 splits every
+    # other dim (row-parallel attention) but not them
+    with pytest.raises(ValueError, match="model axis of 16 does not "
+                                         "divide ssm_heads of 8"):
         vfl.make_vfl_round(get_smoke_config("zamba2-2.7b"),
-                           {"data": V, "model": 2}, "head")
+                           {"data": V, "model": 16}, "row")
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +243,16 @@ def test_train_main_runs_on_cpu_with_finite_losses(capsys):
     assert all(np.isfinite(losses))
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--arch", "zamba2-2.7b", "--devices", "8"], "one card"),
-    (["--arch", "llama-3.2-vision-90b"], "src"),
-    (["--arch", "whisper-small"], "src"),
+@pytest.mark.parametrize("argv,err,match", [
+    # 4 vehicles x a model axis of 16: zamba2's 8 SSM heads do not split,
+    # refused before any rank starts
+    (["--arch", "zamba2-2.7b", "--devices", "64"], ValueError,
+     "ssm_heads of 8"),
+    (["--arch", "llama-3.2-vision-90b"], NotImplementedError, "src"),
+    (["--arch", "whisper-small"], NotImplementedError, "src"),
 ])
-def test_train_main_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_train_main_refuses_what_is_not_ported(argv, err, match):
+    with pytest.raises(err, match=match):
         train_mod.main(["--device", "cpu", "--rounds", "1"] + argv)
 
 

@@ -284,8 +284,10 @@ def test_train_main_joins_a_torchrun_world(one_process_losses):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--arch", "xlstm-1.3b", "--devices", "8", "--vehicles", "4"],
-     NotImplementedError, "model axis"),
+    # a model axis of 3: the mLSTM's head dim of 128 does not split,
+    # refused before any rank starts
+    (["--arch", "xlstm-1.3b", "--devices", "12", "--vehicles", "4"],
+     ValueError, "row_head_dim of 128"),
     (["--devices", "3", "--vehicles", "4"], ValueError, "one a vehicle"),
 ])
 def test_train_main_refuses_other_layouts(argv, err, match):
@@ -301,3 +303,33 @@ def test_train_main_refuses_more_ranks_than_cards(monkeypatch):
     with pytest.raises(RuntimeError, match="has 1"):
         train_mod.main(["--devices", "2", "--vehicles", "2", "--rounds",
                         "1"])
+
+
+@pytest.mark.parametrize("arch,devices,vehicles,lr", [
+    ("zamba2-2.7b", "4", "2", "1e-3"),
+    ("xlstm-1.3b", "2", "1", "1e-5"),
+])
+def test_train_main_splits_the_recurrent_families(capfd, tmp_path, arch,
+                                                  devices, vehicles, lr):
+    """zamba2 on a (2, 2) mesh (Mamba2 by heads, the tied attention
+    head-parallel) and xlstm on a (1, 2) mesh (the mLSTM by its head dim,
+    the sLSTM replicated), at lrs where their bf16 smoke configs keep a
+    finite loss: rank 0 prints finite losses, and `--ckpt` saves vehicle
+    0's whole tree (gathered over the model axis), which loads into the
+    one-device declaration's shapes with every leaf finite."""
+    ck = str(tmp_path / "m.npz")
+    assert train_mod.main(["--device", "cpu", "--arch", arch, "--rounds",
+                           "1", "--batch-per-vehicle", "2", "--seq", "64",
+                           "--devices", devices, "--vehicles", vehicles,
+                           "--lr", lr, "--ckpt", ck]) == 0
+    out = capfd.readouterr().out
+    losses = _losses(out)
+    assert len(losses) == 1 and np.isfinite(losses).all(), out
+    cfg = get_smoke_config(arch).replace(num_vehicles=int(vehicles))
+    like = materialize(torch.Generator().manual_seed(5),
+                       engine.model_decl(cfg, "head"))
+    got = load_checkpoint(ck, like)
+    for a, b in zip(tree_leaves(got), tree_leaves(like)):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                     tree_leaves(like)))

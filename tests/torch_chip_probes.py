@@ -11,6 +11,8 @@ needed):
     python3 tests/torch_chip_probes.py decode-loops [pairs]
     python3 tests/torch_chip_probes.py gloo-cuda  # collectives, 2 ranks a card
     python3 tests/torch_chip_probes.py model-axis # two phases of chip_smoke
+    python3 tests/torch_chip_probes.py model-axis-ssm [no-kernels]
+    python3 tests/torch_chip_probes.py model-axis-ssm-depth
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -60,6 +62,20 @@ over 5 calls after one.
 `model-axis`: `chip_smoke.phase_kernels_llm` (`flash_attention` at the
 model axis's per-rank shapes among its cases) and
 `chip_smoke.phase_model_axis` alone, as the whole script runs them.
+
+`model-axis-ssm`: `chip_smoke.phase_kernels_ssd` and
+`chip_smoke.phase_kernels_llm` (`ssd_scan` and `flash_attention` at the
+per-rank shapes of zamba2's model axis among their cases), then
+`chip_smoke.phase_model_axis_ssm` with its checks logged instead of
+raised: how each witness and ratio reads before the bounds are set
+(`no-kernels`: the phase alone).
+
+`model-axis-ssm-depth`: where zamba2's and xlstm's split is held to one
+rank: the serving path of `phase_model_axis_ssm` (b) over 2 ranks at
+full width in fp32 (zamba2 at full depth and at 1 repetition, xlstm at
+1), and in bf16 at zamba2's 1 repetition and xlstm's batch of 8, each
+beside its one-ulp witness; then (c)'s VFL round of zamba2 at 1
+repetition in fp32 and in bf16. Checks logged, not raised.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -436,11 +452,48 @@ def model_axis(device) -> None:
     cs.phase_model_axis(device)
 
 
+def model_axis_ssm(device, kernels: str = "kernels") -> None:
+    if kernels != "no-kernels":
+        cs.phase_kernels_ssd(device)
+        cs.phase_kernels_llm(device)
+
+    def logged(cond, msg):
+        if not cond:
+            cs.log("probe", f"check FAILED: {msg}")
+    cs.check = logged
+    cs.phase_model_axis_ssm(device)
+
+
+def model_axis_ssm_depth(device) -> None:
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    z, x = (cs.vfl_config(a, r) for a, r in (
+        ("zamba2-2.7b", cs.ZAMBA2_REPS), ("xlstm-1.3b", cs.XLSTM_REPS)))
+    z1 = z.replace(n_rep=1)
+    runs = [("zamba2_fp32_full", z.replace(**fp32), (2, 64, 128, 8)),
+            ("zamba2_1rep_fp32", z1.replace(**fp32), (2, 64, 128, 8)),
+            ("zamba2_1rep", z1, (8, 64, 128, 8)),
+            ("xlstm_fp32", x.replace(**fp32), (8, 64, 128, 8)),
+            ("xlstm_b8", x, (8, 64, 128, 8))]
+
+    def logged(cond, msg):
+        if not cond:
+            cs.log("probe", f"check FAILED: {msg}")
+    cs.check = logged
+    vfl = [(f"zamba2_1rep_{d}", z1.replace(num_vehicles=1, param_dtype=d,
+                                           compute_dtype=d),
+            cs.MA_SSM_VFL_BATCH, cs.VFL_SEQ, cs.ZAMBA2_LR, True)
+           for d in ("float32", "bfloat16")]
+    cs.phase_model_axis_ssm(device, parts=("b", "c"), serve_runs=runs,
+                            vfl_runs=vfl)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
               "decode": decode, "decode-loops": decode_loops,
-              "gloo-cuda": gloo_cuda, "model-axis": model_axis}
+              "gloo-cuda": gloo_cuda, "model-axis": model_axis,
+              "model-axis-ssm": model_axis_ssm,
+              "model-axis-ssm-depth": model_axis_ssm_depth}
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)

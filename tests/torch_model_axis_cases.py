@@ -21,7 +21,11 @@ from repro_torch.models.module import tree_leaves, tree_unflatten
 from repro_torch.sharding.model_axis import (gather_from, gather_params,
                                              model_axis, shard_params)
 
-APPLY = {"attn": B.attn_apply, "mlp": B.mlp_apply, "moe": B.moe_apply}
+APPLY = {"attn": B.attn_apply, "mlp": B.mlp_apply, "moe": B.moe_apply,
+         "mamba": B.mamba_apply, "mlstm": B.mlstm_apply,
+         "slstm": B.slstm_apply}
+DECODE = {"mamba": B.mamba_decode, "mlstm": B.mlstm_decode,
+          "slstm": B.slstm_decode}
 
 
 def _with_grad(tree):
@@ -56,6 +60,24 @@ def block(mesh, c):
                 grads=_grads(mesh, p_loc, c["decl"], g[:len(leaves)]),
                 local_grads=list(g[:len(leaves)]),
                 dins=list(g[len(leaves):]))
+
+
+def block_decode(mesh, c):
+    """A recurrent sub-block's decode steps over `c["xs"]` [steps, B, d]
+    from a zero cache (this rank's block of it, `shard_params` under the
+    cache's declaration): each step's output, and the cache after the
+    last step as this rank holds it ([1, ...] leaves)."""
+    p = shard_params(mesh, c["params"], c["decl"])
+    cache = shard_params(mesh, c["cache"], c["cache_decl"])
+    slot = {k: v[0] for k, v in cache.items()}
+    outs = []
+    with torch.no_grad():
+        for t, x in enumerate(c["xs"]):
+            y, slot = DECODE[c["fn"]](p, x, slot, torch.tensor(t), c["cfg"],
+                                      mesh)
+            outs.append(y)
+    return dict(outs=torch.stack(outs),
+                cache={k: v[None].clone() for k, v in slot.items()})
 
 
 def lm(mesh, c):
@@ -137,8 +159,8 @@ def model(mesh, c):
                 cache_shapes=[tuple(x.shape) for x in tree_leaves(cache)])
 
 
-KINDS = {"block": block, "lm": lm, "seq_flash": seq_flash,
-         "decode": decode, "model": model}
+KINDS = {"block": block, "block_decode": block_decode, "lm": lm,
+         "seq_flash": seq_flash, "decode": decode, "model": model}
 
 
 def rank_main(rank: int, inputs_path: str, out_path: str) -> None:
@@ -151,24 +173,29 @@ def rank_main(rank: int, inputs_path: str, out_path: str) -> None:
 
 
 def vfl_rank_main(rank: int, inputs_path: str, out_path: str) -> None:
-    """The VFL round on a (V, M) ("data", "model") mesh: this rank's block
-    of its vehicle's model, for every (mask, weights) of the inputs; each
-    result as this rank holds it and gathered whole over the model
-    axis, saved to `out_path` formatted with the rank."""
+    """The VFL round on a (V, M) ("data", "model") mesh, for each run of
+    the inputs (a configuration, its parameters and batches): this
+    rank's block of its vehicle's model, for every (mask, weights) of
+    the run; each result as this rank holds it and gathered whole over
+    the model axis, saved to `out_path` formatted with the rank (one
+    list a run)."""
     from repro_torch.fl.vfl import make_vfl_round
     from repro_torch.models.module import tree_map
     inp = torch.load(inputs_path, weights_only=False)
-    cfg, tp = inp["cfg"], inp["tp"]
     mesh = make_host_mesh(inp["model"])
-    decl = engine.model_decl(cfg, tp)
-    mine = tree_map(lambda x: x[None], shard_params(mesh, inp["params"],
-                                                    decl))
     v = mesh.get_local_rank("data")
-    batch = {k: x[v:v + 1] for k, x in inp["batch_v"].items()}
-    round_fn = make_vfl_round(cfg, mesh, tp, lr=inp["lr"])
-    out = []
-    for m, w in inp["cases"]:
-        local = tree_map(lambda x: x[0], round_fn(mine, batch, m, w))
-        out.append(dict(local=local,
-                        whole=gather_params(mesh, local, decl)))
-    torch.save(out, out_path.format(rank=rank))
+    res = {}
+    for name, run in inp["runs"].items():
+        cfg, tp = run["cfg"], run["tp"]
+        decl = engine.model_decl(cfg, tp)
+        mine = tree_map(lambda x: x[None], shard_params(mesh, run["params"],
+                                                        decl))
+        batch = {k: x[v:v + 1] for k, x in run["batch_v"].items()}
+        round_fn = make_vfl_round(cfg, mesh, tp, lr=inp["lr"])
+        out = []
+        for m, w in inp["cases"]:
+            local = tree_map(lambda x: x[0], round_fn(mine, batch, m, w))
+            out.append(dict(local=local,
+                            whole=gather_params(mesh, local, decl)))
+        res[name] = out
+    torch.save(res, out_path.format(rank=rank))
