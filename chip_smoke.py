@@ -132,6 +132,18 @@ with its kernel launches counted from 0:
   to the card, the eval loss equal to the run's, saved again byte for
   byte).
 
+- the dry run (`launch/dryrun.py`, `phase_dryrun`): three cases on one
+  rank (zamba2-2.7b's train step at full width and depth, 4 vehicles of
+  4 x 1024 tokens; qwen3-32b's decode_32k step at 2 of 64 repetitions;
+  llama4-scout-17b-a16e's prefill at 1 of 48 repetitions, 8 x 32768
+  tokens), each run for real under the op counter and `FlopCounterMode`
+  and traced on fake CUDA tensors in a background worker: argument
+  bytes and FLOPs equal, each kernel's calls in the trace equal to its
+  launches, the fake peak within 10% of `max_memory_allocated`; then
+  the fake production sweep of llama4-scout and llama-3.2-vision at
+  pod16x16 over a fake world of 256 ranks, every shape, with its time
+  (records under `chiprun_out/dryrun_torch/`).
+
 The VFL rounds' masks must be those recorded before the bf16 kernels
 moved to the tensor cores (the schedule does not depend on the kernels);
 their eval losses are logged beside the recorded ones, and each
@@ -152,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import concurrent.futures
 import contextlib
 import functools
 import gc
@@ -176,10 +189,6 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12       # dense tensor-core rate
-# veds_score moves 13 bytes in (g, q, w fp32, e bool) and 12 out (y, p, z
-# fp32) per candidate, for 24 fp32 operations (log1p counted as one)
-VEDS_BYTES_PER_ELEM = 25
-VEDS_OPS_PER_ELEM = 24
 # the main path's cut: 3 rounds scheduled as one block
 ROUNDS, ROUND_BATCH = 3, 3
 # the VFL path: qwen3-32b at full width, 2 repetitions, 4 vehicles x 4
@@ -243,6 +252,19 @@ MA_VFL_WITNESS_RATIO = 0.5
 # the (2, 2) round's batch a vehicle, cut from VFL_BATCH's 4 sequences to
 # 2: four ranks of 4 x 1024 tokens ran out of the card's 80 GB
 MA_VFL_BATCH = 2
+# the dry run (phase_dryrun): three cases on one rank, each run for real
+# on the card and traced on fake CUDA tensors, then the fake production
+# sweep of DRYRUN_SWEEP_ARCHS at pod16x16, every shape; the fake peak
+# held to the card's within DRYRUN_PEAK_TOL. The 11 fake traces are host
+# work (~1100 s one after another on the host of one H100, the longest
+# ~420 s), so they run DRYRUN_WORKERS at a time, one process a case,
+# after the phases whose times are compared across runs and beside those
+# that hold values (`fake_traces`); each may take DRYRUN_JOB_TIMEOUT_S
+DRYRUN_SWEEP_ARCHS = ("llama4-scout-17b-a16e", "llama-3.2-vision-90b")
+DRYRUN_WORKERS = 4
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
+DRYRUN_JOB_TIMEOUT_S = 900
 # the flash_attention cases of phase_kernels_llm timed beside their bounds
 TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
                "whisper_cross", "whisper_self", "vlm_cross", "qwen3_prefill",
@@ -483,6 +505,10 @@ def ssd_used(y, st, ry, rst) -> float:
 
 
 def bound_ms(n: int):
+    """Least time for `veds_score` over n candidates: its bytes and fp32
+    operations (`kernels/veds_score/ops.py veds_dt_score_cost`)."""
+    from repro_torch.kernels.veds_score.ops import (VEDS_BYTES_PER_ELEM,
+                                                    VEDS_OPS_PER_ELEM)
     t_bytes = n * VEDS_BYTES_PER_ELEM / PEAK_BYTES_PER_S * 1e3
     t_ops = n * VEDS_OPS_PER_ELEM / PEAK_FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1625,21 +1651,11 @@ def flash_bound_ms(q, k, causal: bool, window, q_offset: int):
     """Least time for the attention forward on this card: the larger of
     its bytes (q, k, v read once, out and lse written once) over the
     memory rate and its operations (2 * 2 * D per (query, key) pair the
-    masks keep, counted on these shapes) over the dense tensor-core rate
-    of bf16 (the fp32 CUDA-core rate for fp32 inputs)."""
-    B, T, H, D = q.shape
-    S = k.shape[1]
-    qpos = q_offset + torch.arange(T, dtype=torch.float64)[:, None]
-    kpos = torch.arange(S, dtype=torch.float64)[None, :]
-    keep = torch.ones((T, S), dtype=torch.bool)
-    if causal:
-        keep &= qpos >= kpos
-    if window is not None:
-        keep &= qpos - kpos < window
-    pairs = int(keep.sum())
-    ops = B * H * pairs * 4 * D
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-        + B * H * T * 4
+    masks keep, counted on these shapes:
+    `kernels/flash_attention/ops.py flash_attention_cost`) over the dense
+    tensor-core rate of bf16 (the fp32 CUDA-core rate for fp32 inputs)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cost
+    ops, nbytes = flash_attention_cost(q, k, k, causal, window, q_offset)
     peak = PEAK_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
         else PEAK_FP32_OPS_PER_S
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1667,6 +1683,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels.fedavg_agg.ops import (fedavg_agg,
+                                                    fedavg_agg_cost,
                                                     fedavg_agg_plain)
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_fwd, flash_attention_plain)
@@ -1872,8 +1889,7 @@ def phase_kernels_llm(device, main_shape=(4, 1024, 64, 8, 128),
                                     samples=5, warmup=1)
             # bytes: x read once, out written once (old is read only when
             # every upload failed); 2V + 1 fp32 operations per element
-            nbytes = (nv + 1) * L * x.element_size() + 4 * nv
-            ops = (2 * nv + 1) * L
+            ops, nbytes = fedavg_agg_cost(x, w, old)
             t_b = nbytes / PEAK_BYTES_PER_S * 1e3
             t_o = ops / PEAK_FP32_OPS_PER_S * 1e3
             r.update(bytes=nbytes, bound_ms=max(t_b, t_o),
@@ -1895,17 +1911,10 @@ def ssd_bound_ms(v, b, chunk: int):
     """Least time for the scan on this card: the larger of its bytes (v,
     b, c, log_a read once; y and the fp32 final state written once) over
     the memory rate and its operations, counted as the Pallas kernel
-    does them (per row, head and chunk: the C x C scores over N, W v over
-    P, c S and the state update over N x P, 2 operations a
-    multiply-add), over the dense tensor-core rate of bf16 (the fp32
-    CUDA-core rate for fp32 inputs)."""
-    B, T, H, P = v.shape
-    N = b.shape[-1]
-    C = min(chunk, T)
-    n_chunks = -(-T // C)
-    ops = B * H * n_chunks * (2 * C * C * (N + P) + 4 * C * N * P)
-    nbytes = (2 * v.numel() + 2 * b.numel()) * v.element_size() \
-        + B * T * H * 4 + B * H * N * P * 4
+    does them (`kernels/ssd_scan/ops.py ssd_scan_cost`), over the dense
+    tensor-core rate of bf16 (the fp32 CUDA-core rate for fp32 inputs)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cost
+    ops, nbytes = ssd_scan_cost(v, b, b, None, chunk)
     peak = PEAK_BF16_OPS_PER_S if v.dtype == torch.bfloat16 \
         else PEAK_FP32_OPS_PER_S
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
@@ -4786,9 +4795,217 @@ def _assert_bitwise(r, want, carry, want_carry, what):
           f"carry differs: {dist}")
 
 
+def dryrun_cases():
+    """The one-rank cases of phase_dryrun: name -> (config, shape, how
+    each was cut to one card)."""
+    from repro_torch.configs.base import SHAPES_BY_NAME, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    return {
+        "zamba2_train": (
+            get_config("zamba2-2.7b").replace(num_vehicles=4, grad_accum=1),
+            ShapeConfig("train_16x1024", 1024, 16, "train"),
+            "full width and depth; 4 vehicles of 4 x 1024 tokens and "
+            "grad_accum 1 (phase_vfl's), the inline 50-slot VEDS round"),
+        "qwen3_decode": (
+            get_config("qwen3-32b").replace(n_rep=2),
+            SHAPES_BY_NAME["decode_32k"],
+            "depth cut to 2 of 64 repetitions; batch 128, 32768 slots"),
+        "llama4_prefill": (
+            get_config("llama4-scout-17b-a16e").replace(n_rep=1),
+            ShapeConfig("prefill_8x32k", 32768, 8, "prefill"),
+            "depth cut to 1 of 48 repetitions; batch cut from 32 to 8 "
+            "(the fake trace's peak: 47.0 GB at 8), sequence 32768 whole"),
+    }
+
+
+def fake_case_main(name: str, out: str) -> int:
+    """A background worker of phase_dryrun: the one-rank case `name`
+    traced on fake CUDA tensors, its record written to `out`."""
+    from repro_torch.launch.dryrun import trace_case
+    cfg, shape, _ = dryrun_cases()[name]
+    t0 = time.perf_counter()
+    res = trace_case(cfg, shape, {"data": 1, "model": 1},
+                     torch.device("cuda"), fake=True)
+    res.pop("outputs")
+    res["wall_s"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+def _run_fake_trace(name: str, argv) -> tuple:
+    """One fake trace of phase_dryrun, its output to its own log under
+    DRYRUN_OUT: (exit code, seconds, its end on the host's clock)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(DRYRUN_OUT / f"{name}.log", "w") as logf:
+        rc = subprocess.run(argv, cwd=ROOT, env=env, stdout=logf,
+                            stderr=subprocess.STDOUT,
+                            timeout=DRYRUN_JOB_TIMEOUT_S).returncode
+    end = time.perf_counter()
+    return rc, end - t0, end
+
+
+@contextlib.contextmanager
+def fake_traces():
+    """The fake traces of phase_dryrun, run beside the phases inside this
+    block: the three one-rank cases and the production sweep, one process
+    a case, DRYRUN_WORKERS at a time, the train cases (the longest) first.
+    Yields ({name: future of `_run_fake_trace`'s tuple}, start); on
+    leaving, the traces not started are cancelled and the running ones
+    waited for."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    jobs = [(f"fake_{name}", [sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--fake-case", name, "--out",
+                              str(DRYRUN_OUT / f"fake_{name}.json")])
+            for name in dryrun_cases()]
+    jobs += [(f"sweep_{arch}__{shape}", [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+        "--shape", shape, "--out", str(DRYRUN_OUT), "--force"])
+        for arch in DRYRUN_SWEEP_ARCHS for shape in SHAPES_BY_NAME]
+    jobs.sort(key=lambda j: "train" not in j[0])     # stable otherwise
+    pool = concurrent.futures.ThreadPoolExecutor(DRYRUN_WORKERS)
+    t0 = time.perf_counter()
+    try:
+        yield {name: pool.submit(_run_fake_trace, name, argv)
+               for name, argv in jobs}, t0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_dryrun(device, traces):
+    """The dry run held to the card: each one-rank case of `dryrun_cases`
+    run for real (inputs drawn from a seed, the step under
+    `FlopCounterMode`, the VEDS slot step eager as on fake tensors, every
+    kernel count set to 0 first), then against its fake trace (`traces`):
+    argument bytes and FLOPs equal, each kernel's calls in the trace equal
+    to its launches on the card, the fake peak of live bytes within
+    DRYRUN_PEAK_TOL of `max_memory_allocated` (both from the bytes live
+    before the step, less the arguments); then the fake production sweep
+    of DRYRUN_SWEEP_ARCHS at pod16x16, with its time. `traces`: what
+    `fake_traces` yields."""
+    from unittest import mock
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core import veds as veds_mod
+    from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_fwd
+    from repro_torch.kernels.veds_score.ops import veds_dt_score
+    from repro_torch.launch.dryrun import storage_bytes
+    from repro_torch.launch.op_costs import FLOP_FORMULAS
+    from repro_torch.launch.specs import build_case
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    counters = {"repro::flash_attention_fwd": flash_attention_fwd,
+                "repro::ssd_scan_fwd": ssd_scan_fwd,
+                "repro::fedavg_agg": fedavg_agg,
+                "repro::veds_dt_score": veds_dt_score}
+    res = {"cases": {}, "sweep": {}}
+    for name, (cfg, shape, cut) in dryrun_cases().items():
+        free()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        step, args = build_case(cfg, shape, {"data": 1, "model": 1}, device)
+        args_b = storage_bytes(args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with mock.patch.object(veds_mod, "_slots_graphed",
+                               veds_mod._slots_eager), \
+                FlopCounterMode(display=False,
+                                custom_mapping=FLOP_FORMULAS) as fc:
+            out = step(*args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        real_peak = torch.cuda.max_memory_allocated() - base + args_b
+        if shape.kind == "train":
+            stats = out[1]
+            log("dryrun", f"{name}: {int(stats['n_success'])} of "
+                f"{cfg.num_vehicles} uploads succeeded")
+        else:
+            logits = out[0] if shape.kind == "decode" else out
+            check(bool(torch.isfinite(logits).all()),
+                  f"dryrun {name}: logits not finite")
+            check(logits.shape[0] == shape.global_batch,
+                  f"dryrun {name}: logits {tuple(logits.shape)}")
+        del out, step, args
+        launches = {op: c.launches for op, c in counters.items()}
+        res["cases"][name] = dict(
+            cut=cut, argument_bytes=args_b, build_s=build_s, step_s=step_s,
+            launches=launches, flop_counter=fc.get_total_flops(),
+            real_peak_bytes=real_peak)
+        log("dryrun", f"{name} ({cut}) on the card: inputs built in "
+            f"{build_s:.1f} s, the step (VEDS slots eager, under "
+            f"FlopCounterMode) {step_s:.1f} s: arguments {args_b / 1e9:.3f} "
+            f"GB, FLOPs {fc.get_total_flops():.4e}, peak "
+            f"{real_peak / 1e9:.3f} GB, launches "
+            f"{ {k.split('::')[1]: v for k, v in launches.items()} }")
+        free()
+
+    futures, t0 = traces
+    done = {name: f.result() for name, f in futures.items()}
+    sweep_s = max(end for _, _, end in done.values()) - t0
+    for name, (rc, secs, _) in sorted(done.items()):
+        log("dryrun", f"fake trace {name}: exit {rc} in {secs:.1f} s")
+        check(rc == 0, f"fake trace {name} exited {rc} (see "
+              f"chiprun_out/dryrun_torch/{name}.log)")
+    for name, r in res["cases"].items():
+        fake = json.loads((DRYRUN_OUT / f"fake_{name}.json").read_text())
+        r["fake"] = fake
+        calls = fake["kernels"]
+        peak_err = abs(fake["peak_bytes"] - r["real_peak_bytes"]) / \
+            r["real_peak_bytes"]
+        r["peak_rel_err"] = peak_err
+        log("dryrun", f"{name}: fake trace {fake['wall_s']:.1f} s, "
+            f"{fake['n_ops']} ops; arguments {fake['memory']['argument_bytes']}"
+            f" B (card {r['argument_bytes']}), FLOPs "
+            f"{fake['deep_cost']['dot_flops']:.6e} (card "
+            f"{r['flop_counter']:.6e}), peak {fake['peak_bytes'] / 1e9:.3f} "
+            f"GB (card {r['real_peak_bytes'] / 1e9:.3f}, {peak_err:.4f} "
+            f"apart), kernel calls {calls}")
+        check(fake["memory"]["argument_bytes"] == r["argument_bytes"],
+              f"dryrun {name}: fake and card argument bytes differ")
+        check(fake["deep_cost"]["dot_flops"] == r["flop_counter"],
+              f"dryrun {name}: fake FLOPs {fake['deep_cost']['dot_flops']} "
+              f"against the card's {r['flop_counter']}")
+        for op, n in r["launches"].items():
+            check(calls.get(op, 0) == n,
+                  f"dryrun {name}: {op} called {calls.get(op, 0)} times in "
+                  f"the trace, launched {n} times on the card")
+        check(peak_err <= DRYRUN_PEAK_TOL,
+              f"dryrun {name}: fake peak {fake['peak_bytes']} B against the "
+              f"card's {r['real_peak_bytes']} B")
+    zl = res["cases"]["zamba2_train"]["launches"]
+    check(all(n > 0 for n in zl.values()),
+          f"dryrun zamba2_train launched some kernel no time: {zl}")
+    for arch in DRYRUN_SWEEP_ARCHS:
+        for shape in SHAPES_BY_NAME:
+            rec = json.loads((DRYRUN_OUT / f"{arch}__{shape}__pod16x16.json")
+                             .read_text())
+            rec["job_s"] = done[f"sweep_{arch}__{shape}"][1]
+            res["sweep"][f"{arch}__{shape}"] = rec
+            m = rec["memory"]
+            log("dryrun", f"sweep {arch} {shape} pod16x16 rank 0: "
+                f"arguments {m['argument_bytes'] / 1e9:.3f} GB, temp "
+                f"{m['temp_bytes'] / 1e9:.3f} GB, FLOPs "
+                f"{rec['cost']['flops']:.4e}, collectives "
+                f"{ {k: v for k, v in rec['collectives_bytes'].items() if v} }"
+                f", traced in {rec['timings']['trace_s']} s ({rec['job_s']:.1f}"
+                f" s with start-up)")
+    res["sweep_wall_s"] = sweep_s
+    log("dryrun", f"the fake traces (3 one-rank cases and the "
+        f"{len(res['sweep'])}-case sweep, {DRYRUN_WORKERS} at a time) took "
+        f"{sweep_s:.1f} s from the first's start to the last's end")
+    return res
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]) \
-        .parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fake-case", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
               "GPU only", file=sys.stderr)
@@ -4800,6 +5017,8 @@ def main(argv=None) -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
+    if args.fake_case:
+        return fake_case_main(args.fake_case, args.out)
     from repro_torch.kernels.build import load_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4823,6 +5042,21 @@ def main(argv=None) -> int:
         elif "registers" in line or "spill" in line:
             log("build", f"{entry}: {line.strip()}")
 
+    return run_phases(device, smi, build_s, t_start)
+
+
+def run_phases(device, smi, build_s, t_start) -> int:
+    """Every phase after the build, in order: first those whose times are
+    compared across runs, then, beside the dry run's fake traces (host
+    work, `fake_traces`), those that hold values and the dry run. Each
+    group of phases logs its wall time and the script's time so far."""
+    last = [time.perf_counter()]
+
+    def mark(done: str) -> None:
+        now = time.perf_counter()
+        log("time", f"{done}: {now - last[0]:.1f} s (script at "
+            f"{now - t_start:.1f} s)")
+        last[0] = now
     # the serving path's [B, S] at fig10's width on its occupancy rungs
     # (B 1 is the stream shape's)
     serve_shapes = {f"serve_b{b}": (b, SERVE_FIG10["n_sov"])
@@ -4834,9 +5068,9 @@ def main(argv=None) -> int:
                                              "v2i_only", *serve_shapes))
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
+    mark("kernels")
     decode = phase_decode(device)
-    model_axis = phase_model_axis(device)
-    model_axis_ssm = phase_model_axis_ssm(device)
+    mark("decode")
     main_res, setup = phase_main(device, ROUNDS, ROUND_BATCH)
     stages = phase_stages(device, setup)
     ref = phase_reference(device)
@@ -4846,12 +5080,14 @@ def main(argv=None) -> int:
     compare_ref = phase_compare_reference(device)
     stream_compare = phase_stream_compare(device, setup)
     mesh = phase_mesh(device, setup)
+    mark("run_fl, streaming, the comparison and the mesh")
     del setup
     free()
     serve_ref = phase_serve_reference(device)
     serve = phase_serve(device)
     free()
     serve_front = phase_serve_front(device)
+    mark("serving")
     free()
     vfl = phase_vfl(device, vfl_config("qwen3-32b", VFL_REPS), VFL_WARMUP,
                     VFL_ROUNDS, VFL_BATCH, VFL_SEQ, VFL_LR,
@@ -4874,6 +5110,7 @@ def main(argv=None) -> int:
                         RECORDED_MASKS["granite-moe-1b-a400m"])
     free()
     moe = phase_moe(device, gcfg, VFL_BATCH, VFL_SEQ)
+    mark("the VFL rounds of qwen3, zamba2 and granite")
     free()
     # the last two families at full width and depth: xLSTM, and whisper's
     # encoder with the cross-attention fed from it
@@ -4902,34 +5139,48 @@ def main(argv=None) -> int:
             free()
         new_vfl[arch] = (cfg, res)
     xlstm, whisper = new_vfl["xlstm-1.3b"][1], new_vfl["whisper-small"][1]
-    sensitivity = {
-        "qwen3-32b": forward_sensitivity(
-            device, vfl_config("qwen3-32b", VFL_REPS), VFL_SEQ),
-        "zamba2-2.7b": forward_sensitivity(device, zcfg, VFL_SEQ),
-        "granite-moe-1b-a400m": forward_sensitivity(device, gcfg, VFL_SEQ),
-        **{arch: forward_sensitivity(device, cfg, VFL_SEQ)
-           for arch, (cfg, _) in new_vfl.items()}}
-    free()
-    vfl_ref = {"qwen3-32b": phase_vfl_reference(device, "qwen3-32b", 2,
-                                                atol=2e-4),
-               "zamba2-2.7b": phase_vfl_reference(device, "zamba2-2.7b", 2,
-                                                  update_rtol=1e-1)}
-    # the configurations without qk-norm, held as their CPU tests hold
-    # them (tests/torch_ref_vfl.py MODEL_TOL)
-    for arch in ("granite-moe-1b-a400m", "llama4-scout-17b-a16e",
-                 "starcoder2-15b", "codeqwen1.5-7b", "minitron-4b"):
-        vfl_ref[arch] = phase_vfl_reference(device, arch, 2,
-                                            update_rtol=2e-2)
-    # the last three families, whisper's and llama-3.2-vision's with src;
-    # whisper at one encoder layer and one repetition, where the
-    # reference's round is well conditioned at its init, as its CPU test
-    # holds it (tests/test_torch_encdec.py)
-    vfl_ref["xlstm-1.3b"] = phase_vfl_reference(device, "xlstm-1.3b", 1,
+    mark("the VFL rounds of xlstm and whisper")
+    # no time below is compared across runs: the phases hold values (the
+    # model axis's ranks share the one card over gloo) beside the dry
+    # run's fake traces
+    with fake_traces() as traces:
+        model_axis = phase_model_axis(device)
+        mark("model_axis (beside the fake traces)")
+        model_axis_ssm = phase_model_axis_ssm(device)
+        mark("model_axis_ssm (beside the fake traces)")
+        sensitivity = {
+            "qwen3-32b": forward_sensitivity(
+                device, vfl_config("qwen3-32b", VFL_REPS), VFL_SEQ),
+            "zamba2-2.7b": forward_sensitivity(device, zcfg, VFL_SEQ),
+            "granite-moe-1b-a400m": forward_sensitivity(device, gcfg,
+                                                        VFL_SEQ),
+            **{arch: forward_sensitivity(device, cfg, VFL_SEQ)
+               for arch, (cfg, _) in new_vfl.items()}}
+        free()
+        vfl_ref = {"qwen3-32b": phase_vfl_reference(
+                       device, "qwen3-32b", 2, atol=2e-4),
+                   "zamba2-2.7b": phase_vfl_reference(
+                       device, "zamba2-2.7b", 2, update_rtol=1e-1)}
+        # the configurations without qk-norm, held as their CPU tests hold
+        # them (tests/torch_ref_vfl.py MODEL_TOL)
+        for arch in ("granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+                     "starcoder2-15b", "codeqwen1.5-7b", "minitron-4b"):
+            vfl_ref[arch] = phase_vfl_reference(device, arch, 2,
                                                 update_rtol=2e-2)
-    vfl_ref["whisper-small"] = phase_vfl_reference(
-        device, "whisper-small", 1, update_rtol=2e-2, encoder_layers=1)
-    vfl_ref["llama-3.2-vision-90b"] = phase_vfl_reference(
-        device, "llama-3.2-vision-90b", 1, update_rtol=2e-2)
+        # the last three families, whisper's and llama-3.2-vision's with
+        # src; whisper at one encoder layer and one repetition, where the
+        # reference's round is well conditioned at its init, as its CPU
+        # test holds it (tests/test_torch_encdec.py)
+        vfl_ref["xlstm-1.3b"] = phase_vfl_reference(
+            device, "xlstm-1.3b", 1, update_rtol=2e-2)
+        vfl_ref["whisper-small"] = phase_vfl_reference(
+            device, "whisper-small", 1, update_rtol=2e-2, encoder_layers=1)
+        vfl_ref["llama-3.2-vision-90b"] = phase_vfl_reference(
+            device, "llama-3.2-vision-90b", 1, update_rtol=2e-2)
+        mark("sensitivity and the card-vs-CPU rounds")
+        free()
+        dryrun = phase_dryrun(device, traces)
+    mark("dryrun")
 
     def by_path(name):
         out = {"vfl_qwen3": vfl["launches"][name],
@@ -4969,6 +5220,12 @@ def main(argv=None) -> int:
                         for x in ma["serve"][tp]["ranks"]]
             out["model_axis_vfl_per_rank"] = [
                 x["launches"][name] for x in ma["vfl"]["ranks"]]
+        op = {"veds_score": "repro::veds_dt_score",
+              "flash_attention": "repro::flash_attention_fwd",
+              "ssd_scan": "repro::ssd_scan_fwd",
+              "fedavg_agg": "repro::fedavg_agg"}[name]
+        for case, r in dryrun["cases"].items():
+            out[f"dryrun_{case}"] = r["launches"][op]
         if name == "veds_score":
             out["run_fl"] = main_res["launches"][name]
             out["stream_run_fl"] = stream["warm"]["launches"][name]
@@ -5088,7 +5345,7 @@ def main(argv=None) -> int:
         vfl=vfl, vfl_zamba2=zamba2,
         vfl_granite=granite, moe=moe, vfl_xlstm=xlstm, vfl_whisper=whisper,
         sensitivity=sensitivity,
-        vfl_reference=vfl_ref), indent=1, default=str))
+        vfl_reference=vfl_ref, dryrun=dryrun), indent=1, default=str))
     log("device", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included")
     log("device", smi)

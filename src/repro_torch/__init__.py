@@ -36,3 +36,13 @@ def device_scalar(x, like: torch.Tensor) -> torch.Tensor:
     if torch.is_tensor(x):
         return x
     return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether `x` is, or an op on it makes, a fake tensor
+    (`torch._subclasses.fake_tensor.FakeTensorMode`): one that stands
+    for a tensor on its device and holds no data, so its values cannot
+    be read and no CUDA graph can capture work on it."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return _is_fake(x) or detect_fake_mode() is not None

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch import is_fake
 from repro_torch.channel.v2x import ChannelParams
 from repro_torch.core import lyapunov as lyp
 from repro_torch.core.scheduler import (RoundOutputs, SchedulerCarry,
@@ -449,8 +450,8 @@ def veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
 
     Accepts single-cell or batched rounds on any device; outputs match
     the input layout and device. On a CUDA device the slots are replays
-    of one captured slot graph, on the CPU a Python loop over the same
-    step. `carry` seeds the virtual energy queues (eqs. 19-20); None
+    of one captured slot graph, on the CPU (and on fake tensors, which a
+    graph cannot capture: the dry run) a Python loop over the same step. `carry` seeds the virtual energy queues (eqs. 19-20); None
     starts them at zero. The round-end queues come back in
     `RoundOutputs.carry`.
 
@@ -461,7 +462,7 @@ def veds_round(rnd: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams, *,
     `carry.p4` comes back None.
     """
     return _veds_round(rnd, prm, ch, enable_cot=enable_cot, carry=carry,
-                       graphed=rnd.g_sr.is_cuda)
+                       graphed=rnd.g_sr.is_cuda and not is_fake(rnd.g_sr))
 
 
 def _round_state(rb: RoundInputs, prm: lyp.VedsParams, ch: ChannelParams,

@@ -26,13 +26,22 @@ all-reduces over those axes, as the reference's shard_map body psums:
 den = sum of the weights, num = sum of fp32(x) * w / max(den, 1e-9),
 the old leaf kept where den = 0, cast to the leaf's dtype.
 
-On a (V, M) ("data", "model") mesh each rank holds its vehicle's block
-of the model (`sharding.model_axis.shard_params`), runs its local SGD
-with the model axis's collectives (the vocab-parallel loss included)
-and aggregates over the vehicle group of its model coordinate: the same
-two all-reduces, leaf block by leaf block. Every replicated leaf gets
-its whole gradient on every rank, so the ranks of a vehicle keep equal
-copies.
+On a (V, M) ("data", "model") mesh, or a (P, D, M) ("pod", "data",
+"model") one with the vehicles over (pod, data), each rank holds its
+vehicle's block of the model (`sharding.model_axis.shard_params`), runs
+its local SGD with the model axis's collectives (the vocab-parallel loss
+included) and aggregates over the vehicle group of its model coordinate:
+the same two all-reduces, leaf block by leaf block. Every replicated
+leaf gets its whole gradient on every rank, so the ranks of a vehicle
+keep equal copies.
+
+Two more layouts of a vehicle's ranks (`sharding/fsdp.py pick_layout`,
+the reference's `launch/specs.py:pick_rules`): under FSDP (the
+one-vehicle configs) the parameters' `embed` dims are split over the
+data axis and gathered on use, the batch split over it too when the
+round federates one vehicle; under the `dp` profile the parameters are
+replicated over the model axis and each vehicle's batch is split over
+it, the gradient all-reduced over it.
 """
 from __future__ import annotations
 
@@ -48,7 +57,9 @@ from repro_torch.kernels.fedavg_agg.ops import fedavg_agg_tree
 from repro_torch.models import engine
 from repro_torch.models import layers as L
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
-from repro_torch.sharding.model_axis import model_axis
+from repro_torch.sharding.fsdp import average_grads, layout_axis, \
+    pick_layout
+from repro_torch.sharding.model_axis import LOCAL, model_axis
 from repro_torch.sharding.rules import mesh_shape
 
 
@@ -75,15 +86,17 @@ def vehicle_axes(mesh, num_vehicles: int) -> Tuple[str, ...]:
 
 
 def _vehicle_group(mesh, v_axes):
-    """(process group, this rank's vehicle index) of the vehicle axes."""
-    if len(v_axes) == 1 and not isinstance(mesh, Mapping):
+    """(process group, this rank's vehicle index) of the vehicle axes:
+    one axis's group, or over ("pod", "data") the flattened group of the
+    ranks that share this rank's model coordinate (index pod * data +
+    data, the reference's flattened vehicle index). A mapping is one
+    world of vehicles."""
+    if isinstance(mesh, Mapping):
+        return dist.group.WORLD, dist.get_rank()
+    if len(v_axes) == 1:
         return mesh.get_group(v_axes[0]), mesh.get_local_rank(v_axes[0])
-    if model_axis(mesh).size > 1:
-        raise NotImplementedError(
-            f"vehicles over the axes {v_axes} beside a model axis: the "
-            f"round takes one vehicle axis beside a model axis")
-    # both pod and data (or a mapping): the vehicles are the whole world
-    return dist.group.WORLD, dist.get_rank()
+    sub = mesh[v_axes]._flatten()
+    return sub.get_group(), sub.get_local_rank()
 
 
 def lm_loss(params, batch, cfg: ModelConfig, tp: str,
@@ -106,7 +119,7 @@ def _local_sgd(params, batch, cfg: ModelConfig, tp: str,
     `mesh=`."""
     A = max(cfg.grad_accum, 1)
     ax = model_axis(mesh)
-    if ax.size > 1:
+    if ax != LOCAL:
         loss_fn = functools.partial(loss_fn, mesh=ax)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     tree = tree_unflatten(params, leaves)
@@ -116,6 +129,9 @@ def _local_sgd(params, batch, cfg: ModelConfig, tp: str,
               for k, x in batch.items()}
         g = torch.autograd.grad(loss_fn(tree, mb, cfg, tp), leaves)
         acc = list(g) if acc is None else [s + gi for s, gi in zip(acc, g)]
+    if ax.fsdp is not None or ax.batch is not None:
+        acc = average_grads(
+            acc, tree_leaves(engine.fsdp_dims(cfg, tp)[0]), ax)
     dst = [None] * len(leaves) if out is None else tree_leaves(out)
     new = []
     for i, p in enumerate(leaves):
@@ -134,7 +150,8 @@ def _vehicle(tree, v: int):
 
 def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
                    loss_fn: Callable = lm_loss, lr: float = 0.1,
-                   stage_hook: Optional[Callable[[str], None]] = None):
+                   stage_hook: Optional[Callable[[str], None]] = None,
+                   layout: Optional[str] = None, split_batch: bool = True):
     """Builds round_fn(params_v, batch_v, mask, weights) -> params_v.
 
     params_v: leading [V] axis; batch_v leaves [V, b, ...];
@@ -143,12 +160,17 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     "local_sgd" and "aggregate" stages (a caller may time them). Over
     the vehicle axes of a mesh (`vehicle_axes`), params_v and batch_v
     hold this rank's vehicle ([1, ...] leaves), over a model axis its
-    block of the vehicle's model."""
+    block of the vehicle's model. `layout` (`sharding/fsdp.py
+    pick_layout` of `cfg` unless named) and `split_batch` choose the
+    layout of a vehicle's ranks (`layout_axis`): under "fsdp" params_v
+    hold this rank's FSDP block (`shard_params(..., fsdp_rules())`), and
+    batch_v its rows of the vehicle's batch where the batch is split."""
     V = cfg.num_vehicles
-    if mesh is not None:
+    layout = layout or pick_layout(cfg)
+    if mesh is not None and layout != "dp":
         engine.check_model_axis(cfg, tp, mesh_shape(mesh).get("model", 1))
+    ax = layout_axis(mesh, layout, split_batch)
     v_axes = vehicle_axes(mesh, V)
-    ax = model_axis(mesh)
     hook = stage_hook or (lambda name: None)
 
     if v_axes:
@@ -211,7 +233,9 @@ def make_train_step(cfg: ModelConfig, mesh=None, tp: str = "head", *,
                     lr: float = 0.1, inline_scheduler: bool = False,
                     veds_prm=None, ch_prm=None, stream=None, sched=None,
                     sc=None, mob=None,
-                    stage_hook: Optional[Callable[[str], None]] = None):
+                    stage_hook: Optional[Callable[[str], None]] = None,
+                    layout: Optional[str] = None,
+                    split_batch: bool = True):
     """Train step: (params_v, batch_v, round_inputs, weights) ->
     (params_v, stats).
 
@@ -232,7 +256,8 @@ def make_train_step(cfg: ModelConfig, mesh=None, tp: str = "head", *,
     masks; `stats` holds `n_success` [R] and `mask` [R, V]. Over a
     mesh's vehicle axes every rank schedules the same run and takes the
     masks of cell 0; `batches_v` hold this rank's vehicle."""
-    round_fn = make_vfl_round(cfg, mesh, tp, lr=lr, stage_hook=stage_hook)
+    round_fn = make_vfl_round(cfg, mesh, tp, lr=lr, stage_hook=stage_hook,
+                              layout=layout, split_batch=split_batch)
     hook = stage_hook or (lambda name: None)
     V = cfg.num_vehicles
 

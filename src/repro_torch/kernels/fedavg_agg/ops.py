@@ -13,6 +13,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import (check_device, register_cost,
+                                 through_operator)
 from repro_torch.kernels.build import load_library
 from repro_torch.models.module import tree_map
 
@@ -37,8 +39,20 @@ def fedavg_agg(x: torch.Tensor, w: torch.Tensor,
                old: torch.Tensor) -> torch.Tensor:
     """x [V, L] (float32 or bfloat16), w [V] float32, old [L] in x's
     dtype -> [L] in x's dtype: the w-weighted mean of the rows of x, or
-    `old` where w sums to 0. Adds one to `fedavg_agg.launches` each time
-    it launches the kernel."""
+    `old` where w sums to 0, through the custom operator
+    `torch.ops.repro.fedavg_agg` where a mode must see it
+    (`through_operator`). Adds one to `fedavg_agg.launches` each time it
+    launches the kernel."""
+    check_device("fedavg_agg", x)
+    op = torch.ops.repro.fedavg_agg if through_operator(x) \
+        else _fedavg_agg_impl
+    return op(x, w, old)
+
+
+def _fedavg_agg_impl(x: torch.Tensor, w: torch.Tensor,
+                     old: torch.Tensor) -> torch.Tensor:
+    """The operator's implementation: the plain version on the CPU, the
+    kernel on CUDA."""
     if x.device.type == "cpu":
         return fedavg_agg_plain(x, w, old)
     if x.device.type != "cuda":
@@ -77,6 +91,24 @@ def fedavg_agg(x: torch.Tensor, w: torch.Tensor,
 
 
 fedavg_agg.launches = 0
+_fedavg_agg_op = torch.library.custom_op(
+    "repro::fedavg_agg", mutates_args=())(_fedavg_agg_impl)
+
+
+@_fedavg_agg_op.register_fake
+def _(x, w, old):
+    return torch.empty_like(old)
+
+
+def fedavg_agg_cost(x, w, old):
+    """(operations, bytes) of the aggregation: x read once, out written
+    once (old is read only when every upload failed), w read; 2V + 1
+    float32 operations an element."""
+    V, L = x.shape
+    return (2 * V + 1) * L, (V + 1) * L * x.element_size() + 4 * V
+
+
+register_cost(torch.ops.repro.fedavg_agg, fedavg_agg_cost)
 
 
 def fedavg_agg_tree(params_v, w: torch.Tensor, old_tree):

@@ -24,8 +24,11 @@ import ctypes
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import (check_device, register_cost,
+                                 through_operator)
 from repro_torch.kernels.build import load_library
 
 NEG_INF = -1e30
@@ -98,13 +101,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: Optional[int] = None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out [B, T, H, D] in q's dtype, lse [B, H, T] float32).
-    Adds one to `flash_attention_fwd.launches` each time it launches a
-    kernel, and names its entry point in `flash_attention_fwd.entry`."""
+    """Returns (out [B, T, H, D] in q's dtype, lse [B, H, T] float32),
+    through the custom operator `torch.ops.repro.flash_attention_fwd`
+    where a mode must see it (`through_operator`). Adds one to
+    `flash_attention_fwd.launches` each time it launches a kernel, and
+    names its entry point in `flash_attention_fwd.entry`."""
     _check(q, k, v, window)
+    check_device("flash_attention", q)
+    op = torch.ops.repro.flash_attention_fwd if through_operator(q) \
+        else _flash_attention_impl
+    return op(q, k, v, causal, window, q_offset)
+
+
+def _flash_attention_impl(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool,
+                          window: Optional[int], q_offset: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's implementation: the plain version on the CPU, the
+    kernel of the inputs' dtype on CUDA. Both give contiguous outputs, as
+    the fake implementation does."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
+        out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset)
+        return out.contiguous(), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -145,6 +164,42 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.entry = None
+_flash_attention_op = torch.library.custom_op(
+    "repro::flash_attention_fwd", mutates_args=())(_flash_attention_impl)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window, q_offset):
+    B, T, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, T), dtype=torch.float32)
+
+
+def _kept_pairs(T: int, S: int, causal: bool, window: Optional[int],
+                q_offset: int) -> int:
+    """The (query, key) pairs the masks keep, counted per query row:
+    query q_offset + t sees keys lo..hi."""
+    t = np.arange(T, dtype=np.int64) + q_offset
+    hi = np.minimum(S - 1, t) if causal else np.full(T, S - 1)
+    lo = np.maximum(0, t - window + 1) if window is not None \
+        else np.zeros(T, dtype=np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_attention_cost(q, k, v, causal: bool = True,
+                         window: Optional[int] = None, q_offset: int = 0):
+    """(operations, bytes) of the forward: 2 * 2 * D operations per
+    (query, key) pair the masks keep (q k and p v), causal
+    4 B H D T (T + 1) / 2; q, k, v read once, out and the float32 lse
+    written once."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    ops = 4 * B * H * D * _kept_pairs(T, S, causal, window, q_offset)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + B * H * T * 4
+    return ops, nbytes
+
+
+register_cost(torch.ops.repro.flash_attention_fwd, flash_attention_cost)
 
 
 def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,

@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import (check_device, register_cost,
+                                 through_operator)
 from repro_torch.kernels.build import load_library
 
 # what the kernels are compiled for (their `dispatch` and `launch`)
@@ -60,6 +62,21 @@ def _pad_to_chunk(v, b, c, log_a, chunk: int):
         c = F.pad(c, (0, 0, 0, pad))
         log_a = F.pad(log_a, (0, 0, 0, pad))
     return chunk, v, b, c, log_a
+
+
+def _kernel_chunk(chunk: int, T: int) -> int:
+    """The chunk the kernels run T steps in: a sequence shorter than a
+    kernel's chunk runs as one such chunk, padded (the reference's
+    min(chunk, T) may be a chunk the kernels do not take, e.g. zamba2's
+    128 over a 64-token prompt)."""
+    return chunk if chunk in CHUNKS else min(chunk, T)
+
+
+def _padded_len(T: int, chunk: int) -> int:
+    """The length the kernels pad T steps to: a multiple of their
+    chunk."""
+    k = _kernel_chunk(chunk, T)
+    return T + (-T) % k
 
 
 def ssd_scan_plain(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -155,11 +172,28 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  state0: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [B, T, H, P] in v's dtype, final state [B, H, N, P]
-    float32). Adds one to `ssd_scan_fwd.launches` each time it launches a
-    kernel, and names its entry point in `ssd_scan_fwd.entry`."""
+    float32), through the custom operator `torch.ops.repro.ssd_scan_fwd`
+    where a mode must see it (`through_operator`). Adds one to
+    `ssd_scan_fwd.launches` each time it launches a kernel, and names its
+    entry point in `ssd_scan_fwd.entry`."""
     _check(v, b, c, log_a, state0)
+    check_device("ssd_scan", v)
+    op = torch.ops.repro.ssd_scan_fwd if through_operator(v) \
+        else _ssd_scan_impl
+    return op(v, b, c, log_a, chunk, state0)
+
+
+def _ssd_scan_impl(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                   log_a: torch.Tensor, chunk: int,
+                   state0: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's implementation: the plain version on the CPU (y
+    contiguous), the kernel of the inputs' dtype on CUDA (y the first T
+    steps of the padded sequence the kernel wrote, `_padded_len`): the
+    layouts the fake implementation gives on each device."""
     if v.device.type == "cpu":
-        return ssd_scan_plain(v, b, c, log_a, chunk, state0)
+        y, state = ssd_scan_plain(v, b, c, log_a, chunk, state0)
+        return y.contiguous(), state
     if v.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {v.device}")
     if v.dtype not in ENTRY_POINTS:
@@ -180,11 +214,8 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                              f"(the bf16 kernel loads it by cp.async)")
     B, T, H, P = v.shape
     N = b.shape[-1]
-    # a sequence shorter than a kernel's chunk runs as one such chunk,
-    # padded (the reference's min(chunk, T) may be a chunk the kernels do
-    # not take, e.g. zamba2's 128 over a 64-token prompt)
-    k = chunk if chunk in CHUNKS else min(chunk, T)
-    chunk, vp, bp, cp, lp = _pad_to_chunk(v, b, c, log_a, k)
+    chunk, vp, bp, cp, lp = _pad_to_chunk(v, b, c, log_a,
+                                          _kernel_chunk(chunk, T))
     if chunk not in CHUNKS or N != STATE_DIM or P != HEAD_DIM:
         raise ValueError(f"ssd_scan: the kernel takes chunk in {CHUNKS} "
                          f"(after min(chunk, T)), N = {STATE_DIM} and P = "
@@ -208,6 +239,37 @@ def ssd_scan_fwd(v: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 ssd_scan_fwd.launches = 0
 ssd_scan_fwd.entry = None
+_ssd_scan_op = torch.library.custom_op(
+    "repro::ssd_scan_fwd", mutates_args=())(_ssd_scan_impl)
+
+
+@_ssd_scan_op.register_fake
+def _(v, b, c, log_a, chunk, state0):
+    B, T, H, P = v.shape
+    state = v.new_empty((B, H, b.shape[-1], P), dtype=torch.float32)
+    if v.device.type != "cuda":
+        return torch.empty_like(v), state
+    padded = v.new_empty((B, _padded_len(T, chunk), H, P))
+    return padded.as_strided(v.shape, padded.stride()), state
+
+
+def ssd_scan_cost(v, b, c, log_a, chunk: int = 128, state0=None):
+    """(operations, bytes) of the scan, as the Pallas kernel does it: per
+    row, head and chunk of C = min(chunk, T) the C x C scores over N, W v
+    over P, c S and the state update over N x P, 2 operations a
+    multiply-add; v, b, c, log_a (and state0) read once, y and the
+    float32 final state written once."""
+    B, T, H, P = v.shape
+    N = b.shape[-1]
+    C = min(chunk, T)
+    n_chunks = -(-T // C)
+    ops = B * H * n_chunks * (2 * C * C * (N + P) + 4 * C * N * P)
+    nbytes = (2 * v.numel() + 2 * b.numel()) * v.element_size() \
+        + B * T * H * 4 + B * H * N * P * 4 * (1 if state0 is None else 2)
+    return ops, nbytes
+
+
+register_cost(torch.ops.repro.ssd_scan_fwd, ssd_scan_cost)
 
 
 class SsdScanFn(torch.autograd.Function):

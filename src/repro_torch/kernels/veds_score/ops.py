@@ -20,13 +20,20 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import (check_device, register_cost,
+                                 through_operator)
 from repro_torch.kernels.build import load_library
 
 LN2 = 0.6931471805599453
 NEG = -1e30
+# a candidate moves 13 bytes in (g, q, w fp32, e bool) and 12 out (y, p, z
+# fp32), for 24 fp32 operations (log1p counted as one)
+VEDS_BYTES_PER_ELEM = 25
+VEDS_OPS_PER_ELEM = 24
 # g, q, w, e, y, p, z pointers; n; V, kappa, bw, noise, p_max; the run
 # counter (or null); stream
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
@@ -125,11 +132,18 @@ class _VedsDtScore:
         return count
 
     def __call__(self, g, q, w, e, *, V, kappa, bw, noise, p_max):
-        kw = dict(V=V, kappa=kappa, bw=bw, noise=noise, p_max=p_max)
-        if g.device.type == "cpu":
-            return veds_dt_score_plain(g, q, w, e, **kw)
-        if g.device.type != "cuda":
-            raise ValueError(f"veds_dt_score: unsupported device {g.device}")
+        """Through the custom operator `torch.ops.repro.veds_dt_score`
+        where a mode must see it (`through_operator`)."""
+        check_device("veds_dt_score", g)
+        if through_operator(g):
+            return torch.ops.repro.veds_dt_score(
+                g, q, w, e, float(V), float(kappa), float(bw), float(noise),
+                float(p_max))
+        return _veds_dt_score_impl(g, q, w, e, V, kappa, bw, noise, p_max)
+
+    def _launch(self, g, q, w, e, V, kappa, bw, noise, p_max):
+        """The operator's implementation on CUDA tensors: the checks,
+        then the kernel's launch."""
         for name, x, dtype in (("g", g, torch.float32),
                                ("q", q, torch.float32),
                                ("w", w, torch.float32),
@@ -160,3 +174,36 @@ class _VedsDtScore:
 
 
 veds_dt_score = _VedsDtScore()
+
+
+def _veds_dt_score_impl(g: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                        e: torch.Tensor, V: float, kappa: float, bw: float,
+                        noise: float, p_max: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The operator's implementation: the plain version on the CPU, the
+    kernel on CUDA."""
+    if g.device.type == "cpu":
+        return veds_dt_score_plain(g, q, w, e, V=V, kappa=kappa, bw=bw,
+                                   noise=noise, p_max=p_max)
+    if g.device.type != "cuda":
+        raise ValueError(f"veds_dt_score: unsupported device {g.device}")
+    return veds_dt_score._launch(g, q, w, e, V, kappa, bw, noise, p_max)
+
+
+_veds_dt_score_op = torch.library.custom_op(
+    "repro::veds_dt_score", mutates_args=())(_veds_dt_score_impl)
+
+
+@_veds_dt_score_op.register_fake
+def _(g, q, w, e, V, kappa, bw, noise, p_max):
+    return tuple(torch.empty_like(g, dtype=torch.float32) for _ in range(3))
+
+
+def veds_dt_score_cost(g, q, w, e, *args, **kwargs):
+    """(operations, bytes) of the scoring: `VEDS_OPS_PER_ELEM` and
+    `VEDS_BYTES_PER_ELEM` a candidate."""
+    n = g.numel()
+    return VEDS_OPS_PER_ELEM * n, VEDS_BYTES_PER_ELEM * n
+
+
+register_cost(torch.ops.repro.veds_dt_score, veds_dt_score_cost)

@@ -16,24 +16,32 @@ over gloo (NCCL refuses two ranks on one card), to rehearse a model axis
 on a machine with one card, as the reference rehearses on forced host
 devices. Its tensors stay on the card; gloo runs `all_reduce` (SUM,
 MAX), `all_gather` and `broadcast` on them through host memory
-(README.md), so it measures no tensor-parallel speed. (`make_production_mesh`,
-the reference's TPU pod topology, comes with `launch/specs.py`; ROADMAP
-queue 1 item 9.)
+(README.md), so it measures no tensor-parallel speed.
+
+`make_production_mesh` is the reference's production topology, a
+("data", "model") mesh of 16 x 16 ranks or a ("pod", "data", "model")
+one of 2 x 16 x 16, over a fake world (PyTorch's fake process-group
+backend: collectives return at once and move nothing), with this process
+as one rank of it: what the dry run (`launch/dryrun.py`) runs one rank's
+step in, on fake tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import datetime
+import math
 import os
 import signal
 import sys
 import tempfile
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import resolve_device
 from repro_torch.sharding import mesh_exec
 from repro_torch.sharding.mesh_exec import world_device
 
@@ -119,6 +127,47 @@ def make_host_mesh(model: int = 1):
                          f"world of {n} ranks")
     return init_device_mesh(world_device().type, (n // model, model),
                             mesh_dim_names=("data", "model"))
+
+
+# the reference's production meshes (`repro/launch/mesh.py`): one pod of
+# 16 x 16, or two
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], names: Sequence[str], *, rank: int = 0,
+              device=None):
+    """A `DeviceMesh` of `shape` over a fake world of prod(shape) ranks,
+    this process being `rank`, on `device` (CUDA unless named). The world
+    is destroyed on exit. Refuses to start while a world is initialized:
+    the fake one would replace it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        raise RuntimeError("a world is already initialized; a fake world "
+                           "runs only in a process without one")
+    n = math.prod(shape)
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside a world of {n}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield init_device_mesh(dev.type, tuple(shape),
+                               mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(multi_pod: bool = False, *, rank: int = 0,
+                         device=None):
+    """The production mesh (`PRODUCTION_MESHES`) over a fake world, as a
+    context manager yielding the `DeviceMesh` of rank `rank`."""
+    shape, names = PRODUCTION_MESHES[bool(multi_pod)]
+    return fake_mesh(shape, names, rank=rank, device=device)
 
 
 def _die_with_parent() -> None:

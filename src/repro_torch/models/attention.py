@@ -157,7 +157,7 @@ def _append(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
     bool tensor) the row is written only where it is true, and the old
     row is written back elsewhere: the reference's masked append into
     a sequence-sharded cache, with no host sync."""
-    idx = idx.reshape(1)
+    idx = idx.reshape(1).long()        # pos may be int32, as the reference's
     new = new[:, None].to(cache.dtype)
     if owner is not None:
         new = torch.where(owner, new, cache.index_select(1, idx))

@@ -63,6 +63,7 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import attention as att
 from repro_torch.models import layers as L
 from repro_torch.models.module import declare
+from repro_torch.sharding.fsdp import batch_mean
 from repro_torch.sharding.model_axis import (LOCAL, ModelAxis, copy_to,
                                              gather_from, model_axis,
                                              reduce_from, scatter_to)
@@ -277,11 +278,13 @@ def moe_decl(cfg: ModelConfig, tp: str):
     return p
 
 
-def _router(p, h, cfg: ModelConfig):
+def _router(p, h, cfg: ModelConfig, ax: ModelAxis = LOCAL):
     """Top-k routing of h [..., d]: (gate [..., k] f32, eidx [..., k]
     int64, the load-balance aux loss). `engine.model_decl` casts the
     fp32-declared router to the params' dtype; the reference's einsum of
-    float32 h with it promotes it back to float32, as this cast does."""
+    float32 h with it promotes it back to float32, as this cast does.
+    Over a batch axis (`ax.batch`, training) the aux loss is the whole
+    batch's: its two per-expert means are averaged over the ranks."""
     logits = torch.einsum("...d,de->...e", h.to(torch.float32),
                           p["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
@@ -298,6 +301,8 @@ def _router(p, h, cfg: ModelConfig):
     ce = torch.zeros_like(me).index_add_(
         0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
                             dtype=me.dtype, device=me.device))
+    if ax.batch is not None:
+        me, ce = batch_mean(me, ax), batch_mean(ce, ax)
     aux = cfg.num_experts * torch.sum(me * ce)
     return gate, eidx, aux
 
@@ -365,14 +370,22 @@ class _Combine(torch.autograd.Function):
                             0.0), None, None, None, None)
 
 
-def moe_route(p, x, cfg: ModelConfig, groups: int = 16):
+def moe_route(p, x, cfg: ModelConfig, groups: int = 16,
+              ax: ModelAxis = LOCAL):
     """The router half of `moe_apply`: (h [B,T,d], gate [G,n,k],
     eidx [G,n,k], aux), with the tokens in G = gcd(B, groups) groups of
-    n = B*T/G, as the reference groups them."""
+    n = B*T/G, as the reference groups them. Over a batch axis of D ranks
+    (`ax.batch`, each rank B of the vehicle's B*D rows) a rank takes its
+    G/D of the whole batch's G = gcd(B*D, groups) groups, where D divides
+    G: the same groups, and capacities, as one process."""
     B, T, d = x.shape
     h = L.rmsnorm(p["ln"], x)
+    if ax.batch is not None:
+        D = ax.batch.size
+        whole = _gcd(B * D, groups)
+        groups = whole // D if whole % D == 0 else groups
     G = _gcd(B, groups)
-    gate, eidx, aux = _router(p, h.reshape(G, (B * T) // G, d), cfg)
+    gate, eidx, aux = _router(p, h.reshape(G, (B * T) // G, d), cfg, ax)
     return h, gate, eidx, aux
 
 
@@ -469,7 +482,7 @@ def moe_experts(p, x, h, gate, eidx, cfg: ModelConfig, mesh=None):
 def moe_apply(p, x, cfg: ModelConfig, groups: int = 16, mesh=None, **_):
     """Group-local sort-based dispatch, per-group capacity dropping,
     standard token-choice top-k. Returns (x + MoE(x), aux)."""
-    h, gate, eidx, aux = moe_route(p, x, cfg, groups)
+    h, gate, eidx, aux = moe_route(p, x, cfg, groups, model_axis(mesh))
     return moe_experts(p, x, h, gate, eidx, cfg, mesh=mesh), aux
 
 

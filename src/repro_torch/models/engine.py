@@ -39,6 +39,12 @@ params, model_decl(cfg, tp))`) and, for decode, of the cache
 logits returned are the whole vocab's (all-gathered), except where
 `forward(..., gather_logits=False)` leaves each rank its columns for the
 vocab-parallel loss (`layers.softmax_cross_entropy(..., mesh=mesh)`).
+
+Over an FSDP axis as well (`ModelAxis.fsdp`, `sharding/fsdp.py`: the
+one-vehicle configs under the reference's `fsdp_rules`) each leaf's
+`embed` dim is this rank's block too: a sub-block's weights are gathered
+where it runs (inside its checkpointed call, so the backward gathers
+them again), the leaves outside the blocks once a call.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.module import Declared, declare, tree_map
+from repro_torch.sharding import fsdp
 from repro_torch.sharding.model_axis import all_reduce_sum, model_axis
 from repro_torch.sharding.policy import pad_vocab
 from repro_torch.sharding.rules import default_rules
@@ -144,6 +151,57 @@ def llm_params_from_jax(tree, device=None):
 
 
 @functools.lru_cache(maxsize=None)
+def fsdp_dims(cfg: ModelConfig, tp: str):
+    """`fsdp.embed_dims` of `model_decl(cfg, tp)`: the whole tree's (for
+    the gradients), and each stacked block's and the encoder's per
+    repetition (for the gathers)."""
+    decl = model_decl(cfg, tp)
+    whole = fsdp.embed_dims(decl)
+    blocks = [fsdp.embed_dims(b, stacked=True) for b in decl["blocks"]]
+    enc = fsdp.embed_dims(decl["encoder"]["blocks"], stacked=True) \
+        if "encoder" in decl else None
+    return whole, blocks, enc
+
+
+def _top(params, cfg: ModelConfig, tp: str, ax):
+    """`params` with its leaves outside the blocks (the embedding, the
+    final norm, the LM head, the projector, the encoder's position table
+    and norm) gathered over the FSDP axis, if there is one."""
+    if ax.fsdp is None:
+        return params
+    whole = fsdp_dims(cfg, tp)[0]
+    out = dict(params)
+    for k in ("embed", "final_norm", "lm_head", "projector"):
+        if k in params:
+            out[k] = fsdp.gather(params[k], whole[k], ax)
+    if "encoder" in params:
+        enc = whole["encoder"]
+        out["encoder"] = dict(
+            params["encoder"],
+            pos=fsdp.gather(params["encoder"]["pos"], enc["pos"], ax),
+            final_norm=fsdp.gather(params["encoder"]["final_norm"],
+                                   enc["final_norm"], ax))
+    return out
+
+
+def _block(params, i: int, r: int):
+    """Pattern position i's parameters at repetition r (the weight-tied
+    tree where it is shared), not yet gathered over an FSDP axis."""
+    return params["shared"].get(str(i)) or tree_map(
+        lambda a: a[r], params["blocks"][i])
+
+
+def _gather_block(p, i: int, cfg: ModelConfig, tp: str, ax):
+    """`_block`'s tree gathered over the FSDP axis, if there is one."""
+    if ax.fsdp is None:
+        return p
+    whole, blocks, _ = fsdp_dims(cfg, tp)
+    dims = whole["shared"][str(i)] if str(i) in whole["shared"] \
+        else blocks[i]
+    return fsdp.gather(p, dims, ax)
+
+
+@functools.lru_cache(maxsize=None)
 def check_model_axis(cfg: ModelConfig, tp: str, n: int) -> None:
     """Raise a ValueError if a model axis of `n` ranks does not divide a
     dim of `cfg`'s parameters that the default rules split over it
@@ -186,9 +244,12 @@ def _encode(params, cfg: ModelConfig, src: torch.Tensor,
     """Whisper-style bidirectional encoder over stub frame embeddings:
     no rope, no causal mask, no remat."""
     enc = params["encoder"]
+    ax = model_axis(mesh)
     x = src.to(cfg.dtype) + enc["pos"].to(cfg.dtype)[None]
     for r in range(cfg.encoder_layers):
         blk = tree_map(lambda a: a[r], enc["blocks"])
+        if ax.fsdp is not None:
+            blk = fsdp.gather(blk, fsdp_dims(cfg, tp)[2], ax)
         x = B.attn_apply(blk["attn"], x, cfg, tp=tp, kind="attn",
                          causal=False, positions=None, mesh=mesh)
         x = B.mlp_apply(blk["mlp"], x, cfg, mesh=mesh)
@@ -217,6 +278,7 @@ def build_cross_cache(cfg: ModelConfig, params, cache, src, tp: str,
     slots (row mode: from its d/n columns, the partial sums reduced).
     Returns a new list; the other positions keep their trees."""
     ax = model_axis(mesh)
+    params = _top(params, cfg, tp, ax)
     mem = source_memory(params, cfg, src, tp, ax)
     row = ax.size > 1 and tp == "row"
     if ax.size > 1:
@@ -228,6 +290,10 @@ def build_cross_cache(cfg: ModelConfig, params, cache, src, tp: str,
         if kind != "cross":
             continue
         bp = params["blocks"][i]
+        if ax.fsdp is not None:
+            dims = fsdp_dims(cfg, tp)[0]["blocks"][i]
+            bp = fsdp.gather({k: bp[k] for k in ("wk", "wv")},
+                             {k: dims[k] for k in ("wk", "wv")}, ax)
         ks = torch.einsum("bsd,rdhk->rbshk", mem, bp["wk"].to(mem.dtype))
         vs = torch.einsum("bsd,rdhk->rbshk", mem, bp["wv"].to(mem.dtype))
         if row:
@@ -266,13 +332,14 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
     `gather_logits=False` the logits are this rank's vocab columns."""
     ax = model_axis(mesh)
     check_model_axis(cfg, tp, ax.size)
+    params = _top(params, cfg, tp, ax)
     Bsz, T = tokens.shape
     x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
     memory = source_memory(params, cfg, src, tp, ax)
     positions = L.rope_positions(T, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def apply_one(kind, p, x):
+    def apply_one(i, kind, p, x):
         fn = _APPLY[kind]
         kw = dict(mesh=ax)
         if kind in ("attn", "attn_swa", "cross"):
@@ -282,7 +349,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
                       seq_shard=seq_shard and kind != "cross")
 
         def call(p, x):
-            return fn(p, x, cfg, **kw)
+            return fn(_gather_block(p, i, cfg, tp, ax), x, cfg, **kw)
 
         if cfg.remat and torch.is_grad_enabled():
             return checkpoint(call, p, x, use_reentrant=False)
@@ -290,13 +357,12 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
 
     for r in range(cfg.n_rep):
         for i, kind in enumerate(cfg.pattern):
-            p = params["shared"].get(str(i)) or tree_map(
-                lambda a: a[r], params["blocks"][i])
+            p = _block(params, i, r)
             if kind == "moe":
-                x, a = apply_one(kind, p, x)
+                x, a = apply_one(i, kind, p, x)
                 aux = aux + a
             else:
-                x = apply_one(kind, p, x)
+                x = apply_one(i, kind, p, x)
     x = L.rmsnorm(params["final_norm"], x)
     if last_logit_only:
         x = x[:, -1:]
@@ -379,12 +445,12 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     rank's blocks and the logits are the whole vocab's."""
     ax = model_axis(mesh)
     check_model_axis(cfg, tp, ax.size)
+    params = _top(params, cfg, tp, ax)
     x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
     for r in range(cfg.n_rep):
         for i, kind in enumerate(cfg.pattern):
             ek = effective_kind(kind, force_swa)
-            p = params["shared"].get(str(i)) or tree_map(
-                lambda a: a[r], params["blocks"][i])
+            p = _gather_block(_block(params, i, r), i, cfg, tp, ax)
             slot = {k: v[r] for k, v in cache[i].items()}
             kw = dict(tp=tp) if ek in ("attn", "attn_swa", "cross") else {}
             x, new = _DECODE[ek](p, x, slot, pos, cfg, ax, **kw)

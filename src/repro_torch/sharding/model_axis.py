@@ -20,8 +20,8 @@ of autograd functions (the tensor-parallel layers of Megatron-LM):
 
 `all_reduce_max` (no gradient) serves the maxima of a vocab-parallel
 softmax and of the flash-decode merge. These use `all_reduce` (SUM,
-MAX) and `all_gather` only. A `ModelAxis` of one rank issues no
-collective: every function returns its input, and the layers take their
+MAX) and `all_gather_into_tensor` only. A `ModelAxis` of one rank issues
+no collective: every function returns its input, and the layers take their
 one-device path.
 """
 from __future__ import annotations
@@ -41,11 +41,20 @@ from repro_torch.sharding.rules import (LogicalRules, default_rules,
 class ModelAxis:
     """The model axis as one rank sees it: the process group of the
     ranks that share this rank's other coordinates (None for one rank),
-    this rank's coordinate on it and its size."""
+    this rank's coordinate on it and its size.
+
+    Two more axes of a vehicle's ranks may ride along, each itself a
+    `ModelAxis` of its group (`sharding/fsdp.py`): `fsdp`, the axis the
+    parameters' `embed` dims are split over and gathered on use (the
+    reference's `fsdp_rules`), and `batch`, the axis the vehicle's batch
+    is split over in training (the data axis under FSDP, the model axis
+    under the `dp` profile), over which the gradients are averaged."""
 
     group: Optional[Any]
     rank: int
     size: int
+    fsdp: Optional["ModelAxis"] = None
+    batch: Optional["ModelAxis"] = None
 
     def block(self, n: int) -> tuple:
         """(start, length) of this rank's block of a dim of `n`."""
@@ -73,8 +82,7 @@ def model_axis(mesh) -> ModelAxis:
     if isinstance(mesh, Mapping):
         raise ValueError(f"a model axis of {n} needs a DeviceMesh over an "
                          f"initialized world, not the mapping {dict(mesh)}")
-    return ModelAxis(mesh.get_group("model"), mesh.get_local_rank("model"),
-                     n)
+    return mesh_axis(mesh, "model")
 
 
 def shard_params(mesh, params, decl, rules: Optional[LogicalRules] = None):
@@ -91,18 +99,33 @@ def shard_params(mesh, params, decl, rules: Optional[LogicalRules] = None):
 
 
 def gather_params(mesh, params, decl, rules: Optional[LogicalRules] = None):
-    """The whole tree from every rank's block (`shard_params`'s inverse):
-    each leaf all-gathered over the model axis along its dims that map
-    to it. A collective: every rank of the model group calls it."""
+    """The whole tree from every rank's block (`shard_params`'s inverse
+    for parameters): each leaf all-gathered over the model axis along
+    its dims that map to it, and under `fsdp_rules` over the data axis
+    along its `embed` dim. A collective: every rank of those groups
+    calls it."""
     rules = default_rules() if rules is None else rules
     ax = model_axis(mesh)
+    data = mesh_axis(mesh, "data") if rules.mesh_axis("embed") == "data" \
+        and mesh_shape(mesh).get("data", 1) > 1 else LOCAL
 
-    def whole(x, axes):
-        for dim, a in enumerate(axes):
+    def whole(x, d):
+        for dim, a in enumerate(d.axes):
             if ax.size > 1 and rules.mesh_axis(a) == "model":
                 x = _all_gather(x, ax, dim)
+            elif data.size > 1 and a == "embed":
+                x = _all_gather(x, data, dim)
         return x
-    return tree_map(whole, params, axes_of(decl))
+    return tree_map(whole, params, decl)
+
+
+def mesh_axis(mesh, name: str) -> ModelAxis:
+    """The axis `name` of a `DeviceMesh` as this rank sees it (its group,
+    this rank's coordinate and its size), as a `ModelAxis`."""
+    n = mesh_shape(mesh)[name]
+    if n == 1:
+        return LOCAL
+    return ModelAxis(mesh.get_group(name), mesh.get_local_rank(name), n)
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +138,25 @@ def _all_reduce(x: torch.Tensor, ax: ModelAxis, op=dist.ReduceOp.SUM):
     return y
 
 
+# the tensor forms of the collectives under the name this torch gives them
+# (newer releases rename them and warn on the old names)
+_all_gather_into = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter_from = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
 def _all_gather(x: torch.Tensor, ax: ModelAxis, dim: int):
+    """The ranks' `x` joined along `dim`, in rank order: one
+    `all_gather_into_tensor` along dim 0, moved to `dim`."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(ax.size)]
-    dist.all_gather(parts, x, group=ax.group)
-    return torch.cat(parts, dim=dim)
+    out = x.new_empty((ax.size * x.shape[0],) + tuple(x.shape[1:]))
+    _all_gather_into(out, x, group=ax.group)
+    if dim == 0:
+        return out
+    parts = out.view(ax.size, *x.shape).movedim(0, dim)
+    return parts.reshape(*x.shape[:dim], ax.size * x.shape[dim],
+                         *x.shape[dim + 1:])
 
 
 def _slice(x: torch.Tensor, ax: ModelAxis, dim: int):

@@ -233,6 +233,35 @@ def test_entry_points_default_to_cuda_and_refuse_to_fall_back(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_pins_the_references_axes_and_shape(monkeypatch,
+                                                            multi_pod):
+    """`launch/mesh.py:make_production_mesh`'s topology is the
+    reference's: the shape and axis names its `jax.make_mesh` call asks
+    for (read without building 512 devices), and the port's fake world
+    gives a `DeviceMesh` of them."""
+    from repro.launch import mesh as jmesh
+    from repro_torch.launch.mesh import (PRODUCTION_MESHES,
+                                         make_production_mesh)
+    monkeypatch.setattr(jmesh.jax, "make_mesh",
+                        lambda shape, axes, **_: (tuple(shape), tuple(axes)))
+    assert jmesh.make_production_mesh(multi_pod=multi_pod) == \
+        PRODUCTION_MESHES[multi_pod]
+    with make_production_mesh(multi_pod, device="cpu") as mesh:
+        assert (tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names)) == \
+            PRODUCTION_MESHES[multi_pod]
+
+
+def test_dryrun_defaults_to_cuda_and_refuses_to_fall_back(monkeypatch):
+    """The dry run's device is CUDA unless named: without one it raises
+    before any case, as the entry points do."""
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_case("minitron-4b", "decode_32k", False, "/nonexistent",
+                        force=True)
+
+
 def _builders():
     from repro_torch.core import scenario as scn
     from repro_torch.core.solver import p4_seed_table

@@ -13,6 +13,7 @@ needed):
     python3 tests/torch_chip_probes.py model-axis # two phases of chip_smoke
     python3 tests/torch_chip_probes.py model-axis-ssm [no-kernels]
     python3 tests/torch_chip_probes.py model-axis-ssm-depth
+    python3 tests/torch_chip_probes.py kernel-times
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -76,6 +77,13 @@ full width in fp32 (zamba2 at full depth and at 1 repetition, xlstm at
 1), and in bf16 at zamba2's 1 repetition and xlstm's batch of 8, each
 beside its one-ulp witness; then (c)'s VFL round of zamba2 at 1
 repetition in fp32 and in bf16. Checks logged, not raised.
+
+`kernel-times`: each kernel's wrapper timed eagerly at the shapes of
+`chip_smoke.py`'s kernel phases, as the whole script times them:
+`veds_score` at the main path's, the service's and the large shapes
+(`phase_kernels`), then `phase_kernels_ssd` and `phase_kernels_llm`.
+Copied into another checkout and run from there, it times that
+checkout's wrappers, so two commits' can be compared on one card.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -487,13 +495,22 @@ def model_axis_ssm_depth(device) -> None:
                             vfl_runs=vfl)
 
 
+def kernel_times(device) -> None:
+    serve = {f"serve_b{b}": (b, cs.SERVE_FIG10["n_sov"]) for b in (2, 4, 8)}
+    cs.phase_kernels({"main": (cs.ROUND_BATCH, 10), **serve,
+                      "large": (1 << 22,)}, device)
+    cs.phase_kernels_ssd(device)
+    cs.phase_kernels_llm(device)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
               "decode": decode, "decode-loops": decode_loops,
               "gloo-cuda": gloo_cuda, "model-axis": model_axis,
               "model-axis-ssm": model_axis_ssm,
-              "model-axis-ssm-depth": model_axis_ssm_depth}
+              "model-axis-ssm-depth": model_axis_ssm_depth,
+              "kernel-times": kernel_times}
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)
