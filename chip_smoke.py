@@ -6,16 +6,18 @@ It builds the port's CUDA kernels from the sources in the checkout, holds
 each kernel against its plain PyTorch version on the card (`flash_attention`
 and `ssd_scan` in both variants: bf16 inputs on the tensor-core kernels,
 fp32 on the CUDA-core ones, each case checked to reach its dtype's entry
-point), and drives the port's three main paths, each checked and each
-with its kernel launches counted from 0:
+point; `p4_solve` on a VEDS slot's candidates at fig10's width, cold, warm
+and adaptive), and drives the port's three main paths, each checked and
+each with its kernel launches counted from 0:
 
 - `run_fl`, blocked, VEDS + CNN FedAvg at the paper's full width (40
   clients, S=U=10 vehicles, T=60 slots, batch 32, the 6-conv CIFAR CNN),
   with its stages timed and traced and the block's schedule run again
   with the slot step eager, then the card against the CPU on a small
   input. On the card `veds_round` replays one captured CUDA graph of the
-  VEDS slot step per slot; every phase that schedules logs the graphs it
-  captured, and the graph is held to the eager step bit for bit;
+  VEDS slot step per slot, its P4 solves one `p4_solve` launch; every
+  phase that schedules logs the graphs it captured, and the graph is
+  held to the eager step bit for bit;
 - `run_fl(streaming=True)`, the paper's own loop, at the same setting: a
   persistent fleet, carried queues and the warm P4 table riding the
   slot graph, 20 rounds with eval every 5 inside the loop, then 5 rounds
@@ -278,9 +280,12 @@ SSD_ENTRY = {torch.bfloat16: "ssd_scan_fwd_bf16_sm90",
              torch.float32: "ssd_scan_fwd_f32"}
 # the ssd_scan cases of phase_kernels_ssd timed beside their bounds
 SSD_TIMED = ("main", "serve_prefill", "ma_main", "ma_serve_prefill")
+# the device events of a traced schedule listed by name, most first
+TRACE_TOP_OPS = 20
 # the VFL rounds' schedule masks as measured with the CUDA-core kernels
-# (NVIDIA H100 80GB HBM3, 700 W, PERF.md section 5); no kernel touches
-# the schedule, so they must be the same
+# (NVIDIA H100 80GB HBM3, 700 W, PERF.md section 5); the model's kernels
+# do not touch the schedule, and `p4_solve` makes the decisions the plain
+# P4 made, so they must be the same
 RECORDED_MASKS = {
     "qwen3-32b": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]],
     "zamba2-2.7b": [[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]],
@@ -451,6 +456,150 @@ def veds_inputs(shape, seed: int, device):
     return gain, q, w, e
 
 
+def p4_slot_inputs(device, B: int, slot: int, warm: bool):
+    """The arguments of `solve_p4` at slot `slot` of an eager VEDS round
+    of B cells at fig10's width (S = U = 10, T = slot + 1, seed 0):
+    cold, or warm at STREAM_WARM_ITERS from the seed table carried over
+    the slots before, as the slot step threads it. Recorded by wrapping
+    `core/veds.py`'s `solve_p4`; returns the contiguous (cw, a, q, d,
+    p_max), p_init (None cold) and the keyword arguments."""
+    from unittest import mock
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core import veds as V
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import (ScenarioParams, make_round,
+                                           round_generator)
+    from repro_torch.core.scheduler import SchedulerCarry
+    from repro_torch.core.solver import p4_seed_table
+    sc = ScenarioParams(n_sov=10, n_opv=10, n_slots=slot + 1)
+    prm = VedsParams(ipm_warm_iters=STREAM_WARM_ITERS if warm else 0)
+    ch = ChannelParams()
+    rnd = V.RoundInputs.stack([
+        make_round(round_generator(0, r, device), sc, ManhattanParams(), ch,
+                   prm) for r in range(B)])
+    carry = SchedulerCarry(
+        qs=torch.zeros((B, 10), device=device),
+        qu=torch.zeros((B, 10), device=device),
+        p4=p4_seed_table((B, 10, 10, 11), ch.p_max, device)) \
+        if warm else None
+    calls, real = [], V.solve_p4
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+    with mock.patch.object(V, "solve_p4", record):
+        V._veds_round(rnd, prm, ch, enable_cot=True, carry=carry,
+                      graphed=False)
+    args, kw = calls[slot]
+    p_init = kw.pop("p_init")
+    return ([x.contiguous() for x in args],
+            None if p_init is None else p_init.contiguous(), kw)
+
+
+def p4_kernel_cases(device):
+    """`p4_solve` against its plain version on the card at the main path's
+    shapes (`p4_slot_inputs`): run_fl's block cold ([3, 10, 10, 11]), the
+    streaming path's warm solve ([1, 10, 10, 11] at slot 5), the
+    service's B 8, and the adaptive budget (warm 10, far 25, the far
+    threshold split at the seeds' median): powers within 2e-5 W plus the
+    rtol and values within the rtol (1e-4 cold, 5e-2 warm), in the box
+    and finite; adaptive: each candidate's tier (its result is bit for
+    bit its near- or far-tier solve) is the plain version's far mask.
+    Each timed eagerly beside the plain version, and from a CUDA graph of
+    10 launches (bit for bit its eager launch) beside the floor of that
+    setting, with its bound from `p4_work` at the tiers the data takes."""
+    from repro_torch.kernels.p4_solve.ops import (
+        _polish_count, _project_feasible, p4_budget, p4_solve,
+        p4_solve_plain, p4_work, seed_grad_norms, split_far_tol)
+    cases = {"main": (ROUND_BATCH, 0, False, {}),
+             "stream": (1, 5, True, {}),
+             "serve_b8": (8, 5, True, {}),
+             "adaptive": (1, 5, True, dict(far_iters=25))}
+    one = torch.zeros(1, device=device)
+    floor_ms, _ = graph_ms(lambda: one.add_(1.0))
+    res = {"graph_floor_ms": floor_ms}
+    for label, (B, slot, warm, extra) in cases.items():
+        cand, p_init, kw = p4_slot_inputs(device, B, slot, warm)
+        kw.update(extra)
+        cw, a, q, d, pm = cand
+        g0 = None
+        if extra:
+            g0 = seed_grad_norms(
+                cw, a, q, _project_feasible(p_init, d, pm, margin=0.5))
+            kw["far_grad_tol"] = split_far_tol(g0)
+        rtol = 5e-2 if warm else 1e-4
+
+        def kernel(**over):
+            with p4_solve.uncounted():
+                return p4_solve(*cand, p_init, **{**kw, **over})
+        p, v = kernel()
+        rp, rv = p4_solve_plain(*cand, p_init, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(p).all() and torch.isfinite(v).all()
+                   and ((p >= 0) & (p <= pm)).all()),
+              f"p4_solve {label}: powers not finite or outside the box")
+        check(bool(((p - rp).abs() <= 2e-5 + rtol * rp.abs()).all()
+                   and ((v - rv).abs() <= 1e-9 + rtol * rv.abs()).all()),
+              f"p4_solve {label}: kernel disagrees with the plain version "
+              f"beyond rtol {rtol}")
+        err = max(float((p - rp).abs().max()), float((v - rv).abs().max()))
+        n, n_cand = a.shape[-1], cw.numel()
+        adaptive, n_it, n_run = p4_budget(kw["iters"], warm,
+                                          kw["warm_iters"], kw["far_iters"],
+                                          kw["far_grad_tol"])
+        n_far = n_cand
+        if adaptive:
+            near = kernel(far_iters=0, far_grad_tol=0.0)[0]
+            far = kernel(warm_iters=kw["far_iters"], far_iters=0,
+                         far_grad_tol=0.0)[0]
+            is_near, is_far = (p == near).all(-1), (p == far).all(-1)
+            told = ~(is_near & is_far)
+            want = g0 > kw["far_grad_tol"]
+            parted = told & (is_far != want)
+            check(bool((is_near | is_far).all()) and not bool(parted.any()),
+                  f"p4_solve {label}: the kernel's tiers part from the "
+                  f"plain version's far mask (threshold "
+                  f"{kw['far_grad_tol']!r}, seed norms "
+                  f"{g0[parted].tolist()})")
+            n_far = int(want.sum())
+        ops, nbytes = (x + y for x, y in zip(
+            p4_work(n_far, n, n_run, _polish_count(n_run, kw["iters"]),
+                    warm, adaptive),
+            p4_work(n_cand - n_far, n, n_it, _polish_count(n_it,
+                                                           kw["iters"]),
+                    warm, adaptive)))
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+        ms = time_ms(kernel, 50)
+        plain_ms = time_ms(lambda: p4_solve_plain(*cand, p_init, **kw), 2,
+                           samples=7, warmup=2)
+        # 10 launches a graph: at ~0.3 ms a launch, 100 would take ~16 s
+        g_ms, g_out = graph_ms(kernel, reps=10, inner=5)
+        check(torch.equal(g_out[0], p) and torch.equal(g_out[1], v),
+              f"p4_solve {label}: launched from a CUDA graph, the kernel "
+              f"differs from its eager launch")
+        res[label] = dict(
+            shape=list(a.shape), warm=warm, adaptive=adaptive,
+            n_far=n_far, newton_steps=[n_run, n_it], max_abs_err=err,
+            tolerance=f"2e-5 W + rtol {rtol} (p), 1e-9 + rtol {rtol} "
+                      f"(value)", ms=ms, plain_ms=plain_ms,
+            graph_ms=g_ms, graph_floor_ms=floor_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            ops=ops, bytes=nbytes, library_ms=None)
+        log("kernels", f"p4_solve {label} {list(a.shape)}"
+            f"{' warm' if warm else ' cold'}"
+            f"{f' adaptive ({n_far} of {n_cand} far)' if adaptive else ''}:"
+            f" max_abs_err {err:.3e} (tolerance {res[label]['tolerance']})"
+            f" kernel {ms:.5f} ms plain {plain_ms:.5f} ms; from a CUDA "
+            f"graph of 10 launches {g_ms:.5f} ms a launch, bit for bit its "
+            f"eager launch (floor {floor_ms:.5f} ms); bound "
+            f"{res[label]['bound_ms']:.7f}"
+            f" ms ({res[label]['bound_by']}: {ops} fp32 ops, {nbytes} B)")
+    return res
+
+
 def flash_used(out, lse, ref, ref_lse, allow: float = 1.0) -> float:
     """The share of its bound that flash_attention's worst entry uses
     against the plain version's (1 = at the bound; inf where the output
@@ -538,7 +687,9 @@ def phase_kernels(shapes, device, graphed=()):
     """Each kernel against its plain version on the card, and timed; at
     the shapes in `graphed` also launched from a CUDA graph of 100
     launches (bit for bit against the plain version), beside the floor of
-    that setting: a one-element PyTorch op captured the same way."""
+    that setting: a one-element PyTorch op captured the same way. Then
+    `p4_solve` at the main path's shapes (`p4_kernel_cases`), under the
+    result's key "p4_solve"."""
     from repro_torch.core.lyapunov import VedsParams
     from repro_torch.channel.v2x import ChannelParams
     from repro_torch.kernels.veds_score.ops import (veds_dt_score,
@@ -587,6 +738,7 @@ def phase_kernels(shapes, device, graphed=()):
             f"of 100 launches: {g_ms:.5f} ms a launch, bit for bit as the "
             f"plain version; floor (a one-element add_ in the same "
             f"setting) {floor_ms:.5f} ms; eager {ms:.5f} ms")
+    res["p4_solve"] = p4_kernel_cases(device)
     return res
 
 
@@ -617,6 +769,7 @@ def make_fl_setup(device, rounds: int, round_batch: int):
 def phase_main(device, rounds: int, round_batch: int):
     from repro_torch.core.veds import _SlotGraph
     from repro_torch.fl.simulator import run_fl
+    from repro_torch.kernels.p4_solve.ops import p4_solve
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.models.cnn import cnn_accuracy, cnn_loss
     import dataclasses
@@ -634,12 +787,14 @@ def phase_main(device, rounds: int, round_batch: int):
         f"{time.perf_counter() - t0:.2f} s")
 
     veds_dt_score.launches = 0
+    p4_solve.launches = 0
     captures = _SlotGraph.captures
     t0 = time.perf_counter()
     hist = run_fl(0, params, cnn_loss, client_data, sim, eval_fn=eval_fn,
                   eval_every=1, device=device)
     wall = time.perf_counter() - t0          # run_fl synchronises at exit
-    launches = {"veds_score": veds_dt_score.launches}
+    launches = {"veds_score": veds_dt_score.launches,
+                "p4_solve": p4_solve.launches}
     captures = _SlotGraph.captures - captures
 
     n_blocks = math.ceil(rounds / round_batch)
@@ -651,11 +806,11 @@ def phase_main(device, rounds: int, round_batch: int):
     log("main", f"n_success {hist['n_success']} test_acc "
         f"{[round(m, 4) for m in hist['metric']]}")
     log("main", f"launches on the main path: {launches} (expected "
-        f"veds_score {want} = {n_blocks} blocks x T {sim.n_slots}); slot "
-        f"graphs captured: {captures}")
-    check(launches["veds_score"] == want,
-          f"veds_score launched {launches['veds_score']} times on the main "
-          f"path, expected {want}")
+        f"veds_score and p4_solve {want} each = {n_blocks} blocks x T "
+        f"{sim.n_slots}); slot graphs captured: {captures}")
+    for k in ("veds_score", "p4_solve"):
+        check(launches[k] == want, f"{k} launched {launches[k]} times on "
+              f"the main path, expected {want}")
     check(hist["scheduled_rounds"] == rounds and
           hist["round"] == list(range(rounds)), "history rounds")
     check(all(0 <= s <= sim.n_sov for s in hist["n_success"]),
@@ -677,8 +832,9 @@ def phase_stages(device, setup):
     reads the device's busy time (the sum of its kernels' and copies'
     times) and their number. The idle share is reported only where the
     trace holds the `veds_score` launches of the graph's replays, and that
-    trace must see one `veds_score` run a slot. The same trace then holds
-    the schedule alone, which must see one `veds_score` run a slot too.
+    trace must see one `veds_score` and one `p4_solve` run a slot. The
+    same trace then holds the schedule alone, which must see the same,
+    and whose device events are listed by name.
     Each part opens on two eager kernels run to their end, which the
     summary leaves out and which mark where the schedule's part
     begins."""
@@ -806,13 +962,17 @@ def phase_stages(device, setup):
     sched_res["events_per_slot"] = sched_res["device_events"] / sim.n_slots
     log("stages", f"traced schedule alone ({sched_res['events_per_slot']:.1f}"
         f" device events a slot): " + trace_line(sched_res))
-    # one veds_score run a slot seen by the profiler, apart from the
-    # kernel's own count, in each part
+    log("stages", "the traced schedule's device events by name (a slot, "
+        "ms in all): " + "; ".join(f"{name[:60]} {c:.2f}, {ms:.3f}"
+                                   for name, c, ms in sched_res["by_name"]))
+    # one veds_score run and one p4_solve run a slot seen by the
+    # profiler, apart from the kernels' own counts, in each part
     for part, res in (("block", prof_res), ("schedule", sched_res)):
-        check(res["veds_score_events"] == sim.n_slots,
-              f"stages: the traced {part} ran veds_score "
-              f"{res['veds_score_events']} times on the card, expected "
-              f"one a slot ({sim.n_slots})")
+        for k in ("veds_score", "p4_solve"):
+            check(res[f"{k}_events"] == sim.n_slots,
+                  f"stages: the traced {part} ran {k} {res[f'{k}_events']}"
+                  f" times on the card, expected one a slot "
+                  f"({sim.n_slots})")
     return dict(rounds=B, graph_captures=captures, **times,
                 profile=prof_res, profile_schedule=sched_res)
 
@@ -841,10 +1001,18 @@ def trace_summary(events, wall_ms: float, n_slots: int, opener=None):
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     n_veds = sum("veds_score" in e.name for e in events)
     whole = busy_ms > 0 and n_veds == n_slots and seen != 0
+    # the device events by name: count a slot and total ms, most first
+    by_name = {}
+    for e in events:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.device_time_total / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP_OPS]
     return dict(traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_events=len(events), veds_score_events=n_veds,
+                p4_solve_events=sum("p4_solve" in e.name for e in events),
                 idle_share=(1.0 - busy_ms / wall_ms) if whole else None,
-                opener_seen=seen, slot_events=slot_events)
+                opener_seen=seen, slot_events=slot_events,
+                by_name=[[name, c / n_slots, ms] for name, (c, ms) in top])
 
 
 def trace_line(res) -> str:
@@ -853,7 +1021,8 @@ def trace_line(res) -> str:
                  "openers)")
     return (f"wall {res['traced_wall_ms']:.1f} ms, device busy "
             f"{res['device_busy_ms']:.1f} ms in {res['device_events']} "
-            f"device events ({res['veds_score_events']} of veds_score; "
+            f"device events ({res['veds_score_events']} of veds_score, "
+            f"{res['p4_solve_events']} of p4_solve; "
             f"events before the first, between two and after the last: "
             f"{res['slot_events']}; openers held {res['opener_seen']}), "
             f"idle share {idle}")
@@ -974,6 +1143,7 @@ def phase_stream(device, setup):
                                             round_key, stream_rounds)
     from repro_torch.core.veds import _SlotGraph, _veds_round, veds_round
     from repro_torch.fl.simulator import run_fl
+    from repro_torch.kernels.p4_solve.ops import p4_solve
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.models.cnn import cnn_loss
     params, client_data, eval_fn, sim = setup
@@ -989,6 +1159,7 @@ def phase_stream(device, setup):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         veds_dt_score.launches = 0
+        p4_solve.launches = 0
         captures = _SlotGraph.captures
         t0 = time.perf_counter()
         hook.start()
@@ -998,6 +1169,7 @@ def phase_stream(device, setup):
                       stage_hook=hook)
         wall = time.perf_counter() - t0      # run_fl synchronises at exit
         launches = veds_dt_score.launches
+        p4_launches = p4_solve.launches
         captures = _SlotGraph.captures - captures
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(len(records) == rounds, f"stream {label}: {len(records)} "
@@ -1018,11 +1190,13 @@ def phase_stream(device, setup):
             f"ipm_warm_iters {warm}, eval every {every}: wall {wall:.3f} "
             f"s; median of rounds 1.. " + ", ".join(
                 f"{k[:-3]} {v:.2f} ms" for k, v in med.items())
-            + f"; veds_score launches {launches} (expected {want} = "
-            f"{rounds} x T {s.n_slots}); slot graphs captured {captures}; "
-            f"peak memory {peak_gb:.3f} GB; history {hist}")
-        check(launches == want, f"stream {label}: veds_score launched "
-              f"{launches} times, expected {want}")
+            + f"; veds_score and p4_solve launches {launches}, "
+            f"{p4_launches} (expected {want} each = {rounds} x T "
+            f"{s.n_slots}); slot graphs captured {captures}; peak memory "
+            f"{peak_gb:.3f} GB; history {hist}")
+        for k, n in (("veds_score", launches), ("p4_solve", p4_launches)):
+            check(n == want, f"stream {label}: {k} launched {n} times, "
+                  f"expected {want}")
         check(hist["scheduled_rounds"] == rounds, "stream history rounds")
         if every:
             check(hist["dispatches"] == 1
@@ -1035,7 +1209,8 @@ def phase_stream(device, setup):
                           for m in hist["metric"]),
                   f"stream {label}: n_success or accuracy out of range")
         out[label] = dict(rounds=records, median=med, wall_s=wall,
-                          launches={"veds_score": launches},
+                          launches={"veds_score": launches,
+                                    "p4_solve": p4_launches},
                           graph_captures=captures, peak_memory_gb=peak_gb,
                           history=hist)
     out["schedule_warm_over_cold"] = (out["warm"]["median"]["schedule_ms"]
@@ -1194,10 +1369,12 @@ def _run_recorded(device, seed, params, loss_fn, client_data, eval_fn,
                   sim, every):
     """One blocked `run_fl` under `sim.scheduler`, each stage closed by a
     device synchronisation, with the `veds_score` count set to 0 just
-    before and read just after. Returns the history, the per-round
-    stage times, the recorded rounds and the launches."""
+    before and read just after (and `p4_solve`'s). Returns the history,
+    the per-round stage times, the recorded rounds and the launches of
+    each."""
     from repro_torch.core.baselines import get_scheduler
     from repro_torch.fl import simulator
+    from repro_torch.kernels.p4_solve.ops import p4_solve
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     rec = _Recorder(get_scheduler(sim.scheduler))
     records = []
@@ -1207,13 +1384,15 @@ def _run_recorded(device, seed, params, loss_fn, client_data, eval_fn,
     try:
         torch.cuda.synchronize()
         veds_dt_score.launches = 0
+        p4_solve.launches = 0
         t0 = time.perf_counter()
         hook.start()
         hist = simulator.run_fl(seed, params, loss_fn, client_data, sim,
                                 eval_fn=eval_fn, eval_every=every,
                                 device=device, stage_hook=hook)
         wall = time.perf_counter() - t0
-        launches = veds_dt_score.launches
+        launches = {"veds_score": veds_dt_score.launches,
+                    "p4_solve": p4_solve.launches}
     finally:
         simulator.get_scheduler = real
     return hist, records, rec.rounds, launches, wall
@@ -1229,7 +1408,8 @@ def phase_compare(device, cifar_setup):
     Checked: `optimal` succeeds on every valid SOV and at least as often
     as every other scheduler in every round; only `veds` uses COT slots;
     `veds_score` runs rounds x T times under `veds` and `v2i_only` by
-    its own count and never under the others; every metric is finite.
+    its own count and never under the others, `p4_solve` rounds x T
+    times under `veds` alone; every metric is finite.
     Logged only: the total uploads of `veds` against `v2i_only` and the
     order of the final metrics."""
     import dataclasses
@@ -1263,20 +1443,22 @@ def phase_compare(device, cifar_setup):
             med = {k: _median([r[k] for r in records[1:]])
                    for k in ("scenario_ms", "schedule_ms", "train_ms",
                              "eval_ms")}
-            want = s.rounds * s.n_slots if name in ("veds", "v2i_only") \
-                else 0
+            want = {"veds_score": s.rounds * s.n_slots
+                    if name in ("veds", "v2i_only") else 0,
+                    "p4_solve": s.rounds * s.n_slots if name == "veds"
+                    else 0}
             log("compare", f"{task} {name}: wall {wall:.3f} s; median of "
                 f"rounds 1.. " + ", ".join(f"{k[:-3]} {v:.2f} ms"
                                            for k, v in med.items())
                 + f"; n_success {n_succ}; COT slots {sum(n_cot)}, DT slots "
                 f"{sum(n_dt)}; {metric} {[round(m, 4) for m in hist['metric']]}"
-                f" at rounds {hist['round']}; veds_score launches {launches}"
+                f" at rounds {hist['round']}; launches {launches}"
                 f" (expected {want}); slot graphs captured {captures}")
             check(len(rounds) == s.rounds and len(records) == s.rounds,
                   f"compare {task} {name}: {len(rounds)} rounds scheduled, "
                   f"{len(records)} timed, expected {s.rounds}")
-            check(launches == want, f"compare {task} {name}: veds_score "
-                  f"launched {launches} times, expected {want}")
+            check(launches == want, f"compare {task} {name}: launches "
+                  f"{launches}, expected {want}")
             check(name == "veds" or sum(n_cot) == 0,
                   f"compare {task} {name}: {sum(n_cot)} COT slots")
             check(hist["round"] == [r for r in range(s.rounds)
@@ -1291,8 +1473,7 @@ def phase_compare(device, cifar_setup):
                              n_cot_slots=n_cot, n_dt_slots=n_dt,
                              metric=hist["metric"], rounds=hist["round"],
                              stages=records, median=med, wall_s=wall,
-                             launches={"veds_score": launches},
-                             graph_captures=captures)
+                             launches=launches, graph_captures=captures)
         best = res["optimal"]["n_success"]
         for name, r in res.items():
             check(all(a <= b for a, b in zip(r["n_success"], best)),
@@ -1560,6 +1741,7 @@ def phase_stream_vfl(device, cfg, rounds: int, batch: int, seq: int,
     from repro_torch.fl.vfl import make_train_step
     from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.p4_solve.ops import p4_solve
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.models import engine
     from repro_torch.models.module import (materialize, param_bytes,
@@ -1598,6 +1780,7 @@ def phase_stream_vfl(device, cfg, rounds: int, batch: int, seq: int,
     flash_attention_fwd.launches = 0
     fedavg_agg.launches = 0
     veds_dt_score.launches = 0
+    p4_solve.launches = 0
     captures = _SlotGraph.captures
     t0 = time.perf_counter()
     mark[0] = t0
@@ -1606,14 +1789,16 @@ def phase_stream_vfl(device, cfg, rounds: int, batch: int, seq: int,
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention_fwd.launches,
                 "fedavg_agg": fedavg_agg.launches,
-                "veds_score": veds_dt_score.launches}
+                "veds_score": veds_dt_score.launches,
+                "p4_solve": p4_solve.launches}
     captures = _SlotGraph.captures - captures
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_attn = cfg.n_rep * sum(k in ("attn", "attn_swa", "cross")
                              for k in cfg.pattern)
     want = {"flash_attention": rounds * V * n_attn * 2,
             "fedavg_agg": rounds * len(tree_leaves(decl)),
-            "veds_score": rounds * VFL_SLOTS}
+            "veds_score": rounds * VFL_SLOTS,
+            "p4_solve": rounds * VFL_SLOTS}
     finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(out))
     log(phase, f"{rounds} rounds, {V} vehicles x {batch} x {seq} tokens, "
         f"ipm_warm_iters {STREAM_WARM_ITERS}: wall {wall:.3f} s = "
@@ -2091,6 +2276,7 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_fwd
     from repro_torch.core.veds import _SlotGraph
+    from repro_torch.kernels.p4_solve.ops import p4_solve
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.launch.train import train
     from repro_torch.models import engine
@@ -2129,6 +2315,7 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     fedavg_agg.launches = 0
     ssd_scan_fwd.launches = 0
     veds_dt_score.launches = 0
+    p4_solve.launches = 0
     captures = _SlotGraph.captures
     mark[0] = time.perf_counter()
     with round0_share() as changed:
@@ -2141,7 +2328,8 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
     launches = {"flash_attention": flash_attention_fwd.launches,
                 "fedavg_agg": fedavg_agg.launches,
                 "ssd_scan": ssd_scan_fwd.launches,
-                "veds_score": veds_dt_score.launches}
+                "veds_score": veds_dt_score.launches,
+                "p4_solve": p4_solve.launches}
 
     per_round = [dict(r) for r in records]
     names = [n for n, _ in stages]
@@ -2177,8 +2365,9 @@ def phase_vfl(device, cfg, warmup: int, rounds: int, batch: int, seq: int,
         # between the mean and `old`, so the count does not depend on the
         # mask)
         "fedavg_agg": n * len(tree_leaves(decl)),
-        # one per slot of the round's schedule
+        # one each per slot of the round's schedule
         "veds_score": n * VFL_SLOTS,
+        "p4_solve": n * VFL_SLOTS,
     }
     log(phase, f"launches on the VFL path: {launches} (expected {want}); "
         f"slot graphs captured: {captures}; schedule "
@@ -2805,11 +2994,12 @@ def phase_vfl_reference(device, arch: str, reps: int, *, atol=None,
 def _decode_counts():
     from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.p4_solve.ops import p4_solve
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_fwd
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     return {"flash_attention": flash_attention_fwd,
             "ssd_scan": ssd_scan_fwd, "fedavg_agg": fedavg_agg,
-            "veds_score": veds_dt_score}
+            "veds_score": veds_dt_score, "p4_solve": p4_solve}
 
 
 def _zero_counts():
@@ -3410,7 +3600,8 @@ def _vfl_round_on_mesh(rank: int, out_dir: str, cfg, model: int, batch: int,
     res = dict(mask=got["mask"], loss=hist[0]["loss"],
                wall_s=hist[0]["wall_s"], stages=stages,
                launches={k: counts[k] for k in ("flash_attention",
-                                                "veds_score", "ssd_scan")},
+                                                "veds_score", "p4_solve",
+                                                "ssd_scan")},
                max_memory_gb=_peak_gb(device))
     if mesh.get_local_rank("data") == 0:
         decl = engine.model_decl(cfg, "head")
@@ -3598,9 +3789,10 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
     res["world_s"] = world_s
     out["vfl"] = res
     # per rank and round: each attention forward and its remat
-    # recomputation, and the eval forward; one veds_score a slot
+    # recomputation, and the eval forward; one veds_score and one p4_solve
+    # a slot
     want = {"flash_attention": n_attn * 3, "veds_score": VFL_SLOTS,
-            "ssd_scan": 0}
+            "p4_solve": VFL_SLOTS, "ssd_scan": 0}
     for x in ranks if on_card else ():
         check(x["launches"] == want, f"{phase}: launches {x['launches']}, "
               f"expected {want}")
@@ -4042,9 +4234,9 @@ def phase_model_axis_ssm(device, zcfg=None, xcfg=None,
         n_mamba = cfg.n_rep * cfg.pattern.count("mamba")
         n_attn = cfg.n_rep * cfg.pattern.count("attn")
         want = ({"flash_attention": n_attn, "ssd_scan": n_mamba,
-                 "fedavg_agg": 0, "veds_score": 0},
+                 "fedavg_agg": 0, "veds_score": 0, "p4_solve": 0},
                 {"flash_attention": 0, "ssd_scan": 0, "fedavg_agg": 0,
-                 "veds_score": 0})
+                 "veds_score": 0, "p4_solve": 0})
         launches = [(x[tag]["prefill_counts"], x[tag]["step_counts"])
                     for x in ranks]
         r["want_launches"] = want
@@ -4092,9 +4284,9 @@ def phase_model_axis_ssm(device, zcfg=None, xcfg=None,
         n_attn = vcfg.n_rep * vcfg.pattern.count("attn")
         n_mamba = vcfg.n_rep * vcfg.pattern.count("mamba")
         # per rank: each sub-block's forward and its remat recomputation,
-        # and the eval forward; one veds_score a slot
+        # and the eval forward; one veds_score and one p4_solve a slot
         want = {"flash_attention": n_attn * 3, "ssd_scan": n_mamba * 3,
-                "veds_score": VFL_SLOTS}
+                "veds_score": VFL_SLOTS, "p4_solve": VFL_SLOTS}
         for x in vfl_ranks if on_card else ():
             check(x["launches"] == want, f"{phase}: (c) {tag} launches "
                   f"{x['launches']}, expected {want}")
@@ -4889,6 +5081,7 @@ def phase_dryrun(device, traces):
     from repro_torch.core import veds as veds_mod
     from repro_torch.kernels.fedavg_agg.ops import fedavg_agg
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.p4_solve.ops import p4_solve
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_fwd
     from repro_torch.kernels.veds_score.ops import veds_dt_score
     from repro_torch.launch.dryrun import storage_bytes
@@ -4898,7 +5091,8 @@ def phase_dryrun(device, traces):
     counters = {"repro::flash_attention_fwd": flash_attention_fwd,
                 "repro::ssd_scan_fwd": ssd_scan_fwd,
                 "repro::fedavg_agg": fedavg_agg,
-                "repro::veds_dt_score": veds_dt_score}
+                "repro::veds_dt_score": veds_dt_score,
+                "repro::p4_solve": p4_solve}
     res = {"cases": {}, "sweep": {}}
     for name, (cfg, shape, cut) in dryrun_cases().items():
         free()
@@ -5066,6 +5260,7 @@ def run_phases(device, smi, build_s, t_start) -> int:
                              **serve_shapes, "large": (1 << 22,)},
                             device, graphed=("main", "vfl", "stream",
                                              "v2i_only", *serve_shapes))
+    p4_kernels = kernels.pop("p4_solve")
     llm_kernels = phase_kernels_llm(device)
     ssd_kernels = phase_kernels_ssd(device)
     mark("kernels")
@@ -5202,11 +5397,12 @@ def run_phases(device, smi, build_s, t_start) -> int:
                     x["prefill_counts"][name] for x in r["ranks"]]
                 out[f"model_axis_{tag}_steps_per_rank"] = [
                     x["step_counts"][name] for x in r["ranks"]]
-        if name in ("flash_attention", "ssd_scan", "veds_score"):
+        if name in ("flash_attention", "ssd_scan", "veds_score",
+                    "p4_solve"):
             for tag, r in model_axis_ssm["vfl"].items():
                 out[f"model_axis_{tag}_vfl_per_rank"] = [
                     x["launches"][name] for x in r["ranks"]]
-        if name in ("flash_attention", "veds_score"):
+        if name in ("flash_attention", "veds_score", "p4_solve"):
             # a rank's launches on the model axis's paths (ranks sharing
             # the card over gloo)
             ma = model_axis
@@ -5221,11 +5417,19 @@ def run_phases(device, smi, build_s, t_start) -> int:
             out["model_axis_vfl_per_rank"] = [
                 x["launches"][name] for x in ma["vfl"]["ranks"]]
         op = {"veds_score": "repro::veds_dt_score",
+              "p4_solve": "repro::p4_solve",
               "flash_attention": "repro::flash_attention_fwd",
               "ssd_scan": "repro::ssd_scan_fwd",
               "fedavg_agg": "repro::fedavg_agg"}[name]
         for case, r in dryrun["cases"].items():
             out[f"dryrun_{case}"] = r["launches"][op]
+        if name == "p4_solve":
+            out["run_fl"] = main_res["launches"][name]
+            out["stream_run_fl"] = stream["warm"]["launches"][name]
+            out["stream_run_fl_cold"] = stream["cold"]["launches"][name]
+            for task in ("cifar", "traj"):
+                out[f"compare_{task}_veds"] = compare[task]["schedulers"][
+                    "veds"]["launches"][name]
         if name == "veds_score":
             out["run_fl"] = main_res["launches"][name]
             out["stream_run_fl"] = stream["warm"]["launches"][name]
@@ -5261,9 +5465,16 @@ def run_phases(device, smi, build_s, t_start) -> int:
     def max_err(res, key="max_abs_err"):
         return max(r[key] for r in res.values() if isinstance(r, dict))
 
-    # launches: this slice's path (the zamba2 VFL round), which runs all
-    # four kernels; times at its shapes (fedavg_agg: the qwen3 embedding
-    # leaf, its largest)
+    from repro_torch.kernels.p4_solve.ops import p4_solve
+    zero_pivots = p4_solve.zero_pivots
+    log("kernels", f"p4_solve met {zero_pivots} exactly-zero pivots in "
+        f"this process's counted launches")
+    check(zero_pivots == 0, f"p4_solve met {zero_pivots} exactly-zero "
+          f"pivots on the paths")
+
+    # launches: the zamba2 VFL round's path, which runs all five kernels;
+    # times at its shapes (fedavg_agg: the qwen3 embedding leaf, its
+    # largest; p4_solve: run_fl's block at fig10's width)
     k = kernels["main"]
     fa = llm_kernels["flash_attention"]
     fd = llm_kernels["fedavg_agg"]
@@ -5282,6 +5493,23 @@ def run_phases(device, smi, build_s, t_start) -> int:
                 v2i_only_shape=graphed_shape("v2i_only"),
                 serve_shapes={label: graphed_shape(label)
                               for label in serve_shapes})}, {
+        "name": "p4_solve", "route": "cuda",
+        "source": "src/repro_torch/kernels/p4_solve/csrc/p4_solve.cu",
+        "replaces": "src/repro/core/solver.py:91",
+        "replaces_note": "no Pallas kernel: the reference's solve_p4, "
+                         "vmapped inside its jitted slot scan",
+        "launches": zamba2["launches"]["p4_solve"],
+        "launches_by_path": by_path("p4_solve"),
+        "max_abs_err": max(r["max_abs_err"] for r in p4_kernels.values()
+                           if isinstance(r, dict)),
+        "zero_pivots": zero_pivots,
+        **timed(p4_kernels["main"], shape=p4_kernels["main"]["shape"],
+                graph_ms=p4_kernels["main"]["graph_ms"],
+                graph_floor_ms=p4_kernels["graph_floor_ms"]),
+        **{f"{label}_shape": timed(p4_kernels[label],
+                                   shape=p4_kernels[label]["shape"],
+                                   graph_ms=p4_kernels[label]["graph_ms"])
+           for label in ("stream", "serve_b8", "adaptive")}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_sm90.cu",
@@ -5334,7 +5562,8 @@ def run_phases(device, smi, build_s, t_start) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
         smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build_s, kernels=kernels, llm_kernels=llm_kernels,
+        build_s=build_s, kernels=kernels, p4_kernels=p4_kernels,
+        p4_zero_pivots=zero_pivots, llm_kernels=llm_kernels,
         ssd_kernels=ssd_kernels, main=main_res, stages=stages,
         reference=ref, stream=stream, stream_reference=stream_ref,
         compare=compare, compare_reference=compare_ref,

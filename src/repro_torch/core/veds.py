@@ -3,8 +3,9 @@
 Port of `repro/core/veds.py`. Every candidate of a slot is scored at
 once: the [B, S] direct-transmission (DT) candidates through the
 `veds_score` CUDA kernel, and the [B, S, U] cooperative (COT) candidates
-through one batched interior-point solve of P4, cold or warm-started
-from a carried table of previous optima. The leading batch axis `B`
+through one interior-point solve of P4 for all of them (the `p4_solve`
+CUDA kernel), cold or warm-started from a carried table of previous
+optima. The leading batch axis `B`
 (independent RSU cells, or independent rounds of one cell) rides through
 the whole round.
 
@@ -12,9 +13,10 @@ The reference runs the round as one `lax.scan` under `jit`: one dispatch.
 Here the slot step is the same function of a device-side slot index on
 every device, with no value read back to the host. On the CPU the round
 loops over it in Python. On a CUDA device the step is captured once per
-round shape as a CUDA graph (`_SlotGraph`), `veds_score` launch included,
-and the graph is replayed once per slot: the ~2,000 small launches of a
-slot cost the device a node each instead of the host a round trip each.
+round shape as a CUDA graph (`_SlotGraph`), the `veds_score` and
+`p4_solve` launches included, and the graph is replayed once per slot:
+the slot's small launches cost the device a node each instead of the
+host a round trip each.
 
 Round inputs (precomputed from mobility + channel draws), single-cell
 layout on the left, batched layout on the right:
@@ -42,6 +44,7 @@ from repro_torch.core.scheduler import (RoundOutputs, SchedulerCarry,
                                         divisors, init_queues, map_tensors,
                                         masked_e_cp, unbatch)
 from repro_torch.core.solver import solve_p4
+from repro_torch.kernels.p4_solve.ops import p4_solve
 from repro_torch.kernels.veds_score.ops import veds_dt_score
 
 NEG = -1e30
@@ -351,14 +354,15 @@ class _SlotGraph:
 
     def _capture(self):
         # PyTorch's recipe: one run on a side stream first, so that lazy
-        # set-up (the kernel library's module, cuBLAS and cuSOLVER
-        # handles, workspaces) happens outside the capture. The run moves
-        # only the static buffers, which `run` sets anew, and is not a
-        # slot of any round, so its `veds_score` run is not counted.
+        # set-up (the kernel library's module, the kernels' counters,
+        # workspaces) happens outside the capture. The run moves only the
+        # static buffers, which `run` sets anew, and is not a slot of any
+        # round, so its kernel runs are not counted.
         with torch.cuda.device(self.t.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), veds_dt_score.uncounted():
+            with torch.cuda.stream(side), veds_dt_score.uncounted(), \
+                    p4_solve.uncounted():
                 self._step()
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()

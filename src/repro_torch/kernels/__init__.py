@@ -17,6 +17,7 @@ bytes (each input read once, each output written once).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -57,3 +58,71 @@ def through_operator(x: torch.Tensor) -> bool:
     dispatch costs tens of microseconds a call (PERF.md section 6)."""
     return type(x) is not torch.Tensor or \
         torch._C._len_torch_dispatch_stack() > 0
+
+
+class DeviceCounts:
+    """Counters that a kernel adds to on the card, for a kernel launched
+    from CUDA graphs: a graph's replay runs the kernel without passing
+    through its wrapper, so the count is kept where the kernel runs. Each
+    launch hands the kernel counters on its device (`counts(device)`: an
+    int64 tensor of `slots` entries); the kernel adds one to entry 0 each
+    time it runs, eagerly or from a graph (a capture records the launch
+    and runs nothing), and may count other events in the other entries.
+
+    `launches` reads entry 0 over every device, synchronising each;
+    setting it (to 0, say) sets the count from then on, and leaves the
+    other entries as they are. A launch made under `uncounted()`
+    (`counting` is False there) passes the kernel no counters, so it adds
+    to no entry."""
+
+    def __init__(self, name: str, slots: int = 1):
+        self._name = name
+        self._slots = slots
+        self._base = 0
+        self._counts: Dict[torch.device, torch.Tensor] = {}
+        self.counting = True
+
+    def read(self, slot: int) -> int:
+        """Entry `slot` summed over the devices, after synchronising."""
+        n = 0
+        for count in self._counts.values():
+            torch.cuda.synchronize(count.device)
+            n += int(count[slot].item())
+        return n
+
+    @property
+    def launches(self) -> int:
+        return self._base + self.read(0)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._base = int(n)
+        for count in self._counts.values():
+            count[0].zero_()
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Launches in this block are not counted: for runs that are not
+        part of a path, such as the warm-up before a capture."""
+        self.counting, before = False, self.counting
+        try:
+            yield
+        finally:
+            self.counting = before
+
+    def counts(self, device: torch.device) -> torch.Tensor:
+        """The device's counters, made (outside any capture) at first
+        use."""
+        count = self._counts.get(device)
+        if count is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{self._name}: first launch on a device inside a "
+                    f"stream capture; launch it once outside the capture "
+                    f"first (as PyTorch's warm-up before a capture does), "
+                    f"so that its counters exist")
+            count = torch.zeros(self._slots, dtype=torch.int64,
+                                device=device)
+            torch.cuda.synchronize(device)
+            self._counts[device] = count
+        return count

@@ -17,14 +17,13 @@ runs).
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import (check_device, register_cost,
+from repro_torch.kernels import (DeviceCounts, check_device, register_cost,
                                  through_operator)
 from repro_torch.kernels.build import load_library
 
@@ -70,66 +69,20 @@ def _launcher():
     return lib, lib.function("veds_score_f32", _ARGTYPES)
 
 
-class _VedsDtScore:
+class _VedsDtScore(DeviceCounts):
     """The kernel's wrapper; `veds_dt_score` is its one instance.
 
     `veds_dt_score(g, q, w, e, *, V, kappa, bw, noise, p_max)` scores every
     DT candidate and returns (y, p, z), each shaped like `g`. g, q, w:
     float32; e: bool; all of one shape, contiguous, on one device.
 
-    `launches` counts the kernel's runs on the card. A CUDA graph's replay
-    runs the kernel without passing through this wrapper, so the count is
-    kept where the kernel runs: each launch hands the kernel a counter on
-    its device, and the kernel adds one to it each time it runs, eagerly
-    or from a graph (a capture records the launch and runs nothing).
-    Reading `launches` synchronises the devices it counts on; setting it
-    (to 0, say) sets the count from then on. Launches made under
-    `uncounted()` are not counted.
+    `launches` counts the kernel's runs on the card, as the kernel itself
+    counts them (`DeviceCounts`), graph replays included; launches made
+    under `uncounted()` are not counted.
     """
 
     def __init__(self):
-        self._base = 0
-        self._counts = {}      # device -> int64[1] counter of kernel runs
-        self._counting = True
-
-    @property
-    def launches(self) -> int:
-        n = self._base
-        for count in self._counts.values():
-            torch.cuda.synchronize(count.device)
-            n += int(count.item())
-        return n
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        self._base = int(n)
-        for count in self._counts.values():
-            count.zero_()
-
-    @contextlib.contextmanager
-    def uncounted(self):
-        """Launches in this block pass the kernel no counter: for runs
-        that are not part of a path, such as the warm-up before a
-        capture."""
-        self._counting, before = False, self._counting
-        try:
-            yield
-        finally:
-            self._counting = before
-
-    def _count(self, device: torch.device) -> torch.Tensor:
-        count = self._counts.get(device)
-        if count is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "veds_dt_score: first launch on a device inside a "
-                    "stream capture; launch it once outside the capture "
-                    "first (as PyTorch's warm-up before a capture does), "
-                    "so that its launch counter exists")
-            count = torch.zeros(1, dtype=torch.int64, device=device)
-            torch.cuda.synchronize(device)
-            self._counts[device] = count
-        return count
+        super().__init__("veds_dt_score")
 
     def __call__(self, g, q, w, e, *, V, kappa, bw, noise, p_max):
         """Through the custom operator `torch.ops.repro.veds_dt_score`
@@ -163,12 +116,12 @@ class _VedsDtScore:
             return y, p, z
         lib, fn = _launcher()
         with torch.cuda.device(g.device):
-            count = self._count(g.device)
+            count = self.counts(g.device)
             stream = torch.cuda.current_stream(g.device).cuda_stream
             rc = fn(g.data_ptr(), q.data_ptr(), w.data_ptr(), e.data_ptr(),
                     y.data_ptr(), p.data_ptr(), z.data_ptr(), n,
                     V, kappa, bw, noise, p_max,
-                    count.data_ptr() if self._counting else None, stream)
+                    count.data_ptr() if self.counting else None, stream)
         lib.check(rc, "veds_score")
         return y, p, z
 

@@ -48,10 +48,13 @@ B = 1 at any tier, decisions identical. Three pieces make it hold:
 
 Training runs cell by cell, so its bits never depend on the batch. The
 scheduling step runs on the whole [B] batch; its elementwise work is the
-same per cell at any B, but batched solves and reductions may pick other
-algorithms by batch size on a device, so packed floats are held to solo
-decisions exactly and to their own run bit for bit, and their distance
-from solo is measured (`chip_smoke.py phase_serve`), not assumed.
+same per cell at any B. Its P4 solve is batch-invariant on the card: the
+`p4_solve` kernel gives each candidate one warp and shares no work
+across candidates, where the plain version's batched solves and
+reductions may pick other algorithms by batch size. Packed floats are
+still held to solo decisions exactly and to their own run bit for bit,
+and their distance from solo is measured (`chip_smoke.py phase_serve`),
+not assumed: the step's other reductions remain.
 
 The asyncio front end: `BatchServer` collects concurrent requests into
 windows and hands each window to `run_batch`; `closed_loop_load` and

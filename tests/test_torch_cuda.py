@@ -1,9 +1,11 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
-(`veds_score`, `flash_attention`, `fedavg_agg`, `ssd_scan`; the last two
-in their fp32 CUDA-core and bf16 tensor-core variants) against their plain
-PyTorch versions on the card, the VEDS round's CUDA graph of the slot
-step (cold, with the warm P4 table, and without COT for `v2i_only`)
-against the same step run eagerly, the streaming `run_fl`, the five
+(`veds_score`, `p4_solve`, `flash_attention`, `fedavg_agg`, `ssd_scan`;
+the last two in their fp32 CUDA-core and bf16 tensor-core variants)
+against their plain PyTorch versions on the card, the VEDS round's CUDA
+graph of the slot step (cold, with the warm P4 table, and without COT
+for `v2i_only`) against the same step run eagerly, VEDS rounds and the
+streaming `run_fl` with the `p4_solve` kernel against the slot step with
+the plain P4, the streaming `run_fl`, the five
 Section VI schedulers (their queues bit for bit), LaneGCN's forward and
 the xLSTM smoke model's forward and backward on the card against the
 CPU, the MoE block's bitwise determinism, and the scheduling service
@@ -30,6 +32,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.fedavg_agg.ops import fedavg_agg, fedavg_agg_plain
+from repro_torch.kernels.p4_solve.ops import (
+    _project_feasible as _p4_project, p4_solve, p4_solve_plain,
+    seed_grad_norms, split_far_tol)
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_fwd,
                                                      flash_attention_plain)
@@ -44,7 +49,7 @@ from repro_torch.core.lyapunov import VedsParams
 from repro_torch.core.scenario import (ScenarioParams, make_round,
                                        round_generator)
 from repro_torch.core.scheduler import SchedulerCarry
-from torch_port_util import require_cuda
+from torch_port_util import p4_candidates, p4_table, require_cuda
 
 KW = dict(V=0.2, kappa=0.1, bw=20e6, noise=8.007e-14, p_max=0.3)
 
@@ -350,6 +355,273 @@ def test_veds_score_launches_count_one_per_slot_of_streaming_rounds():
 
 
 # ---------------------------------------------------------------------------
+# the p4_solve kernel: against its plain version, in the slot step
+# ---------------------------------------------------------------------------
+
+P4_CASES = {"cold": {}, "warm": dict(warm_iters=10),
+            "adaptive": dict(warm_iters=10, far_iters=25),
+            "floor": dict(warm_iters=10)}
+P4_RTOL = {"cold": 1e-4, "warm": 5e-2, "adaptive": 5e-2, "floor": 5e-2}
+
+
+def _p4_args(shape, seed, slot=5, carry=None, prm=None):
+    """`solve_p4`'s arguments at slot `slot` of an eager VEDS round of
+    `shape` = (B, S, U) on the card (`_rounds`), recorded as the slot step
+    makes them, the plain P4 solving every slot: contiguous (cw, a, q,
+    d, p_max) and the warm table the slot step carried there (None
+    cold)."""
+    from unittest import mock
+    B, S, U = shape
+    calls = []
+
+    def record(cw, a, q, d, p_max, *, p_init=None, **kw):
+        calls.append(([x.contiguous() for x in (cw, a, q, d, p_max)],
+                      p_init))
+        return p4_solve_plain(cw, a, q, d, p_max, p_init, **kw)
+    rnd = _rounds(S, U, slot + 1, B=B, seed=seed)
+    with mock.patch.object(port_veds, "solve_p4", record):
+        port_veds._veds_round(rnd, prm or VedsParams(), ChannelParams(),
+                              enable_cot=True, carry=carry, graphed=False)
+    return calls[slot]
+
+
+def _seed_norms(cand, p_init):
+    """The plain version's gradient norm of each projected seed, which
+    it holds to `far_grad_tol`."""
+    cw, a, q, d, pm = cand
+    return seed_grad_norms(cw, a, q, _p4_project(p_init, d, pm, margin=0.5))
+
+
+def _p4_case(case, shape, seed):
+    """A slot's candidates and the arguments of one P4 `case`: cold, or
+    warm (and adaptive, its far threshold split at the seeds' median)
+    from interior seeds, a table drawn in (0, 0.3) W as the warm tests
+    of `tests/test_torch_streaming.py` draw theirs, or ("floor") warm
+    from a table with 30% of its entries at the box floor of 1e-9 W,
+    the ill-conditioned seeds of infeasible candidates' optima
+    (`torch_port_util.p4_table`)."""
+    cand, _ = _p4_args(shape, seed)
+    kw = dict(P4_CASES[case])
+    p_init = None
+    if case == "floor":
+        p_init = p4_table(tuple(cand[1].shape), seed, device="cuda")
+    elif case != "cold":
+        p_init = _warm_table(*shape, seed)
+    if case == "adaptive":
+        kw["far_grad_tol"] = split_far_tol(_seed_norms(cand, p_init))
+    return cand, p_init, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", tuple(P4_CASES))
+@pytest.mark.parametrize("shape", [(1, 10, 10), (8, 10, 10), (8, 4, 3)])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_p4_solve_kernel_matches_plain_version(seed, shape, case):
+    """The kernel against its plain version on the card at fig10's
+    [B, 10, 10, 11] (B 1 and 8) and the service's n = 4, on a VEDS
+    slot's candidates: powers within 2e-5 W plus the case's rtol and
+    values within the case's rtol (1e-4 cold, 5e-2 warm), in the box and
+    finite. Adaptive: the kernel's tier of each candidate (its result is
+    bit for bit its near-tier or its far-tier solve) is the plain
+    version's far mask. (Measured on an NVIDIA H100: bit for bit.)"""
+    require_cuda()
+    cand, p_init, kw = _p4_case(case, shape, seed)
+    rtol = P4_RTOL[case]
+    before = p4_solve.launches
+    p, v = p4_solve(*cand, p_init, **kw)
+    torch.cuda.synchronize()
+    assert p4_solve.launches == before + 1
+    rp, rv = p4_solve_plain(*cand, p_init, **kw)
+    assert torch.isfinite(p).all() and torch.isfinite(v).all()
+    assert ((p >= 0) & (p <= cand[4])).all()
+    torch.testing.assert_close(v, rv, rtol=rtol, atol=1e-9)
+    torch.testing.assert_close(p, rp, rtol=rtol, atol=2e-5)
+    if case != "adaptive":
+        return
+    near = p4_solve(*cand, p_init, warm_iters=kw["warm_iters"])[0]
+    far = p4_solve(*cand, p_init, warm_iters=kw["far_iters"])[0]
+    is_near = (p == near).all(-1)
+    is_far = (p == far).all(-1)
+    assert (is_near | is_far).all()
+    told = ~(is_near & is_far)
+    g0 = _seed_norms(cand, p_init)
+    want = g0 > kw["far_grad_tol"]
+    assert want.any() and (~want).any()
+    parted = told & (is_far != want)
+    assert not parted.any(), (
+        "the kernel's tier parts from the plain version's far mask",
+        seed, shape, kw["far_grad_tol"], g0[parted].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", tuple(P4_CASES))
+def test_p4_solve_is_batch_invariant(case):
+    """A packed [8, 10, 10] batch gives each cell the bits of its B = 1
+    solve: no work is shared across candidates."""
+    require_cuda()
+    cand, p_init, kw = _p4_case(case, (8, 10, 10), 4)
+    p, v = p4_solve(*cand, p_init, **kw)
+    for b in range(8):
+        one = [x[b:b + 1].contiguous() for x in cand]
+        pb, vb = p4_solve(*one, None if p_init is None
+                          else p_init[b:b + 1].contiguous(), **kw)
+        assert torch.equal(pb[0], p[b]) and torch.equal(vb[0], v[b])
+
+
+@pytest.mark.cuda
+def test_p4_solve_in_a_cuda_graph_matches_its_eager_launch():
+    """Captured into a CUDA graph and replayed, the launch gives its
+    eager launch's bits; the barrier weights travel in the captured
+    arguments. The kernel counts its own runs: the capture adds nothing,
+    each replay one, the warm-up under `uncounted()` nothing."""
+    require_cuda()
+    cand, tab, kw = _p4_case("adaptive", (3, 10, 10), 5)
+    eager = p4_solve(*cand, tab, **kw)
+    p4_solve.launches = 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), p4_solve.uncounted():
+        p4_solve(*cand, tab, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = p4_solve(*cand, tab, **kw)
+    assert p4_solve.launches == 0
+    for x in outs:
+        x.fill_(float("nan"))
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert p4_solve.launches == 3
+    for a, b in zip(outs, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_p4_solve_refuses_what_the_kernel_does_not_take_on_the_card():
+    require_cuda()
+    cand = [x.contiguous() for x in p4_candidates(3, 6, device="cuda")]
+    with pytest.raises(ValueError, match="q must be torch.float32 on cuda"):
+        p4_solve(cand[0], cand[1], cand[2].cpu(), *cand[3:])
+    with pytest.raises(ValueError, match="Newton steps"):
+        p4_solve(*cand, iters=80)
+
+
+def _plain_solve_p4(cw, a, q, d, p_max, *, p_init=None, **kw):
+    """`core/solver.py solve_p4` through the plain version, for the slot
+    step on the card with the P4 of before the kernel."""
+    return p4_solve_plain(cw, a, q, d, p_max, p_init, **kw)
+
+
+def _slot_decisions(rnd, prm, ch, carry):
+    """Every slot's decisions of an eager VEDS round: the SOV chosen,
+    DT or COT, and the OPVs given power (the prefix), stacked [T, B,
+    ...], with the round's outputs."""
+    rb = rnd.with_batch_axis()
+    state = port_veds._round_state(rb, prm, ch, True, carry)
+    ts = torch.arange(rb.g_sr.shape[1], device=rb.g_sr.device)
+    rows = []
+    for t in ts:
+        state, info = port_veds.solve_slot(t, state, rb, prm, ch)
+        rows.append((info["m"], info["use_dt"], info["use_cot"],
+                     info["e_opv"] > 0))
+    return [torch.stack(x) for x in zip(*rows)], state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [None, "prior", "floor"])
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_veds_round_with_the_kernel_decides_as_with_the_plain_p4(
+        seed, table, monkeypatch):
+    """Whole fig10 rounds (three cells, S = U = 10, T = 60, a carry) with
+    the kernel, from the slot graph and eagerly, against the slot step
+    run with the plain P4: cold, and warm with the adaptive budget from
+    the table that a warm round before left, as the streaming path
+    carries it ("prior"), or from a table with 30% of its entries at
+    1e-9 W ("floor", `torch_port_util.p4_table`). Every slot's chosen
+    SOV, DT or COT and prefix, the success masks and `n_cot_slots`
+    identical; delivered bits, energies and queues within rtol 1e-4
+    (5e-2 warm); `p4_solve` launched once a slot."""
+    require_cuda()
+    from repro_torch.core.solver import p4_seed_table
+    rnd = _hetero_round(seed=seed)
+    ch = ChannelParams()
+    warm = table is not None
+    prm = VedsParams(ipm_warm_iters=10, ipm_far_iters=25,
+                     ipm_far_grad_tol=0.05) if warm else VedsParams()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = SchedulerCarry(
+        qs=0.02 * torch.rand((3, 10), generator=gen, device="cuda"),
+        qu=0.02 * torch.rand((3, 10), generator=gen, device="cuda"))
+    if table == "prior":
+        seeded = dataclasses.replace(
+            c, p4=p4_seed_table((3, 10, 10, 11), ch.p_max, "cuda"))
+        c = port_veds.veds_round(_hetero_round(seed=seed + 100), prm, ch,
+                                 carry=seeded).carry
+    elif table == "floor":
+        c = dataclasses.replace(c, p4=p4_table((3, 10, 10, 11), seed,
+                                               device="cuda"))
+    before = p4_solve.launches
+    graphed = port_veds.veds_round(rnd, prm, ch, carry=c)
+    assert p4_solve.launches == before + 60
+    kernel, k_state = _slot_decisions(rnd, prm, ch, c)
+    with monkeypatch.context() as m:
+        m.setattr(port_veds, "solve_p4", _plain_solve_p4)
+        plain, p_state = _slot_decisions(rnd, prm, ch, c)
+        eager_plain = port_veds._veds_round(rnd, prm, ch, enable_cot=True,
+                                            carry=c, graphed=False)
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+    assert bool(kernel[2].any())                  # COT chosen somewhere
+    for k in ("success", "n_success", "n_cot_slots", "n_dt_slots"):
+        assert torch.equal(graphed[k], eager_plain[k]), k
+    rtol = 5e-2 if warm else 1e-4
+    for k in ("zeta", "energy_sov", "energy_opv"):
+        torch.testing.assert_close(graphed[k], eager_plain[k], rtol=rtol,
+                                   atol=1e-9)
+    for k in ("qs", "qu"):
+        torch.testing.assert_close(k_state[k], p_state[k], rtol=rtol,
+                                   atol=1e-9)
+        assert torch.equal(getattr(graphed.carry, k), k_state[k])
+
+
+@pytest.mark.cuda
+def test_streaming_run_fl_with_the_kernel_decides_as_with_the_plain_p4(
+        monkeypatch):
+    """A short `run_fl(streaming=True)` (5 rounds at S = U = 4, T = 10,
+    warm P4 at 10 steps) with the kernel and with the plain
+    P4 in the slot graph, from the same seed: rounds and `n_success`
+    identical, the eval loss within rtol 1e-4; `p4_solve` launched
+    rounds x T times with the kernel and no time with the plain P4."""
+    require_cuda()
+    from repro_torch.fl.simulator import FLSimConfig, run_fl
+    data, xt, yt = _linear_problem()
+    sim = FLSimConfig(n_clients=8, rounds=5, n_slots=10, n_sov=4, n_opv=4,
+                      batch_size=4, lr=0.1, streaming=True,
+                      ipm_warm_iters=10)
+    x, y = torch.as_tensor(xt, device="cuda"), torch.as_tensor(yt,
+                                                                device="cuda")
+
+    def run():
+        port_veds._SLOT_GRAPHS.clear()
+        before = p4_solve.launches
+        hist = run_fl(7, {"w": torch.zeros(6, 3)}, _linear_loss, data, sim,
+                      eval_fn=lambda p: _linear_loss(p, {"x": x, "y": y}),
+                      eval_every=1, device="cuda")
+        return hist, p4_solve.launches - before
+
+    kernel, n_kernel = run()
+    with monkeypatch.context() as m:
+        m.setattr(port_veds, "solve_p4", _plain_solve_p4)
+        plain, n_plain = run()
+    port_veds._SLOT_GRAPHS.clear()
+    assert (n_kernel, n_plain) == (5 * 10, 0)
+    assert kernel["round"] == plain["round"] == list(range(5))
+    assert kernel["n_success"] == plain["n_success"]
+    np.testing.assert_allclose(kernel["metric"], plain["metric"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # the Section VI schedulers and LaneGCN
 # ---------------------------------------------------------------------------
 
@@ -459,9 +731,10 @@ def test_scheduler_queues_on_card_equal_cpu_bit_for_bit(sched, seed):
 def test_veds_queues_on_card_within_ulps_of_cpu(seed):
     """VEDS's decisions are the CPU's, and its queues and delivered bits
     lie within 4 ulp of the CPU's (measured: up to 2): its cooperative
-    powers come from the P4 solves, whose batched linear solves
-    (`torch.linalg.solve_ex`: cuSOLVER on the card, LAPACK on the CPU)
-    and sums round in other orders, so they are not bit for bit."""
+    powers come from the P4 solves (the `p4_solve` kernel's LU on the
+    card, LAPACK's through `torch.linalg.solve_ex` on the CPU), whose
+    linear solves and sums round in other orders, so they are not bit
+    for bit."""
     require_cuda()
     for name, a, b in _round_on_card_and_cpu("veds", seed):
         ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()

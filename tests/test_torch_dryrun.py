@@ -293,7 +293,7 @@ def test_fake_run_counts_what_the_real_run_does(kind, monkeypatch):
         0.02 * real["peak_bytes"]
     assert real["deep_cost"]["dot_flops"] > 0
     want = {"train": {"repro::flash_attention_fwd", "repro::fedavg_agg",
-                      "repro::veds_dt_score"},
+                      "repro::veds_dt_score", "repro::p4_solve"},
             "prefill": {"repro::flash_attention_fwd", "repro::ssd_scan_fwd"},
             "decode": set()}[kind]
     assert set(real["kernels"]) == want

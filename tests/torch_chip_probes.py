@@ -14,6 +14,9 @@ needed):
     python3 tests/torch_chip_probes.py model-axis-ssm [no-kernels]
     python3 tests/torch_chip_probes.py model-axis-ssm-depth
     python3 tests/torch_chip_probes.py kernel-times
+    python3 tests/torch_chip_probes.py schedule-times [reps]
+    python3 tests/torch_chip_probes.py vfl-rounds [arch ...]
+    python3 tests/torch_chip_probes.py p4-tables
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -84,6 +87,31 @@ repetition in fp32 and in bf16. Checks logged, not raised.
 (`phase_kernels`), then `phase_kernels_ssd` and `phase_kernels_llm`.
 Copied into another checkout and run from there, it times that
 checkout's wrappers, so two commits' can be compared on one card.
+
+`schedule-times [reps]`: the VEDS schedule at fig10's width (S = U =
+10, T = 60) on the card, as the main paths run it: run_fl's block of
+`chip_smoke.ROUND_BATCH` cells cold, and one cell warm at
+`chip_smoke.STREAM_WARM_ITERS` from the table of the round before; each
+from its slot graph (after the round that captures it), `reps` (5)
+rounds a kind, each closed by a device synchronisation; then one of each
+under `torch.profiler`: its device events a slot and their busy time,
+by name. Only `veds_round`'s public API is used, so copied into another
+checkout it times that checkout's schedule.
+
+`vfl-rounds [arch ...]`: `chip_smoke.phase_vfl` of granite-moe-1b-a400m
+and qwen3-32b (or the archs named) as the whole script runs it (1
+warm-up and 3 rounds), each round's wall and stages logged; copied into
+another checkout it times that checkout's rounds.
+
+`p4-tables`: how far `p4_solve` and its plain version part on warm
+seeds: the candidates of VEDS slots at fig10's width (B 3, slots 5, 20
+and 40) from the table the slot step carried there, from interior seeds
+drawn in (0, 0.3) W, and from a synthetic table with 30% of its entries
+at the box floor of 1e-9 W (`tests/torch_port_util.py p4_table`); for
+each, the candidates beyond the warm tolerance (2e-5 W + 5e-2 |p|, 5e-2
+|value|) and the largest differences, for the kernel against the plain
+version on the card and for the plain version on the card against
+itself on the CPU; and the kernel's exactly-zero pivots.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -503,6 +531,119 @@ def kernel_times(device) -> None:
     cs.phase_kernels_llm(device)
 
 
+def _sched_rounds(device, B: int, seed: int, n: int):
+    """`n` rounds of B fig10 cells (S = U = 10, T = 60) on `device`."""
+    from repro_torch.channel.mobility import ManhattanParams
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scenario import (ScenarioParams, make_round,
+                                           round_generator)
+    from repro_torch.core.veds import RoundInputs
+    sc = ScenarioParams(n_sov=10, n_opv=10, n_slots=60)
+    return [RoundInputs.stack([
+        make_round(round_generator(seed, B * r + b, device), sc,
+                   ManhattanParams(), ChannelParams(), VedsParams())
+        for b in range(B)]) for r in range(n)]
+
+
+def schedule_times(device, reps: str = "5") -> None:
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.channel.v2x import ChannelParams
+    from repro_torch.core.lyapunov import VedsParams
+    from repro_torch.core.scheduler import SchedulerCarry
+    from repro_torch.core.solver import p4_seed_table
+    from repro_torch.core.veds import veds_round
+    n, ch = int(reps), ChannelParams()
+    kinds = {"cold": (cs.ROUND_BATCH, VedsParams()),
+             "warm": (1, VedsParams(ipm_warm_iters=cs.STREAM_WARM_ITERS))}
+    for kind, (B, prm) in kinds.items():
+        rounds = _sched_rounds(device, B, 3, n + 2)
+        carry = None
+        if kind == "warm":
+            carry = SchedulerCarry(
+                qs=torch.zeros((B, 10), device=device),
+                qu=torch.zeros((B, 10), device=device),
+                p4=p4_seed_table((B, 10, 10, 11), ch.p_max, device))
+        out = veds_round(rounds[0], prm, ch, carry=carry)   # captures
+        ms = []
+        for rnd in rounds[1:n + 1]:
+            if kind == "warm":
+                carry = out.carry
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = veds_round(rnd, prm, ch, carry=carry)
+            torch.cuda.synchronize()
+            # the device synchronisation above closes the timed region
+            t1 = time.perf_counter()  # reprolint: disable=timer-no-block
+            ms.append((t1 - t0) * 1e3)
+        if kind == "warm":
+            carry = out.carry
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            veds_round(rounds[n + 1], prm, ch, carry=carry)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type ==
+                  DeviceType.CUDA]
+        by_name = {}
+        for e in events:
+            c, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (c + 1, t + e.device_time_total / 1e3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
+        cs.log("schedule", f"{kind} [{B}, 10, 10] x T 60: ms a round "
+               f"{[round(x, 3) for x in ms]}, median "
+               f"{cs._median(ms):.3f}; traced: "
+               f"{len(events) / 60:.1f} device events a slot, busy "
+               f"{sum(e.device_time_total for e in events) / 1e3:.3f} ms")
+        cs.log("schedule", f"{kind} by name (a slot, ms in all, most time "
+               f"first): " + "; ".join(f"{k[:70]} {c / 60:.2f}, {t:.3f}"
+                                       for k, (c, t) in top))
+
+
+def vfl_rounds(device, *archs) -> None:
+    lrs = {"granite-moe-1b-a400m": (cs.GRANITE_REPS, cs.GRANITE_LR),
+           "qwen3-32b": (cs.VFL_REPS, cs.VFL_LR)}
+    for arch in archs or tuple(lrs):
+        reps, lr = lrs[arch]
+        res = cs.phase_vfl(device, cs.vfl_config(arch, reps), cs.VFL_WARMUP,
+                           cs.VFL_ROUNDS, cs.VFL_BATCH, cs.VFL_SEQ, lr,
+                           cs.RECORDED_MASKS[arch])
+        cs.log("vfl-rounds", f"{arch}: timed walls "
+               f"{[round(w, 4) for w in res['timed_wall_s']]} s")
+        cs.free()
+
+
+def p4_tables(device) -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_util import p4_table
+    from repro_torch.kernels.p4_solve.ops import p4_solve, p4_solve_plain
+
+    def parted(p, v, rp, rv):
+        bad = (((p - rp).abs() > 2e-5 + 5e-2 * rp.abs()).any(-1)
+               | ((v - rv).abs() > 1e-9 + 5e-2 * rv.abs()))
+        return (int(bad.sum()), float((p - rp).abs().max()),
+                float(((v - rv).abs() / rv.abs().clamp_min(1e-30)).max()))
+    for slot in (5, 20, 40):
+        cand, carried, kw = cs.p4_slot_inputs(device, 3, slot, True)
+        shape = cand[1].shape
+        g = torch.Generator(device=device).manual_seed(slot)
+        tables = {"carried": carried,
+                  "interior": 0.3 * torch.rand(shape, generator=g,
+                                               device=device),
+                  "floor30": p4_table(tuple(shape), slot, device=device)}
+        for name, tab in tables.items():
+            p, v = p4_solve(*cand, tab, **kw)
+            rp, rv = p4_solve_plain(*cand, tab, **kw)
+            cp, cv = p4_solve_plain(*[x.cpu() for x in cand], tab.cpu(),
+                                    **kw)
+            cs.log("p4-tables", f"slot {slot} {name}: kernel vs plain "
+                   f"(candidates beyond, max |dp|, max rel dv) "
+                   f"{parted(p, v, rp, rv)} of {v.numel()}; plain card vs "
+                   f"CPU {parted(rp, rv, cp.to(device), cv.to(device))}")
+    cs.log("p4-tables", f"exactly-zero pivots: {p4_solve.zero_pivots}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
@@ -510,7 +651,9 @@ def main(argv=None) -> int:
               "gloo-cuda": gloo_cuda, "model-axis": model_axis,
               "model-axis-ssm": model_axis_ssm,
               "model-axis-ssm-depth": model_axis_ssm_depth,
-              "kernel-times": kernel_times}
+              "kernel-times": kernel_times,
+              "schedule-times": schedule_times, "vfl-rounds": vfl_rounds,
+              "p4-tables": p4_tables}
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)
