@@ -456,13 +456,15 @@ def veds_inputs(shape, seed: int, device):
     return gain, q, w, e
 
 
-def p4_slot_inputs(device, B: int, slot: int, warm: bool):
+def p4_slot_inputs(device, B: int, slot: int, warm: bool, sov: int = 10,
+                   opv: int = 10):
     """The arguments of `solve_p4` at slot `slot` of an eager VEDS round
-    of B cells at fig10's width (S = U = 10, T = slot + 1, seed 0):
-    cold, or warm at STREAM_WARM_ITERS from the seed table carried over
-    the slots before, as the slot step threads it. Recorded by wrapping
-    `core/veds.py`'s `solve_p4`; returns the contiguous (cw, a, q, d,
-    p_max), p_init (None cold) and the keyword arguments."""
+    of B cells of `sov` SOVs and `opv` OPVs (fig10's width S = U = 10 by
+    default; T = slot + 1, seed 0): cold, or warm at STREAM_WARM_ITERS
+    from the seed table carried over the slots before, as the slot step
+    threads it. Recorded by wrapping `core/veds.py`'s `solve_p4`; returns
+    the contiguous (cw, a, q, d, p_max), p_init (None cold) and the
+    keyword arguments."""
     from unittest import mock
     from repro_torch.channel.mobility import ManhattanParams
     from repro_torch.channel.v2x import ChannelParams
@@ -472,16 +474,16 @@ def p4_slot_inputs(device, B: int, slot: int, warm: bool):
                                            round_generator)
     from repro_torch.core.scheduler import SchedulerCarry
     from repro_torch.core.solver import p4_seed_table
-    sc = ScenarioParams(n_sov=10, n_opv=10, n_slots=slot + 1)
+    sc = ScenarioParams(n_sov=sov, n_opv=opv, n_slots=slot + 1)
     prm = VedsParams(ipm_warm_iters=STREAM_WARM_ITERS if warm else 0)
     ch = ChannelParams()
     rnd = V.RoundInputs.stack([
         make_round(round_generator(0, r, device), sc, ManhattanParams(), ch,
                    prm) for r in range(B)])
     carry = SchedulerCarry(
-        qs=torch.zeros((B, 10), device=device),
-        qu=torch.zeros((B, 10), device=device),
-        p4=p4_seed_table((B, 10, 10, 11), ch.p_max, device)) \
+        qs=torch.zeros((B, sov), device=device),
+        qu=torch.zeros((B, opv), device=device),
+        p4=p4_seed_table((B, sov, opv, opv + 1), ch.p_max, device)) \
         if warm else None
     calls, real = [], V.solve_p4
 

@@ -33,12 +33,34 @@ from repro_torch.kernels.build import load_library
 # Newton system; the schedule's weights in a fixed-size argument
 MAX_N = 32
 MAX_STEPS = 64
+# the launch's geometry (`p4_geometry`): warps (candidates) a block, and
+# the most blocks a grid takes
+WARPS_PER_BLOCK = 4
+MAX_BLOCKS = 2 ** 31 - 1
 # cw, a, q, d, p_max, p_init pointers; p, value out; n_cand; the plan;
 # far_grad_tol; the schedule; the counters of runs and of zero pivots (or
 # null); stream
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_void_p,
                                       ctypes.c_float, ctypes.c_void_p]
              + [ctypes.c_void_p] * 3)
+
+
+def p4_geometry(n: int, n_cand: int) -> Tuple[int, int, int]:
+    """(bucket, warps a block, blocks) of the kernel's launch for `n_cand`
+    candidates of n powers. The bucket is the row width the kernel is
+    instantiated at (`csrc/p4_solve.cu`: each lane's row of the Newton
+    system in `bucket` registers), n rounded up to a multiple of 4. One
+    candidate a warp: candidate c is warp c % WARPS_PER_BLOCK of block
+    c // WARPS_PER_BLOCK, and the blocks cover every candidate once.
+    Raises where the grid would need more than MAX_BLOCKS blocks."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"p4_solve: n = {n} is not in [1, {MAX_N}]")
+    blocks = -(-n_cand // WARPS_PER_BLOCK)
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"p4_solve: {n_cand} candidates need {blocks} "
+                         f"blocks of {WARPS_PER_BLOCK} warps, above the "
+                         f"grid's {MAX_BLOCKS}")
+    return -(-n // 4) * 4, WARPS_PER_BLOCK, blocks
 
 
 def newton_ops(n: int) -> int:
@@ -301,8 +323,9 @@ class _P4Solve(DeviceCounts):
         n_cand = cw.numel()
         if n_cand == 0:
             return p, val
-        plan = (ctypes.c_int * 6)(n, n_run, n_run - n_it, pol_run,
-                                  pol_run - pol_it, int(adaptive))
+        plan = (ctypes.c_int * 9)(n, n_run, n_run - n_it, pol_run,
+                                  pol_run - pol_it, int(adaptive),
+                                  *p4_geometry(n, n_cand))
         sched = (ctypes.c_float * max(1, n_run))(*mus)
         lib, fn = _launcher()
         with torch.cuda.device(a.device):

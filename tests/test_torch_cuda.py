@@ -497,6 +497,152 @@ def test_p4_solve_in_a_cuda_graph_matches_its_eager_launch():
         assert torch.equal(a, b)
 
 
+# the register layout's edges: n at the width buckets' edges (a lane's
+# row is instantiated at n rounded up to a multiple of 4, a sum spans 4,
+# 8, 16 or 32 lanes), an odd candidate count, exact pivot ties
+P4_EDGES = {"n2": (2, 4, 1), "n16": (2, 4, 15), "n17": (2, 4, 16),
+            "n32": (1, 4, 31), "odd": (1, 3, 3), "ties": (1, 10, 10)}
+
+
+def _p4_edge(edge, case, seed):
+    """A VEDS slot's candidates at `P4_EDGES[edge]` = (B, S, U) and the
+    arguments of `case` (`_p4_case`'s cold, warm and floor tables).
+    "ties": every OPV a copy of OPV 1 (its gain, weight, load and box),
+    so that rows of the Newton system tie exactly in the pivot search."""
+    shape = P4_EDGES[edge]
+    cand, _ = _p4_args(shape, seed)
+    p_init = None
+    if case == "floor":
+        p_init = p4_table(tuple(cand[1].shape), seed, device="cuda")
+    elif case == "warm":
+        p_init = _warm_table(*shape, seed)
+    if edge == "ties":
+        for x in cand[1:] + ([] if p_init is None else [p_init]):
+            x[..., 2:] = x[..., 1:2]
+    return cand, p_init, dict(P4_CASES[case])
+
+
+def _pivot_ties(cand, p_init):
+    """Candidates whose first Newton system ties exactly for the first
+    pivot: the largest |H[i][0]| at two rows or more."""
+    cw, a, q, d, pm = cand
+    p0 = p_init if p_init is not None else torch.cat(
+        [0.5 * pm[..., :1], 0.25 * pm[..., 1:]], -1)
+    p = _p4_project(p0, d, pm, margin=0.5)
+    from repro_torch.kernels.p4_solve.ops import _phi_grad_hess
+    col = _phi_grad_hess(p, a, q, cw, d, pm, 0.1)[1][..., :, 0].abs()
+    return (col == col.amax(-1, keepdim=True)).sum(-1) > 1
+
+
+def _p4_parted(p, v, rp, rv, rtol):
+    """Candidates on which two solves part: one finite and the other not,
+    or both finite and apart beyond `test_p4_solve_kernel_matches_plain_
+    version`'s tolerance (2e-5 W + rtol |p|, 1e-9 + rtol |value|)."""
+    ok, rok = (torch.isfinite(x).all(-1) & torch.isfinite(y)
+               for x, y in ((p, v), (rp, rv)))
+    far = (((p - rp).abs() > 2e-5 + rtol * rp.abs()).any(-1)
+           | ((v - rv).abs() > 1e-9 + rtol * rv.abs()))
+    return (ok != rok) | (ok & rok & far)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("cold", "warm", "floor"))
+@pytest.mark.parametrize("edge", tuple(P4_EDGES))
+def test_p4_solve_kernel_matches_plain_version_at_the_layout_edges(edge,
+                                                                   case):
+    """The kernel against its plain version on the card where its layout
+    could break: n = 2, 16, 17 and 32 (VEDS slot inputs at U = 1, 15, 16,
+    31), 9 candidates, and exact pivot ties. With tied rows an infeasible
+    candidate's system can be singular in fp32 (its rank-one barrier
+    term swamps the diagonal, and the elimination cancels a pivot to
+    zero): the candidates that the plain version leaves non-finite are
+    the kernel's non-finite ones, and elsewhere every candidate is
+    finite. The finite ones lie in the box and are held as
+    `test_p4_solve_kernel_matches_plain_version` holds them. At n = 32
+    the systems are conditioned so badly that the plain version on the
+    card parts from itself on the CPU on some candidates (an NVIDIA H100:
+    4 of 124 from seed 1's floor table, 4 to 12 cold); there the kernel
+    may part from the plain version on no more candidates than that."""
+    require_cuda()
+    cand, p_init, kw = _p4_edge(edge, case, 1)
+    if edge == "ties":
+        assert bool(_pivot_ties(cand, p_init).any())
+    rtol = P4_RTOL[case]
+    before = p4_solve.launches
+    p, v = p4_solve(*cand, p_init, **kw)
+    torch.cuda.synchronize()
+    assert p4_solve.launches == before + 1
+    rp, rv = p4_solve_plain(*cand, p_init, **kw)
+    ok = torch.isfinite(p).all(-1) & torch.isfinite(v)
+    assert ok.any() and (edge == "ties" or ok.all())
+    assert ((p[ok] >= 0) & (p[ok] <= cand[4][ok])).all()
+    parted = _p4_parted(p, v, rp, rv, rtol)
+    if edge == "n32" and bool(parted.any()):
+        cp, cv = p4_solve_plain(*(x.cpu() for x in cand),
+                                None if p_init is None else p_init.cpu(),
+                                **kw)
+        witness = _p4_parted(rp, rv, cp.cuda(), cv.cuda(), rtol)
+        assert int(parted.sum()) <= int(witness.sum()), (
+            int(parted.sum()), int(witness.sum()))
+        return
+    assert torch.equal(ok, torch.isfinite(rp).all(-1) & torch.isfinite(rv))
+    torch.testing.assert_close(v[ok], rv[ok], rtol=rtol, atol=1e-9)
+    torch.testing.assert_close(p[ok], rp[ok], rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_p4_solve_adaptive_tiers_mixed_within_a_block():
+    """Under the adaptive budget the two tiers meet in one block of the
+    launch (`WARPS_PER_BLOCK` candidates, one a warp): each candidate's
+    result is, bit for bit, its own tier's solve (the near tier's warm
+    budget or the far tier's), the tier the plain version's far mask
+    gives it."""
+    require_cuda()
+    from repro_torch.kernels.p4_solve.ops import WARPS_PER_BLOCK
+    cand, p_init, kw = _p4_case("adaptive", (1, 10, 10), 2)
+    far = (_seed_norms(cand, p_init) > kw["far_grad_tol"]).flatten()
+    whole = far[:far.numel() // WARPS_PER_BLOCK * WARPS_PER_BLOCK]
+    blocks = whole.reshape(-1, WARPS_PER_BLOCK)
+    assert (blocks.any(-1) & ~blocks.all(-1)).any()
+    p, v = p4_solve(*cand, p_init, **kw)
+    near = p4_solve(*cand, p_init, warm_iters=kw["warm_iters"])
+    far_solve = p4_solve(*cand, p_init, warm_iters=kw["far_iters"])
+    mask = far.reshape(v.shape)
+    assert torch.equal(p, torch.where(mask[..., None], far_solve[0],
+                                      near[0]))
+    assert torch.equal(v, torch.where(mask, far_solve[1], near[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 1), (2, 4, 15), (2, 4, 16),
+                                   (1, 4, 31), (1, 3, 3)])
+def test_veds_round_decides_as_with_the_plain_p4_at_the_layout_edges(
+        shape, monkeypatch):
+    """A VEDS round of 20 slots at the layout's edges (n = 2, 16, 17, 32;
+    9 candidates a slot), eagerly with the kernel and with the plain P4:
+    every slot's chosen SOV, DT or COT and prefix identical, the queues
+    within rtol 1e-4; `p4_solve` launched once a slot."""
+    require_cuda()
+    B, S, U = shape
+    rnd = _rounds(S, U, 20, B=B, seed=7)
+    prm, ch = VedsParams(), ChannelParams()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    c = SchedulerCarry(
+        qs=0.02 * torch.rand((B, S), generator=gen, device="cuda"),
+        qu=0.02 * torch.rand((B, U), generator=gen, device="cuda"))
+    before = p4_solve.launches
+    kernel, k_state = _slot_decisions(rnd, prm, ch, c)
+    assert p4_solve.launches == before + 20
+    with monkeypatch.context() as m:
+        m.setattr(port_veds, "solve_p4", _plain_solve_p4)
+        plain, p_state = _slot_decisions(rnd, prm, ch, c)
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+    for k in ("qs", "qu"):
+        torch.testing.assert_close(k_state[k], p_state[k], rtol=1e-4,
+                                   atol=1e-9)
+
+
 @pytest.mark.cuda
 def test_p4_solve_refuses_what_the_kernel_does_not_take_on_the_card():
     require_cuda()

@@ -17,6 +17,8 @@ needed):
     python3 tests/torch_chip_probes.py schedule-times [reps]
     python3 tests/torch_chip_probes.py vfl-rounds [arch ...]
     python3 tests/torch_chip_probes.py p4-tables
+    python3 tests/torch_chip_probes.py p4-bits OUT [INPUTS]
+    python3 tests/torch_chip_probes.py p4-bits-compare A B
 
 `grads [arch]`: granite-moe-1b-a400m (or the arch named) at full width
 and depth (bf16, the init `launch/train.py` draws for seed 0), the LM
@@ -112,6 +114,19 @@ each, the candidates beyond the warm tolerance (2e-5 W + 5e-2 |p|, 5e-2
 |value|) and the largest differences, for the kernel against the plain
 version on the card and for the plain version on the card against
 itself on the CPU; and the kernel's exactly-zero pivots.
+
+`p4-bits OUT [INPUTS]`: `p4_solve`'s (p, value) saved to OUT for the
+four `chip_smoke.py p4_kernel_cases`, the `p4-tables` tables (slots 5,
+20, 40: carried, interior, 30% at the floor), the width edges n = 2, 16,
+17 and 32 (VEDS slot inputs at U = 1, 15, 16, 31, cold and warm), an
+odd candidate count (9) and exact pivot ties (every OPV a copy of OPV
+1, cold and warm); then the four `p4_kernel_cases` timed eagerly and
+from a CUDA graph of 10 launches. The inputs are read from INPUTS where
+that file exists, else made and saved there: copied into another
+checkout and run from there with the same INPUTS, it solves the same
+inputs with that checkout's kernel. `p4-bits-compare A B` counts the
+elements whose bits differ between two such files, case by case (exit
+1 if any), and needs no card.
 
 `bitwise`: one round of each of the five schedulers on fig10 batches
 (three heterogeneous cells, a carry) for seeds 5-8, card against CPU:
@@ -644,6 +659,126 @@ def p4_tables(device) -> None:
     cs.log("p4-tables", f"exactly-zero pivots: {p4_solve.zero_pivots}")
 
 
+def _p4_bits_cases(device):
+    """The inputs of `p4-bits`, name -> (cw, a, q, d, p_max, p_init or
+    None, keyword arguments), all on the card."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_util import p4_table
+    from repro_torch.kernels.p4_solve.ops import (_project_feasible,
+                                                  seed_grad_norms,
+                                                  split_far_tol)
+    cases = {}
+
+    def add(name, cand, p_init, kw):
+        cases[name] = (*cand, p_init, dict(kw))
+    # chip_smoke.py p4_kernel_cases
+    for label, (B, slot, warm, extra) in {
+            "main": (cs.ROUND_BATCH, 0, False, {}),
+            "stream": (1, 5, True, {}),
+            "serve_b8": (8, 5, True, {}),
+            "adaptive": (1, 5, True, dict(far_iters=25))}.items():
+        cand, p_init, kw = cs.p4_slot_inputs(device, B, slot, warm)
+        kw.update(extra)
+        if extra:
+            cw, a, q, d, pm = cand
+            kw["far_grad_tol"] = split_far_tol(seed_grad_norms(
+                cw, a, q, _project_feasible(p_init, d, pm, margin=0.5)))
+        add(label, cand, p_init, kw)
+    # the p4-tables probe's tables
+    for slot in (5, 20, 40):
+        cand, carried, kw = cs.p4_slot_inputs(device, 3, slot, True)
+        shape = cand[1].shape
+        g = torch.Generator(device=device).manual_seed(slot)
+        for name, tab in {
+                "carried": carried,
+                "interior": 0.3 * torch.rand(shape, generator=g,
+                                             device=device),
+                "floor30": p4_table(tuple(shape), slot,
+                                    device=device)}.items():
+            add(f"tables_s{slot}_{name}", cand, tab, kw)
+    # the width edges: n = 2, 16, 17, 32, and an odd candidate count
+    for label, (B, S, U) in {"n2": (2, 4, 1), "n16": (2, 4, 15),
+                             "n17": (2, 4, 16), "n32": (2, 4, 31),
+                             "odd": (1, 3, 3)}.items():
+        for warm in (False, True):
+            cand, p_init, kw = cs.p4_slot_inputs(device, B, 3, warm, S, U)
+            add(f"{label}_{'warm' if warm else 'cold'}", cand, p_init, kw)
+    # exact pivot ties: every OPV a copy of OPV 1
+    for label, (B, slot, warm) in {"ties_cold": (1, 0, False),
+                                   "ties_warm": (1, 5, True)}.items():
+        cand, p_init, kw = cs.p4_slot_inputs(device, B, slot, warm)
+        for x in cand[1:] + ([p_init] if warm else []):
+            x[..., 2:] = x[..., 1:2]
+        add(label, cand, p_init, kw)
+    return cases
+
+
+def p4_bits(device, out: str, inputs: str = "") -> None:
+    """Solve every `_p4_bits_cases` case with this checkout's `p4_solve`
+    and save each (p, value) to `out`; the inputs come from `inputs`
+    where that file exists, else they are made and saved there, so that
+    two checkouts solve the same inputs. Then time the four
+    `p4_kernel_cases`, eagerly and from a CUDA graph of 10 launches."""
+    from repro_torch.kernels.p4_solve.ops import p4_solve, p4_solve_plain
+    if inputs and Path(inputs).is_file():
+        cases = {k: tuple(x.to(device) if torch.is_tensor(x) else x
+                          for x in v)
+                 for k, v in torch.load(inputs).items()}
+    else:
+        cases = _p4_bits_cases(device)
+        if inputs:
+            Path(inputs).parent.mkdir(parents=True, exist_ok=True)
+            torch.save(cases, inputs)
+    res = {}
+    with p4_solve.uncounted():
+        for name, (*cand, p_init, kw) in cases.items():
+            p, v = p4_solve(*cand, p_init, **kw)
+            res[name] = {"p": p.cpu(), "v": v.cpu()}
+            rp, rv = p4_solve_plain(*cand, p_init, **kw)
+            rtol = 1e-4 if p_init is None else 5e-2
+            ok, rok = (torch.isfinite(x).all(-1) & torch.isfinite(y)
+                       for x, y in ((p, v), (rp, rv)))
+            both = ok & rok
+            beyond = both & (((p - rp).abs() > 2e-5 + rtol * rp.abs())
+                             .any(-1) | ((v - rv).abs()
+                                         > 1e-9 + rtol * rv.abs()))
+            cs.log("p4-bits", f"{name} {list(cand[1].shape)}: non-finite "
+                   f"kernel {int((~ok).sum())}, plain {int((~rok).sum())}"
+                   f", both {int((~ok & ~rok).sum())} of {ok.numel()}; "
+                   f"beyond rtol {rtol} {int(beyond.sum())}")
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(res, out)
+    cs.log("p4-bits", f"zero pivots {p4_solve.zero_pivots}; saved {out}")
+    for name in ("main", "stream", "serve_b8", "adaptive"):
+        *cand, p_init, kw = cases[name]
+
+        def kernel():
+            with p4_solve.uncounted():
+                return p4_solve(*cand, p_init, **kw)
+        ms = cs.time_ms(kernel, 50)
+        g_ms, _ = cs.graph_ms(kernel, reps=10, inner=5)
+        cs.log("p4-bits", f"time {name} {list(cand[1].shape)}: eager "
+               f"{ms:.5f} ms, from a CUDA graph {g_ms:.5f} ms a launch")
+
+
+def p4_bits_compare(a: str, b: str) -> int:
+    """The elements whose bits differ between two `p4-bits` files, case
+    by case; returns their total."""
+    x, y = torch.load(a), torch.load(b)
+    total = 0
+    for name in x:
+        diff = sum(int((x[name][k].view(torch.int32)
+                        != y[name][k].view(torch.int32)).sum())
+                   for k in ("p", "v"))
+        total += diff
+        cs.log("p4-bits", f"{name}: {diff} of "
+               f"{x[name]['p'].numel() + x[name]['v'].numel()} elements "
+               f"differ")
+    cs.log("p4-bits", f"{a} vs {b}: {total} elements differ in "
+           f"{len(x)} cases")
+    return total
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     probes = {"grads": grads, "lr-sweep": lr_sweep, "bitwise": bitwise,
@@ -653,7 +788,9 @@ def main(argv=None) -> int:
               "model-axis-ssm-depth": model_axis_ssm_depth,
               "kernel-times": kernel_times,
               "schedule-times": schedule_times, "vfl-rounds": vfl_rounds,
-              "p4-tables": p4_tables}
+              "p4-tables": p4_tables, "p4-bits": p4_bits}
+    if argv and argv[0] == "p4-bits-compare":
+        return 1 if p4_bits_compare(*argv[1:]) else 0
     if not argv or argv[0] not in probes:
         print(f"usage: torch_chip_probes.py {{{','.join(probes)}}}",
               file=sys.stderr)
