@@ -107,8 +107,11 @@ each with its kernel launches counted from 0:
   gloo (NCCL refuses two ranks on a card): the serving path in head mode
   (128 prompts of 64 tokens, 16 steps, the 32768-slot cache cut over the
   ranks) and in forced row mode (8 prompts of 4096 tokens through the
-  sequence-sharded core, 16 steps), held to the one-rank path (5e-2 of
-  max|logit|, argmax in 0.9 of the rows); (c) one VFL round of
+  sequence-sharded core, 16 steps), and under the `dp` profile (head
+  mode's shape, every head on each rank, the cache's slots cut over the
+  ranks and the flash-decode merged over them), held to the one-rank
+  path (5e-2 of max|logit|, argmax in 0.9 of the rows); (c) one VFL
+  round of
   `launch/train.py`'s `train` on a (2, 2) mesh of four ranks on the
   card against the one-process round (masks identical, each leaf's
   update within `MA_VFL_WITNESS_RATIO` of its one-ulp witness); then
@@ -139,12 +142,14 @@ each with its kernel launches counted from 0:
   4 x 1024 tokens; qwen3-32b's decode_32k step at 2 of 64 repetitions;
   llama4-scout-17b-a16e's prefill at 1 of 48 repetitions, 8 x 32768
   tokens), each run for real under the op counter and `FlopCounterMode`
-  and traced on fake CUDA tensors in a background worker: argument
-  bytes and FLOPs equal, each kernel's calls in the trace equal to its
-  launches, the fake peak within 10% of `max_memory_allocated`; then
-  the fake production sweep of llama4-scout and llama-3.2-vision at
-  pod16x16 over a fake world of 256 ranks, every shape, with its time
-  (records under `chiprun_out/dryrun_torch/`).
+  and traced on fake CUDA tensors in a background worker, each repeated
+  loop scaled from a few checked iterations: argument bytes and FLOPs
+  equal, each kernel's calls in the trace equal to its launches, the
+  fake peak within 10% of `max_memory_allocated`; then the fake
+  production sweep of llama4-scout and llama-3.2-vision over fake
+  worlds of 256 and 512 ranks, every shape, and of xlstm-1.3b's
+  train_4k at both, with its time and its critical path (records under
+  `chiprun_out/dryrun_torch/`).
 
 The VFL rounds' masks must be those recorded before the bf16 kernels
 moved to the tensor cores (the schedule does not depend on the kernels);
@@ -248,6 +253,11 @@ WHISPER_REPS, WHISPER_LR = 12, 1e-22
 # largest witness is 1.25 (a zero update would read 0.8 of it): 0.5 lies
 # between, with room on each side (PERF.md section 6)
 MA_HEAD, MA_ROW = (128, 64, 32768, 16), (8, 4096, 4096, 16)
+# the serving modes of the model axis's 2-rank world: head and row mode
+# split the model; the `dp` profile's decode (every head on every rank,
+# each cache's sequence cut over the ranks, the flash-decode merged
+# over them) runs MA_HEAD's shape and is held to the same one-rank path
+MA_MODES = ("head", "row", "dp")
 MA_SERVE_RANKS, MA_TOL, MA_ARGMAX = 2, 5e-2, 0.9
 MA_VFL_VEHICLES, MA_VFL_MODEL = 2, 2
 MA_VFL_WITNESS_RATIO = 0.5
@@ -256,17 +266,22 @@ MA_VFL_WITNESS_RATIO = 0.5
 MA_VFL_BATCH = 2
 # the dry run (phase_dryrun): three cases on one rank, each run for real
 # on the card and traced on fake CUDA tensors, then the fake production
-# sweep of DRYRUN_SWEEP_ARCHS at pod16x16, every shape; the fake peak
-# held to the card's within DRYRUN_PEAK_TOL. The 11 fake traces are host
-# work (~1100 s one after another on the host of one H100, the longest
-# ~420 s), so they run DRYRUN_WORKERS at a time, one process a case,
-# after the phases whose times are compared across runs and beside those
-# that hold values (`fake_traces`); each may take DRYRUN_JOB_TIMEOUT_S
+# sweep of DRYRUN_SWEEP_ARCHS at both meshes, every shape, and of
+# DRYRUN_EXTRA's cases at both meshes (xlstm-1.3b's train_4k, whose
+# traces never finished before each repeated loop was scaled from a few
+# checked iterations, `launch/op_costs.py scaled_trace`); the fake peak
+# held to the card's within DRYRUN_PEAK_TOL. The fake traces are host
+# work, so they run DRYRUN_WORKERS at a time, one process a case, after
+# the phases whose times are compared across runs and beside those that
+# hold values (`fake_traces`); each may take DRYRUN_JOB_TIMEOUT_S (the
+# longest, xlstm's train_4k at pod16x16, took 364.9 s on the host of an
+# NVIDIA H100 80GB HBM3 at 700 W: PERF.md section 5)
 DRYRUN_SWEEP_ARCHS = ("llama4-scout-17b-a16e", "llama-3.2-vision-90b")
+DRYRUN_EXTRA = (("xlstm-1.3b", "train_4k"),)
 DRYRUN_WORKERS = 4
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
-DRYRUN_JOB_TIMEOUT_S = 900
+DRYRUN_JOB_TIMEOUT_S = 600
 # the flash_attention cases of phase_kernels_llm timed beside their bounds
 TIMED_FLASH = ("main", "zamba2", "granite", "whisper_encoder",
                "whisper_cross", "whisper_self", "vlm_cross", "qwen3_prefill",
@@ -3501,33 +3516,39 @@ def _ma_params(cfg, device):
 
 def _model_axis_serve_rank(rank: int, out_dir: str, cfg, shapes) -> None:
     """One rank of a (1, world) mesh on the shared card: `cfg`'s serving
-    path in head mode and in row mode (`shapes`: the (batch, prompt,
-    cache slots, steps) of each) on this rank's block of the seeded
-    parameters; rank 0 saves the logits, every rank its walls, launches
-    and peak memory."""
+    path in head mode, in row mode and under the `dp` profile (`shapes`:
+    the (batch, prompt, cache slots, steps) of each) on this rank's block
+    of the seeded parameters (under `dp` all of them, the cache's slots
+    cut over the ranks); rank 0 saves the logits, every rank its walls,
+    launches and peak memory."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import engine
+    from repro_torch.sharding.fsdp import layout_axis
     from repro_torch.sharding.mesh_exec import world_device
     from repro_torch.sharding.model_axis import shard_params
     torch.backends.cuda.matmul.allow_tf32 = False
     device = world_device()
     mesh = make_host_mesh(torch.distributed.get_world_size())
     res = {}
-    for tp, (batch, prompt, cache_len, steps) in zip(("head", "row"),
-                                                     shapes):
+    for mode, (batch, prompt, cache_len, steps) in zip(MA_MODES, shapes):
+        tp = "head" if mode == "dp" else mode
         _peak_gb(device, reset=True)
-        params = shard_params(mesh, _ma_params(cfg, device),
-                              engine.model_decl(cfg, tp))
+        params = _ma_params(cfg, device)
+        ax = layout_axis(mesh, "dp") if mode == "dp" else mesh
+        if mode != "dp":
+            params = shard_params(mesh, params, engine.model_decl(cfg, tp))
         r = serve_logits(params, cfg, tp, _ma_prompts(
-            batch, prompt, cfg.vocab_size, device), cache_len, steps, mesh)
+            batch, prompt, cfg.vocab_size, device), cache_len, steps, ax)
         r["max_memory_gb"] = _peak_gb(device)
         if rank == 0:
             torch.save({k: r.pop(k).cpu() for k in ("prefill", "decode")},
-                       f"{out_dir}/{tp}_logits.pt")
+                       f"{out_dir}/{mode}_logits.pt")
         else:
             del r["prefill"], r["decode"]
-        res[tp] = r
+        res[mode] = r
         del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     torch.save(res, f"{out_dir}/serve_rank{rank}.pt")
 
 
@@ -3624,9 +3645,12 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
     smoke VFL round through the model-axis code, each bit for bit the
     path without a mesh; (b) MA_SERVE_RANKS ranks on the one card over
     gloo (`run_world(shared_card=True)`), a (1, 2) mesh: the serving path
-    in head mode (MA_HEAD: the cache's sequence cut over the ranks) and
-    in forced row mode (MA_ROW: prompts long enough for the
-    sequence-sharded core), each against the one-rank path on the same
+    in head mode (MA_HEAD: the cache's sequence cut over the ranks), in
+    forced row mode (MA_ROW: prompts long enough for the
+    sequence-sharded core) and under the `dp` profile (MA_HEAD: the
+    parameters whole on each rank, the cache's sequence cut over the
+    ranks, the flash-decode merged), each against the one-rank path on
+    the same
     parameters and prompts (logits within MA_TOL of max|logit|, argmax
     equal in at least MA_ARGMAX of the rows, `flash_attention` launches
     as predicted); (c) one VFL round of `train` on a (MA_VFL_VEHICLES,
@@ -3711,13 +3735,13 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
         t0 = time.perf_counter()
         with _alloc_conf("expandable_segments:True"):
             run_world(_model_axis_serve_rank, MA_SERVE_RANKS, tmp, cfg,
-                      (head, row), device=device.type,
+                      (head, row, head), device=device.type,
                       shared_card=on_card, timeout_s=600)
         world_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/serve_rank{r}.pt", weights_only=False)
                  for r in range(MA_SERVE_RANKS)]
         got = {tp: torch.load(f"{tmp}/{tp}_logits.pt", weights_only=False)
-               for tp in ("head", "row")}
+               for tp in MA_MODES}
     b, prompt, cache_len, steps = row
     params = _ma_params(cfg, device)
     row_one = serve_logits(params, cfg, "head", _ma_prompts(
@@ -3726,16 +3750,16 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
                for k, v in row_one.items()}
     del params
     free()
-    refs = {"head": one, "row": row_one}
+    refs = {"head": one, "row": row_one, "dp": one}
     # per rank: head mode runs each layer's kernel on its H/n heads, row
     # mode on its T/n queries (the sequence-sharded core); no kernel in
     # the decode steps
-    want = {"head": (n_attn, 0), "row": (n_attn, 0)}
+    want = {"head": (n_attn, 0), "row": (n_attn, 0), "dp": (n_attn, 0)}
     res = {"world_s": world_s}
     launches = {tp: [(x[tp]["prefill_counts"]["flash_attention"],
                       x[tp]["step_counts"]["flash_attention"])
-                     for x in ranks] for tp in ("head", "row")}
-    for tp in ("head", "row"):
+                     for x in ranks] for tp in MA_MODES}
+    for tp in MA_MODES:
         ref = refs[tp]
         dists = {k: _logit_distance(got[tp][k], ref[k])
                  for k in ("prefill", "decode")}
@@ -3747,7 +3771,7 @@ def phase_model_axis(device, cfg=None, head=MA_HEAD, row=MA_ROW,
                  one_rank={k: v for k, v in ref.items()
                            if not torch.is_tensor(v)})
         res[tp] = r
-        b, p, c, s = head if tp == "head" else row
+        b, p, c, s = row if tp == "row" else head
         log(phase, f"(b) {tp} mode, {MA_SERVE_RANKS} ranks on one card "
             f"over gloo, batch {b}, prompts of {p}, {s} steps, cache {c} "
             f"({[round(x[tp]['cache_gb'], 2) for x in ranks]} GB a rank): "
@@ -5026,6 +5050,14 @@ def fake_case_main(name: str, out: str) -> int:
     return 0
 
 
+def sweep_cases():
+    """(arch, shape, mesh) of phase_dryrun's production sweep."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    pairs = [(a, s) for a in DRYRUN_SWEEP_ARCHS for s in SHAPES_BY_NAME]
+    return [(a, s, m) for a, s in pairs + list(DRYRUN_EXTRA)
+            for m in ("pod16x16", "pod2x16x16")]
+
+
 def _run_fake_trace(name: str, argv) -> tuple:
     """One fake trace of phase_dryrun, its output to its own log under
     DRYRUN_OUT: (exit code, seconds, its end on the host's clock)."""
@@ -5042,21 +5074,21 @@ def _run_fake_trace(name: str, argv) -> tuple:
 @contextlib.contextmanager
 def fake_traces():
     """The fake traces of phase_dryrun, run beside the phases inside this
-    block: the three one-rank cases and the production sweep, one process
-    a case, DRYRUN_WORKERS at a time, the train cases (the longest) first.
-    Yields ({name: future of `_run_fake_trace`'s tuple}, start); on
-    leaving, the traces not started are cancelled and the running ones
-    waited for."""
-    from repro_torch.configs.base import SHAPES_BY_NAME
+    block: the three one-rank cases and the production sweep
+    (`sweep_cases`), one process a case, DRYRUN_WORKERS at a time, the
+    train cases (the longest) first. Yields ({name: future of
+    `_run_fake_trace`'s tuple}, start); on leaving, the traces not
+    started are cancelled and the running ones waited for."""
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
     jobs = [(f"fake_{name}", [sys.executable, str(ROOT / "chip_smoke.py"),
                               "--fake-case", name, "--out",
                               str(DRYRUN_OUT / f"fake_{name}.json")])
             for name in dryrun_cases()]
-    jobs += [(f"sweep_{arch}__{shape}", [
+    jobs += [(f"sweep_{arch}__{shape}__{mesh}", [
         sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-        "--shape", shape, "--out", str(DRYRUN_OUT), "--force"])
-        for arch in DRYRUN_SWEEP_ARCHS for shape in SHAPES_BY_NAME]
+        "--shape", shape, "--out", str(DRYRUN_OUT), "--force"] + (
+            ["--multi-pod"] if mesh == "pod2x16x16" else []))
+        for arch, shape, mesh in sweep_cases()]
     jobs.sort(key=lambda j: "train" not in j[0])     # stable otherwise
     pool = concurrent.futures.ThreadPoolExecutor(DRYRUN_WORKERS)
     t0 = time.perf_counter()
@@ -5076,7 +5108,7 @@ def phase_dryrun(device, traces):
     to its launches on the card, the fake peak of live bytes within
     DRYRUN_PEAK_TOL of `max_memory_allocated` (both from the bytes live
     before the step, less the arguments); then the fake production sweep
-    of DRYRUN_SWEEP_ARCHS at pod16x16, with its time. `traces`: what
+    (`sweep_cases`), with its time and its critical path. `traces`: what
     `fake_traces` yields."""
     from unittest import mock
     from torch.utils.flop_counter import FlopCounterMode
@@ -5089,7 +5121,6 @@ def phase_dryrun(device, traces):
     from repro_torch.launch.dryrun import storage_bytes
     from repro_torch.launch.op_costs import FLOP_FORMULAS
     from repro_torch.launch.specs import build_case
-    from repro_torch.configs.base import SHAPES_BY_NAME
     counters = {"repro::flash_attention_fwd": flash_attention_fwd,
                 "repro::ssd_scan_fwd": ssd_scan_fwd,
                 "repro::fedavg_agg": fedavg_agg,
@@ -5155,7 +5186,9 @@ def phase_dryrun(device, traces):
             r["real_peak_bytes"]
         r["peak_rel_err"] = peak_err
         log("dryrun", f"{name}: fake trace {fake['wall_s']:.1f} s, "
-            f"{fake['n_ops']} ops; arguments {fake['memory']['argument_bytes']}"
+            f"{fake['n_ops']} ops in {fake['n_traces']} traces, scaled loops "
+            f"{fake['scaled_loops']}; arguments "
+            f"{fake['memory']['argument_bytes']}"
             f" B (card {r['argument_bytes']}), FLOPs "
             f"{fake['deep_cost']['dot_flops']:.6e} (card "
             f"{r['flop_counter']:.6e}), peak {fake['peak_bytes'] / 1e9:.3f} "
@@ -5176,24 +5209,29 @@ def phase_dryrun(device, traces):
     zl = res["cases"]["zamba2_train"]["launches"]
     check(all(n > 0 for n in zl.values()),
           f"dryrun zamba2_train launched some kernel no time: {zl}")
-    for arch in DRYRUN_SWEEP_ARCHS:
-        for shape in SHAPES_BY_NAME:
-            rec = json.loads((DRYRUN_OUT / f"{arch}__{shape}__pod16x16.json")
-                             .read_text())
-            rec["job_s"] = done[f"sweep_{arch}__{shape}"][1]
-            res["sweep"][f"{arch}__{shape}"] = rec
-            m = rec["memory"]
-            log("dryrun", f"sweep {arch} {shape} pod16x16 rank 0: "
-                f"arguments {m['argument_bytes'] / 1e9:.3f} GB, temp "
-                f"{m['temp_bytes'] / 1e9:.3f} GB, FLOPs "
-                f"{rec['cost']['flops']:.4e}, collectives "
-                f"{ {k: v for k, v in rec['collectives_bytes'].items() if v} }"
-                f", traced in {rec['timings']['trace_s']} s ({rec['job_s']:.1f}"
-                f" s with start-up)")
+    for arch, shape, mesh in sweep_cases():
+        tag = f"{arch}__{shape}__{mesh}"
+        rec = json.loads((DRYRUN_OUT / f"{tag}.json").read_text())
+        rec["job_s"] = done[f"sweep_{tag}"][1]
+        res["sweep"][tag] = rec
+        m = rec["memory"]
+        log("dryrun", f"sweep {arch} {shape} {mesh} rank 0: arguments "
+            f"{m['argument_bytes'] / 1e9:.3f} GB, temp "
+            f"{m['temp_bytes'] / 1e9:.3f} GB, FLOPs "
+            f"{rec['cost']['flops']:.4e}, collectives "
+            f"{ {k: v for k, v in rec['collectives_bytes'].items() if v} }, "
+            f"{rec['n_ops']} ops in {rec['n_traces']} traces, traced in "
+            f"{rec['timings']['trace_s']} s ({rec['job_s']:.1f} s with "
+            f"start-up)")
     res["sweep_wall_s"] = sweep_s
+    slowest = max(done, key=lambda name: done[name][1])
+    res["critical_path"] = dict(name=slowest, seconds=done[slowest][1])
     log("dryrun", f"the fake traces (3 one-rank cases and the "
         f"{len(res['sweep'])}-case sweep, {DRYRUN_WORKERS} at a time) took "
         f"{sweep_s:.1f} s from the first's start to the last's end")
+    log("time", f"the dry run's fake traces: {len(done)} in {sweep_s:.1f} "
+        f"s, {DRYRUN_WORKERS} at a time; critical path {slowest} "
+        f"{done[slowest][1]:.1f} s")
     return res
 
 
@@ -5409,7 +5447,7 @@ def run_phases(device, smi, build_s, t_start) -> int:
             # the card over gloo)
             ma = model_axis
             if name == "flash_attention":
-                for tp in ("head", "row"):
+                for tp in MA_MODES:
                     out[f"model_axis_{tp}_prefill_per_rank"] = [
                         x["prefill_counts"][name] for x in ma["serve"][tp][
                             "ranks"]]

@@ -46,6 +46,7 @@ from repro_torch.core.scheduler import (RoundOutputs, SchedulerCarry,
 from repro_torch.core.solver import solve_p4
 from repro_torch.kernels.p4_solve.ops import p4_solve
 from repro_torch.kernels.veds_score.ops import veds_dt_score
+from repro_torch.launch.op_costs import fill, loop
 
 NEG = -1e30
 
@@ -301,10 +302,11 @@ def _slots_eager(rb: RoundInputs, state, prm, ch, enable_cot):
     T = rb.g_sr.shape[1]
     ts = torch.arange(T, device=rb.g_sr.device)
     infos = []
-    for t in range(T):
+    for t in loop("veds_slots", T):
         state, info = solve_slot(ts[t], state, rb, prm, ch,
                                  enable_cot=enable_cot)
-        infos.append(info)
+        infos.append({k: info[k] for k in _SUMMED})
+    infos = fill(infos, T)
     return state, {k: torch.stack([i[k] for i in infos]) for k in _SUMMED}
 
 

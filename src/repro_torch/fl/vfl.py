@@ -54,6 +54,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.veds import veds_round
 from repro_torch.kernels.fedavg_agg.ops import fedavg_agg_tree
+from repro_torch.launch.op_costs import loop
 from repro_torch.models import engine
 from repro_torch.models import layers as L
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
@@ -124,7 +125,7 @@ def _local_sgd(params, batch, cfg: ModelConfig, tp: str,
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     tree = tree_unflatten(params, leaves)
     acc = None
-    for a in range(A):
+    for a in loop("microbatches", A):
         mb = {k: x.reshape(A, x.shape[0] // A, *x.shape[1:])[a]
               for k, x in batch.items()}
         g = torch.autograd.grad(loss_fn(tree, mb, cfg, tp), leaves)
@@ -217,7 +218,7 @@ def make_vfl_round(cfg: ModelConfig, mesh=None, tp: str = "head", *,
         old = _vehicle(params_v, 0)
         new_v = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                                device=x.device), params_v)
-        for v in range(V):
+        for v in loop("vehicles", V):
             _local_sgd(_vehicle(params_v, v), _vehicle(batch_v, v), cfg, tp,
                        loss_fn, lr, out=_vehicle(new_v, v))
         hook("local_sgd")

@@ -8,18 +8,25 @@ production mesh (`launch/mesh.py:make_production_mesh`, a fake world of
 256 or 512 ranks), builds that rank's inputs (`launch/specs.py:
 build_case`) as fake tensors (`FakeTensorMode`: nothing is allocated)
 and runs its step, the port's own code, under `launch/op_costs.OpCosts`,
-which records every op the step dispatches.
+which records every op the step dispatches. Each repeated loop (the
+layer stack, the microbatches, the VEDS slots, the mLSTM's chunks, the
+sLSTM's steps) runs a few checked iterations and the records are scaled
+to its trip count, as the reference's HLO counter scales a `while` body
+(`op_costs.scaled_trace`); `--full-trace` dispatches every iteration
+instead, to compare the two.
 
 Usage:
   python -m repro_torch.launch.dryrun --device cpu --arch qwen3-32b --shape train_4k
   python -m repro_torch.launch.dryrun --device cpu --arch all --shape all --both-meshes
+  python -m repro_torch.launch.dryrun --device cpu --arch qwen3-32b --shape decode_32k --profile dp --variant dp
   python -m repro_torch.launch.dryrun --list
 
 The device is CUDA unless `--device` names another (fake CUDA tensors
 need a PyTorch built for CUDA). Per case it writes
 experiments/dryrun_torch/<arch>__<shape>__<mesh>.json and the gzipped op
-log beside it (`.ops.jsonl.gz`, which `launch/reanalyze.py` reads). The
-record's fields, as the reference's:
+log beside it (`.ops.jsonl.gz`, every trace's entries after a marker of
+its weight, which `launch/reanalyze.py` reads). The record's fields, as
+the reference's:
 
   memory.argument_bytes  this rank's inputs (each storage once)
   memory.output_bytes    the step's outputs
@@ -27,11 +34,13 @@ record's fields, as the reference's:
   memory.alias_bytes     outputs that are inputs updated in place
   memory.code_bytes      null: eager PyTorch compiles no program
   cost.*, deep_cost.*    `op_costs.analyze`: dot_flops and hbm_bytes of
-                         the whole step (no loop is counted once, so
-                         there is no per-iteration view and no unknown
-                         trip count: unknown_trip_whiles is 0)
+                         the whole step, each loop at its trip count (no
+                         trip count is unknown: unknown_trip_whiles is 0)
   collectives_bytes/_count by kind, over the whole step
+  collectives_bytes_periter by kind, each loop body counted once
   kernels                each custom kernel's calls
+  scaled_loops           each scaled loop's trip count and the
+                         iterations traced ({} with --full-trace)
   timings                build_s (the inputs), trace_s (the step)
 """
 from __future__ import annotations
@@ -53,7 +62,8 @@ from repro_torch.configs.base import SHAPES_BY_NAME, ModelConfig, \
     ShapeConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.op_costs import OpCosts, tree_tensors
+from repro_torch.launch.op_costs import OpCosts, scaled_trace, \
+    tree_tensors
 from repro_torch.launch.specs import build_case
 from repro_torch.sharding.rules import mesh_shape
 
@@ -76,44 +86,57 @@ def _storages(tree) -> set:
 
 
 def trace_case(cfg: ModelConfig, shape: ShapeConfig, mesh, device, *,
-               fake: bool = True, log: Optional[str] = None,
-               seed: int = 0) -> dict:
-    """Build this rank's case on `mesh` and run its step once under
-    `OpCosts` (on fake tensors with `fake`, for real otherwise). Returns
-    the record's `memory`, `deep_cost`, collective, kernel and timing
-    fields, and the step's outputs under "outputs" (not serialisable).
-    The timings are the host's: on fake tensors no device work exists,
-    and a real run on a card is not synchronised."""
+               fake: bool = True, full_trace: bool = False,
+               log: Optional[str] = None, seed: int = 0) -> dict:
+    """Build this rank's case on `mesh` and run its step under `OpCosts`:
+    on fake tensors with `fake`, each repeated loop scaled from a few
+    checked iterations (`op_costs.scaled_trace`) unless `full_trace`
+    asks for every iteration; for real otherwise, every iteration run.
+    Returns the record's `memory`, `deep_cost`, collective, kernel,
+    loop and timing fields, and the step's outputs under "outputs" (not
+    serialisable). The timings are the host's: on fake tensors no device
+    work exists, and a real run on a card is not synchronised."""
     t0 = time.perf_counter()
     mode = FakeTensorMode(allow_non_fake_inputs=True) if fake \
         else contextlib.nullcontext()
     with mode:
         step, args = build_case(cfg, shape, mesh, device, seed=seed)
         t_build = time.perf_counter() - t0  # reprolint: disable=timer-no-block
-        costs = OpCosts(args, log=log)
-        with costs:
-            out = step(*args)
+        if fake:
+            tr = scaled_trace(step, args, full=full_trace, log=log)
+            deep, out, peak = tr.totals, tr.outputs, tr.peak_bytes
+            arg_b, loops, n_traces = tr.argument_bytes, tr.loops, \
+                tr.n_traces
+        else:
+            costs = OpCosts(args, log=log)
+            with costs:
+                out = step(*args)
+            deep, peak, arg_b = costs.analyze(), costs.peak_bytes, \
+                costs.argument_bytes
+            loops, n_traces = {}, 1
         # host time of the trace (fake: no device work)
         t_trace = time.perf_counter() - t0 - t_build  # reprolint: disable=timer-no-block
-    deep = costs.analyze()
     arg_keys = _storages(args)
     return {
         "memory": {
-            "argument_bytes": costs.argument_bytes,
+            "argument_bytes": arg_b,
             "output_bytes": storage_bytes(out),
-            "temp_bytes": costs.peak_bytes - costs.argument_bytes,
+            "temp_bytes": peak - arg_b,
             "alias_bytes": storage_bytes(out) - storage_bytes(
                 out, exclude=arg_keys),
             "code_bytes": None,
         },
-        "peak_bytes": costs.peak_bytes,
+        "peak_bytes": peak,
         "deep_cost": {"dot_flops": deep["dot_flops"],
                       "hbm_bytes": deep["hbm_bytes"],
                       "unknown_trip_whiles": 0},
         "collectives_bytes": deep["collectives_bytes"],
         "collectives_count": deep["collectives_count"],
+        "collectives_bytes_periter": deep["collectives_bytes_periter"],
         "kernels": deep["kernel_calls"],
         "n_ops": deep["n_ops"],
+        "scaled_loops": loops,
+        "n_traces": n_traces,
         "timings": {"build_s": round(t_build, 3),
                     "trace_s": round(t_trace, 3)},
         "outputs": out,
@@ -122,7 +145,8 @@ def trace_case(cfg: ModelConfig, shape: ShapeConfig, mesh, device, *,
 
 def run_case(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
              force: bool = False, profile: str = "", variant: str = "",
-             grad_accum: int = 0, device=None, rank: int = 0) -> dict:
+             grad_accum: int = 0, device=None, rank: int = 0,
+             full_trace: bool = False) -> dict:
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     tag = f"{arch}__{shape_name}__{mesh_name}"
     if variant:
@@ -141,7 +165,7 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     with make_production_mesh(multi_pod, rank=rank, device=device) as mesh:
-        res = trace_case(cfg, shape, mesh, device,
+        res = trace_case(cfg, shape, mesh, device, full_trace=full_trace,
                          log=os.path.join(out_dir, tag + ".ops.jsonl.gz"))
         n_dev = math.prod(mesh_shape(mesh).values())
     res.pop("outputs")
@@ -154,20 +178,27 @@ def run_case(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "code_bytes": "eager PyTorch compiles no program: no code size",
             "temp_bytes": "peak of live storages during the step, less "
                           "the arguments"},
-        # the port's op counter sees every op: the whole step
+        # the whole step, each repeated loop at its trip count
         "cost": {"flops": deep["dot_flops"], "transcendentals": None,
                  "bytes_accessed": deep["hbm_bytes"]},
         "deep_cost": deep,
         "deep_cost_notes": {
-            "unknown_trip_whiles": "0: every loop iteration dispatches its "
-                                   "ops, so no trip count is needed"},
+            "unknown_trip_whiles": "0: every repeated loop's trip count is "
+                                   "known in Python (scaled_loops)"},
         "collectives_bytes": res["collectives_bytes"],
         "collectives_count": res["collectives_count"],
-        # no loop body is counted once: the per-iteration view is the total
-        "collectives_bytes_periter": res["collectives_bytes"],
+        # each loop body counted once, the reference's per-iteration view
+        "collectives_bytes_periter": res["collectives_bytes_periter"],
         "kernels": res["kernels"],
         "n_ops": res["n_ops"],
         "peak_bytes": res["peak_bytes"],
+        "scaled_loops": res["scaled_loops"],
+        "trace_notes": {
+            "scaled_loops": "each loop's trip count and the iterations "
+                            "the traces ran; empty: a full trace "
+                            "(--full-trace), every iteration dispatched",
+            "n_traces": "traces of the step combined into the record"},
+        "n_traces": res["n_traces"],
         "timings": res["timings"],
     }
     with open(path, "w") as f:
@@ -194,6 +225,9 @@ def main(argv=None) -> int:
                     help="device of the fake tensors (CUDA unless named)")
     ap.add_argument("--rank", type=int, default=0,
                     help="the rank of the production mesh this process plays")
+    ap.add_argument("--full-trace", action="store_true",
+                    help="dispatch every iteration of every repeated loop "
+                         "instead of scaling a few checked ones")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -216,7 +250,8 @@ def main(argv=None) -> int:
                                    force=args.force, profile=args.profile,
                                    variant=args.variant,
                                    grad_accum=args.grad_accum,
-                                   device=args.device, rank=args.rank)
+                                   device=args.device, rank=args.rank,
+                                   full_trace=args.full_trace)
                     coll = sum(rec["collectives_bytes"].values())
                     print(f"OK   {tag}  flops/dev={rec['cost']['flops']:.3e} "
                           f"args={rec['memory']['argument_bytes'] / 2**30:.2f}"

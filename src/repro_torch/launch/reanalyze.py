@@ -24,7 +24,7 @@ def reanalyze(path: str) -> dict:
                        bytes_accessed=deep["hbm_bytes"])
     rec["collectives_bytes"] = deep["collectives_bytes"]
     rec["collectives_count"] = deep["collectives_count"]
-    rec["collectives_bytes_periter"] = deep["collectives_bytes"]
+    rec["collectives_bytes_periter"] = deep["collectives_bytes_periter"]
     rec["kernels"] = deep["kernel_calls"]
     rec["n_ops"] = deep["n_ops"]
     with open(path, "w") as f:

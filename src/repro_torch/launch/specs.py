@@ -255,10 +255,8 @@ def build_case(cfg: ModelConfig, shape: ShapeConfig, mesh, device=None, *,
             return logits
         return (step if with_step else None), tuple(args)
 
-    # decode
-    if layout == "dp" and sizes.get("model", 1) > 1:
-        raise ValueError("the dp profile's decode (replicated heads beside "
-                         "a cache split over the model axis) is not ported")
+    # decode (under the dp profile the parameters replicated, each cache's
+    # sequence dim over the model axis: `layout_axis`'s cache axis)
     force_swa = (shape.seq_len > 100_000
                  and cfg.long_context_variant == "swa")
     B = shape.global_batch

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.launch.op_costs import fill, loop
 from repro_torch.models import attention as att
 from repro_torch.models import layers as L
 from repro_torch.models.module import declare
@@ -201,7 +202,10 @@ def attn_decode(p, x, cache, pos, cfg: ModelConfig, mesh, *, tp: str,
     input's, with the new K/V row written in place (`cross`: read only,
     no rope). Over a model axis q is made whole on every rank (head
     mode: the local heads all-gathered; row mode: the partial sums
-    reduced) and the attention output is cut again for `wo`."""
+    reduced) and the attention output is cut again for `wo`. Under the
+    `dp` profile (`ModelAxis.cache`: every head on every rank, the
+    slots cut over the cache axis) the projections are local and only
+    the flash-decode merges over the cache axis."""
     ax = model_axis(mesh)
     cross = kind == "cross"
     h = L.rmsnorm(p["ln"], x)
@@ -227,11 +231,12 @@ def attn_decode(p, x, cache, pos, cfg: ModelConfig, mesh, *, tp: str,
     qg = q.reshape(B, KV, H // KV, Dh)
     window = cfg.window if kind == "attn_swa" else None
     if cross:
-        out = att.decode_cross_attention(ax, qg, cache["k"], cache["v"])
+        out = att.decode_cross_attention(ax.seq, qg, cache["k"],
+                                         cache["v"])
         ck, cv = cache["k"], cache["v"]
     else:
         out, ck, cv = att.decode_attention(
-            ax, qg, cache["k"], cache["v"], k_new, v_new, pos,
+            ax.seq, qg, cache["k"], cache["v"], k_new, v_new, pos,
             window=window)
     out = out.reshape(B, H, Dh)
     if ax.size > 1:
@@ -763,12 +768,13 @@ def mlstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
                          f"the sequence length {T}")
     Cm = n = None
     outs = []
-    for t0 in range(0, T, chunk):
-        sl = slice(t0, t0 + chunk)
+    for c in loop("mlstm_chunks", T // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
         Cm, n, out = _mlstm_chunk(Cm, n, q[:, sl], k[:, sl], v[:, sl],
                                   log_f[:, sl], log_i[:, sl], Pd ** -0.5,
                                   x.dtype, ax)
         outs.append(out)
+    outs = fill(outs, T // chunk)
     y = scatter_to(torch.cat(outs, dim=1).reshape(B, T, H * Pd), ax, -1)
     o = torch.sigmoid(torch.einsum("btd,di->bti", hs, p["w_o"].to(x.dtype)))
     y = L.rmsnorm(p["out_norm"], y, mesh=ax) * o
@@ -875,10 +881,10 @@ def slstm_apply(p, x, cfg: ModelConfig, mesh=None, **_):
     state = tuple(torch.zeros((B, H, Pd), dtype=torch.float32,
                               device=x.device) for _ in range(4))
     hs = []
-    for t in range(T):
+    for t in loop("slstm_steps", T):
         state = _slstm_cell(p32, gx[:, t], state)
         hs.append(state[0])
-    y = torch.stack(hs, dim=1).reshape(B, T, d).to(x.dtype)
+    y = torch.stack(fill(hs, T), dim=1).reshape(B, T, d).to(x.dtype)
     return x + torch.einsum("btd,de->bte", y, p["w_out"].to(x.dtype))
 
 

@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.op_costs import loop
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.module import Declared, declare, tree_map
@@ -246,7 +247,7 @@ def _encode(params, cfg: ModelConfig, src: torch.Tensor,
     enc = params["encoder"]
     ax = model_axis(mesh)
     x = src.to(cfg.dtype) + enc["pos"].to(cfg.dtype)[None]
-    for r in range(cfg.encoder_layers):
+    for r in loop("encoder_layers", cfg.encoder_layers):
         blk = tree_map(lambda a: a[r], enc["blocks"])
         if ax.fsdp is not None:
             blk = fsdp.gather(blk, fsdp_dims(cfg, tp)[2], ax)
@@ -281,8 +282,8 @@ def build_cross_cache(cfg: ModelConfig, params, cache, src, tp: str,
     params = _top(params, cfg, tp, ax)
     mem = source_memory(params, cfg, src, tp, ax)
     row = ax.size > 1 and tp == "row"
-    if ax.size > 1:
-        mem = mem.narrow(1, *ax.block(mem.shape[1]))
+    if ax.seq.size > 1:
+        mem = mem.narrow(1, *ax.seq.block(mem.shape[1]))
         if row:
             mem = mem.narrow(2, *ax.block(mem.shape[2]))
     new_cache = list(cache)
@@ -355,7 +356,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, tp: str,
             return checkpoint(call, p, x, use_reentrant=False)
         return call(p, x)
 
-    for r in range(cfg.n_rep):
+    for r in loop("layers", cfg.n_rep):
         for i, kind in enumerate(cfg.pattern):
             p = _block(params, i, r)
             if kind == "moe":
@@ -407,13 +408,15 @@ def zero_cache(decl, device=None, mesh=None):
     """The declared cache, every leaf zeros of its shape and dtype, on
     `device` (CUDA unless named); over a model axis (`mesh`) this rank's
     block of it: each dim whose logical axis maps to the model axis
-    (`cache_seq`) cut to 1/n; a dim that n does not divide raises."""
+    (`cache_seq` over `ModelAxis.seq`, the split heads' dims over the
+    model axis) cut to 1/n; a dim that n does not divide raises."""
     device = resolve_device(device)
     ax = model_axis(mesh)
     rules = default_rules()
 
     def local(d):
-        return tuple(ax.block(s)[1] if rules.mesh_axis(a) == "model" else s
+        return tuple((ax.seq if a == "cache_seq" else ax).block(s)[1]
+                     if rules.mesh_axis(a) == "model" else s
                      for s, a in zip(d.shape, d.axes))
     return tree_map(lambda d: torch.zeros(local(d), dtype=d.dtype,
                                           device=device), decl)
@@ -447,7 +450,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     check_model_axis(cfg, tp, ax.size)
     params = _top(params, cfg, tp, ax)
     x = L.embed(params["embed"], tokens, mesh=ax).to(cfg.dtype)
-    for r in range(cfg.n_rep):
+    for r in loop("layers", cfg.n_rep):
         for i, kind in enumerate(cfg.pattern):
             ek = effective_kind(kind, force_swa)
             p = _gather_block(_block(params, i, r), i, cfg, tp, ax)

@@ -57,9 +57,11 @@ def layout_axis(mesh, layout: str, split_batch: bool = False) -> ModelAxis:
     """The `ModelAxis` a step runs over on `mesh` under `layout`
     (`pick_layout`): the model axis; under "fsdp" with the data axis as
     its FSDP axis, and as its batch axis with `split_batch` (`specs.py`:
-    inner = "data"); under "dp" no model split, and with `split_batch`
-    the model axis as the batch axis (inner = "model"). `mesh` None is
-    one process."""
+    inner = "data"); under "dp" no model split (the parameters
+    replicated), the model axis as the decode caches' sequence axis
+    (`ModelAxis.cache`: the reference's `cache_seq`, which its `dp`
+    override leaves on the model axis) and, with `split_batch`, as the
+    batch axis (inner = "model"). `mesh` None is one process."""
     if mesh is None:
         return LOCAL
     ax = model_axis(mesh)
@@ -69,7 +71,8 @@ def layout_axis(mesh, layout: str, split_batch: bool = False) -> ModelAxis:
                                    batch=data if split_batch else None)
     if layout == "dp":
         return dataclasses.replace(
-            LOCAL, batch=ax if split_batch and ax.size > 1 else None)
+            LOCAL, batch=ax if split_batch and ax.size > 1 else None,
+            cache=ax if ax.size > 1 else None)
     return ax
 
 

@@ -43,18 +43,30 @@ class ModelAxis:
     ranks that share this rank's other coordinates (None for one rank),
     this rank's coordinate on it and its size.
 
-    Two more axes of a vehicle's ranks may ride along, each itself a
+    Three more axes of a vehicle's ranks may ride along, each itself a
     `ModelAxis` of its group (`sharding/fsdp.py`): `fsdp`, the axis the
     parameters' `embed` dims are split over and gathered on use (the
-    reference's `fsdp_rules`), and `batch`, the axis the vehicle's batch
-    is split over in training (the data axis under FSDP, the model axis
-    under the `dp` profile), over which the gradients are averaged."""
+    reference's `fsdp_rules`); `batch`, the axis the vehicle's batch is
+    split over in training (the data axis under FSDP, the model axis
+    under the `dp` profile), over which the gradients are averaged; and
+    `cache`, the axis the decode caches' sequence dim (`cache_seq`) is
+    cut over where the parameters are replicated (the model axis under
+    the `dp` profile: every rank holds all heads and S/n slots, and the
+    flash-decode merges the ranks' partial softmax statistics)."""
 
     group: Optional[Any]
     rank: int
     size: int
     fsdp: Optional["ModelAxis"] = None
     batch: Optional["ModelAxis"] = None
+    cache: Optional["ModelAxis"] = None
+
+    @property
+    def seq(self) -> "ModelAxis":
+        """The axis a decode cache's sequence dim is cut over: `cache`
+        where it is set, else this axis (the heads' split and the
+        cache's go together)."""
+        return self if self.cache is None else self.cache
 
     def block(self, n: int) -> tuple:
         """(start, length) of this rank's block of a dim of `n`."""

@@ -6,7 +6,10 @@ make_production_mesh`) and the kernels' operators' costs, on the CPU:
     and the last of the fake world, have the shapes and dtypes of the
     reference's `build_case` arguments' shards (`NamedSharding.
     shard_shape`, in a subprocess of 512 forced host devices, no
-    lowering);
+    lowering), and so do the `--profile dp` decode cases of qwen3-32b
+    and whisper-small; the dp decode step merges each attention
+    sub-block's partial softmax statistics over the model axis (an
+    all-reduce MAX and SUM each) and issues no other collective;
 (b) each kernel's operation and bytes count reproduces the counts of
     PERF.md's bound column, and `FlopCounterMode` counts the operators;
 (c) fake against real on the CPU at a mesh of one rank (a smoke train,
@@ -84,18 +87,23 @@ _REFERENCE = textwrap.dedent("""
         else:
             out[path] = [list(s.shard_shape(x.shape)), str(x.dtype)]
 
+    cases = [(a, "", s) for a in ARCH_IDS for s in SHAPES_BY_NAME] + [
+        (a, "dp", s) for a in json.loads(sys.argv[2])
+        for s in json.loads(sys.argv[3])]
     res = {}
     for mp in (False, True):
         mesh = make_production_mesh(multi_pod=mp)
         with jax.set_mesh(mesh):
-            for arch in ARCH_IDS:
-                for shape in SHAPES_BY_NAME:
-                    _, args, shard = build_case(get_config(arch),
-                                                SHAPES_BY_NAME[shape], mesh)
-                    out = {}
-                    for i, (a, s) in enumerate(zip(args, shard)):
-                        walk(a, s, str(i), out)
-                    res[f"{arch}|{shape}|{int(mp)}"] = out
+            for arch, profile, shape in cases:
+                cfg = get_config(arch)
+                if profile:
+                    cfg = cfg.replace(sharding_profile=profile)
+                _, args, shard = build_case(cfg, SHAPES_BY_NAME[shape], mesh)
+                out = {}
+                for i, (a, s) in enumerate(zip(args, shard)):
+                    walk(a, s, str(i), out)
+                res[f"{arch}{'+' + profile if profile else ''}|{shape}|"
+                    f"{int(mp)}"] = out
     with open(sys.argv[1], "w") as f:
         json.dump(res, f)
 """)
@@ -126,35 +134,47 @@ def _case_tensors(args):
     return out
 
 
-def _port_shapes(arch, shape, multi_pod, rank):
+# the `--profile dp` decode cases held to the reference's shards too
+DP_ARCHS, DP_SHAPES = ("qwen3-32b", "whisper-small"), ("decode_32k",
+                                                       "long_500k")
+
+
+def _port_shapes(arch, shape, multi_pod, rank, profile=""):
+    cfg = get_config(arch)
+    if profile:
+        cfg = cfg.replace(sharding_profile=profile)
     with make_production_mesh(multi_pod, rank=rank, device="cpu") as mesh:
         with FakeTensorMode(allow_non_fake_inputs=True):
-            _, args = specs.build_case(get_config(arch), SHAPES_BY_NAME[shape],
+            _, args = specs.build_case(cfg, SHAPES_BY_NAME[shape],
                                        mesh, "cpu", with_step=False)
             return {p: [list(t.shape), str(t.dtype).split(".")[-1]]
                     for p, t in _case_tensors(args).items()}
 
 
 def test_every_case_has_the_reference_per_device_inputs(tmp_path):
-    """(a) All 80 cases: the port's inputs at ranks 0, 37 and the last
-    equal the reference's shards, path by path, in shape and dtype."""
+    """(a) All 80 cases and the dp decode cases: the port's inputs at
+    ranks 0, 37 and the last equal the reference's shards, path by path,
+    in shape and dtype."""
     ref_path = str(tmp_path / "reference.json")
     env = dict(os.environ, PYTHONPATH=os.path.join(
         os.path.dirname(__file__), "..", "src"))
     env.pop("JAX_PLATFORMS", None)
-    proc = subprocess.Popen([sys.executable, "-c", _REFERENCE, ref_path],
+    proc = subprocess.Popen([sys.executable, "-c", _REFERENCE, ref_path,
+                             json.dumps(DP_ARCHS), json.dumps(DP_SHAPES)],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    cases = [(a, "", s) for a in ARCH_IDS for s in SHAPES_BY_NAME] + [
+        (a, "dp", s) for a in DP_ARCHS for s in DP_SHAPES]
     try:
         ours = {}
         for mp in (False, True):
             n = int(np.prod(PRODUCTION_MESHES[mp][0]))
-            for arch in ARCH_IDS:
-                for shape in SHAPES_BY_NAME:
-                    got = [_port_shapes(arch, shape, mp, r % n)
-                           for r in RANKS]
-                    assert got[0] == got[1] == got[2], (arch, shape, mp)
-                    ours[f"{arch}|{shape}|{int(mp)}"] = got[0]
+            for arch, profile, shape in cases:
+                got = [_port_shapes(arch, shape, mp, r % n, profile)
+                       for r in RANKS]
+                assert got[0] == got[1] == got[2], (arch, shape, mp)
+                ours[f"{arch}{'+' + profile if profile else ''}|{shape}|"
+                     f"{int(mp)}"] = got[0]
         log, _ = proc.communicate(timeout=600)
     finally:
         proc.kill()
@@ -162,9 +182,28 @@ def test_every_case_has_the_reference_per_device_inputs(tmp_path):
     assert proc.returncode == 0, log[-3000:]
     with open(ref_path) as f:
         ref = json.load(f)
-    assert len(ref) == len(ours) == 80
+    assert len(ref) == len(ours) == 80 + 2 * len(DP_ARCHS) * len(DP_SHAPES)
     for case, want in ref.items():
         assert ours[case] == want, case
+
+
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_dp_decode_merges_each_attention_sub_block_over_the_model_axis(arch):
+    """(a) The dp profile's decode step on rank 1 of a fake (2, 2) world:
+    an all-reduce MAX and SUM for each attention sub-block (whisper's
+    self and cross), nothing else; each layer's once in the
+    per-iteration view."""
+    cfg = get_smoke_config(arch).replace(sharding_profile="dp", n_rep=5)
+    n_attn = sum(k in ("attn", "cross") for k in cfg.pattern)
+    with fake_mesh((2, 2), ("data", "model"), rank=1, device="cpu") as mesh:
+        rec = dryrun.trace_case(cfg, ShapeConfig("decode_s", 64, 4, "decode"),
+                                mesh, "cpu")
+    assert rec["collectives_count"] == {
+        "all-reduce": 2 * n_attn * cfg.n_rep, "all-gather": 0,
+        "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+    per = rec["collectives_bytes_periter"]["all-reduce"]
+    assert rec["collectives_bytes"]["all-reduce"] == per * cfg.n_rep > 0
+    assert rec["scaled_loops"]["layers"]["trip_count"] == cfg.n_rep
 
 
 def test_production_mesh_is_the_references_topology():

@@ -16,7 +16,11 @@ processes (`tests/torch_dryrun_cases.py`, the ranks' side):
 - vehicles over ("pod", "data") beside a model axis: one round of 4
   vehicles on a (2, 2, 2) world of 8 ranks against one process;
 - the `dp` profile: parameters replicated over the model axis, each
-  vehicle's batch split over it, on a (2, 2) world against one process.
+  vehicle's batch split over it, on a (2, 2) world against one process;
+  and its decode (each cache's sequence dim cut over the model axis, the
+  batch's rows over the data axis, every head on every rank): greedy
+  steps of a dense and a hybrid (zamba2) smoke config against one
+  process's, logits within ATOL and argmax identical.
 
 All at smoke widths in fp32, one round each.
 """
@@ -119,22 +123,45 @@ def _dp_run():
                 batch={k: x.reshape(2, B, SEQ) for k, x in batch.items()})
 
 
+DP_DECODE_ARCHS, DP_DECODE_STEPS = ("qwen3-32b", "zamba2-2.7b"), 4
+
+
+def _dp_decode_run(arch):
+    """A `dp`-profile smoke config's parameters, a cache of CACHE_S slots
+    filled at random and a batch of B rows at position POS (the new rows
+    go to the second model rank's slots), for DP_DECODE_STEPS greedy
+    steps."""
+    cfg = get_smoke_config(arch).replace(**F32, sharding_profile="dp")
+    tp = attention_tp_mode(cfg.num_heads, M)
+    params = materialize(torch.Generator().manual_seed(11),
+                         engine.model_decl(cfg, tp))
+    cdecl = engine.cache_decl(cfg, B, CACHE_S)
+    gen = torch.Generator().manual_seed(12)
+    cache = tree_map(lambda d: 0.5 * torch.randn(d.shape, generator=gen),
+                     cdecl)
+    tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen)
+    return dict(cfg=cfg, tp=tp, params=params, cache=cache, cache_decl=cdecl,
+                tokens=tokens, pos=torch.tensor(POS), steps=DP_DECODE_STEPS)
+
+
 MASKS = torch.tensor([1.0, 1.0]), torch.tensor([1.0, 2.0])
 
 
 @pytest.fixture(scope="module")
 def fsdp_world(tmp_path_factory):
-    """The FSDP runs and the dp run on a (2, 2) world, every rank's
-    results; the one-process results; the reference's rounds."""
+    """The FSDP runs, the dp run and the dp decode runs on a (2, 2) world,
+    every rank's results; the one-process results; the reference's
+    rounds."""
     tmp = tmp_path_factory.mktemp("fsdp")
     runs, refs = {}, {}
     for arch in FSDP_ARCHS:
         runs[arch], refs[arch] = _fsdp_run(arch)
     dp = {"qwen3-32b-dp": _dp_run()}
+    dp_decode = {f"{a}-dp-decode": _dp_decode_run(a) for a in DP_DECODE_ARCHS}
     path, out = str(tmp / "inputs.pt"), str(tmp / "out{rank}.pt")
-    torch.save(dict(fsdp=runs, dp=dp, lr=LR, mask=torch.ones(1),
-                    weights=torch.ones(1), masks=MASKS[0],
-                    weights_v=MASKS[1]), path)
+    torch.save(dict(fsdp=runs, dp=dp, dp_decode=dp_decode, lr=LR,
+                    mask=torch.ones(1), weights=torch.ones(1),
+                    masks=MASKS[0], weights_v=MASKS[1]), path)
     run_world(DC.fsdp_rank_main, 4, path, out, device="cpu", threads=1,
               timeout_s=WORLD_TIMEOUT_S, store_dir=str(tmp))
     ranks = [torch.load(out.format(rank=r), weights_only=False)
@@ -146,6 +173,9 @@ def fsdp_world(tmp_path_factory):
     one["qwen3-32b-dp"] = vfl.make_vfl_round(d["cfg"], None, d["tp"],
                                              lr=LR)(stacked, d["batch"],
                                                     *MASKS)
+    for name, run in dp_decode.items():
+        one[name] = DC.greedy_decode(run, tree_map(torch.clone, run["cache"]),
+                                     run["tokens"])
     return runs, refs, ranks, one
 
 
@@ -210,6 +240,23 @@ def test_dp_profile_round_matches_one_process(fsdp_world):
         for a, b in zip(tree_leaves(got["local"]), tree_leaves(ref)):
             np.testing.assert_allclose(a.numpy(), b[got["vehicle"]].numpy(),
                                        atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", DP_DECODE_ARCHS)
+def test_dp_profile_decode_matches_one_process(fsdp_world, arch):
+    """The dp profile's decode: each rank's greedy steps (its rows of the
+    batch over the data axis, every head, S/2 of the cache's slots, the
+    partial softmax statistics merged over the model axis) against one
+    process's rows, within ATOL, the argmax identical at every step."""
+    _, _, ranks, one = fsdp_world
+    whole = one[f"{arch}-dp-decode"]
+    for r in range(4):
+        d = r // M
+        got = ranks[r][f"{arch}-dp-decode"]["decode"]
+        rows = whole[:, d * (B // 2):(d + 1) * (B // 2)]
+        np.testing.assert_allclose(got.numpy(), rows.numpy(), atol=ATOL,
+                                   rtol=0)
+        assert torch.equal(got.argmax(-1), rows.argmax(-1))
 
 
 def test_vehicles_over_pod_and_data_beside_a_model_axis(tmp_path):

@@ -49,7 +49,10 @@ def fsdp_rank_main(rank: int, inputs_path: str, out_path: str) -> None:
     rank's rows; one decode step of this rank's rows from the given
     cache. For each dp run (a `dp`-profile config of V vehicles): the
     round with the vehicle's parameters replicated over the model axis
-    and its batch split over it."""
+    and its batch split over it. For each dp decode run: greedy decode
+    steps of this rank's rows under the `dp` profile (the parameters
+    whole, each cache's sequence dim cut over the model axis), from the
+    given cache."""
     from repro_torch.fl.vfl import make_vfl_round
     from repro_torch.sharding.fsdp import layout_axis
     inp = torch.load(inputs_path, weights_only=False)
@@ -89,7 +92,28 @@ def fsdp_rank_main(rank: int, inputs_path: str, out_path: str) -> None:
         out = round_fn(params_v, batch, inp["masks"][:V],
                        inp["weights_v"][:V])
         res[name] = dict(local=tree_map(lambda x: x[0], out), vehicle=d)
+    for name, run in inp["dp_decode"].items():
+        cfg = run["cfg"]
+        cache = shard_params(mesh, run["cache"], run["cache_decl"],
+                             specs.pick_rules(cfg, mesh))
+        res[name] = dict(decode=greedy_decode(
+            run, cache, _rows(run["tokens"], 2, d), layout_axis(mesh, "dp")))
     torch.save(res, out_path.format(rank=rank))
+
+
+def greedy_decode(run, cache, tokens, mesh=None) -> torch.Tensor:
+    """`run["steps"]` greedy `decode_step`s of `run["cfg"]` from `cache`
+    at `run["pos"]`, each step's tokens the last one's argmax: the steps'
+    logits [steps, B, V]."""
+    pos, out = run["pos"], []
+    with torch.no_grad():
+        for _ in range(run["steps"]):
+            logits, cache = engine.decode_step(run["params"], cache, tokens,
+                                               pos, run["cfg"], mesh,
+                                               tp=run["tp"])
+            out.append(logits)
+            tokens, pos = logits.argmax(-1), pos + 1
+    return torch.stack(out)
 
 
 def pod_rank_main(rank: int, inputs_path: str, out_path: str) -> None:
